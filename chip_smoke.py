@@ -9,14 +9,26 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    name and power limit as nvidia-smi reports them;
 2. build the kernel library from tethys_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the serving path, f32 and bf16, with CUDA-event times (median of 30);
-4. whisper-base in f32 (random weights from seed 0) serves 2 requests of
-   30 s seeded audio on the card; the same model and inputs run on the CPU,
-   where every kernel's plain version runs; greedy tokens and length must
-   be identical and the encoder outputs close;
-5. whisper-base in bf16 at the serving bench's shape (batch 16, 128 decode
-   steps): encode ms, decode tokens/s, per-token latency;
-6. every kernel's launch count must have risen during phases 4-5.
+   of the serving and the training path, f32 and bf16, with CUDA-event
+   times (median of 30);
+4. serving: whisper-base in f32 (random weights from seed 0) serves 2
+   requests of 30 s seeded audio on the card; the same model and inputs
+   run on the CPU, where every kernel's plain version runs; greedy tokens
+   and length must be identical and the encoder outputs close;
+5. serving: whisper-base in bf16 at the serving bench's shape (batch 16,
+   128 decode steps): encode ms, decode tokens/s, per-token latency;
+6. training: whisper-base in f32 with every dropout rate 0 takes 2 Keras
+   Adam steps on batches of 2 from the synthetic dataset, on the card and
+   on the CPU; losses, first-step gradients and the parameters after step
+   2 must agree, and every parameter must get a finite, nonzero gradient
+   on the card;
+7. training: the job's train_whisper at the bench's shape (whisper-base,
+   batch 16, bf16 compute on f32 master weights, dropout on), 10 steps:
+   ms per step, audio seconds per second, peak memory; every loss finite
+   and the last 3 below the first on average;
+8. launch counts: set to 0 before each path (serving: phases 4-5,
+   training: phases 6-7) and read after it; every kernel of a path must
+   have launched during it.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -30,6 +42,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,6 +56,19 @@ BENCH_BATCH = 16
 BENCH_STEPS = 128
 TIMING_REPS = 30
 SAMPLE_RATE = 16000
+DROPOUT_RATE = 0.1      # the JAX config's dropout and attention_dropout
+TRAIN_F32_BATCH = 2
+TRAIN_F32_STEPS = 2
+TRAIN_BATCH = 16
+TRAIN_STEPS = 10
+TRAIN_WARMUP = 2
+AUDIO_SECONDS = 30.0    # per sample: 3000 mel frames
+# The kernels each path must launch.
+PATH_KERNELS = {
+    "serving": ("log_mel", "split_heads", "flash_fwd", "decode_self"),
+    "training": ("split_heads", "merge_heads", "flash_fwd",
+                 "flash_fwd_dropout", "flash_bwd", "dropout"),
+}
 
 
 def log(msg: str) -> None:
@@ -198,6 +224,108 @@ def check_kernels(results: dict) -> None:
            event_ms(lambda: decode.decode_self_cuda(q, kn, vn, kb, vb, 127)),
            event_ms(lambda: decode.plain_decode_self_attention(
                q, kn, vn, kb, vb, 127)))
+    check_training_kernels(record, randn)
+
+
+def check_training_kernels(record, randn) -> None:
+    """Phase 3, the training path's kernels at whisper-base b16's shapes:
+    B*H = 128, encoder self-attention 1500 x 1500, cross-attention
+    100 x 1500, D = 64."""
+    from tethys_tpu_torch.ops import dropout, flash_attention, transpose
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    seed, rate = 1234, DROPOUT_RATE
+
+    # merge_heads (split_heads' backward): [16, 8, T, 64] -> [16, T, 512].
+    errs = []
+    for dtype in (f32, bf16):
+        for t in (1500, 100):
+            x = randn(16, 8, t, 64, dtype=dtype)
+            errs.append(check(f"merge_heads {dtype} T={t}",
+                              max_err(transpose.merge_heads_cuda(x),
+                                      transpose.plain_merge_heads(x)), 0.0))
+    x = randn(16, 8, 1500, 64, dtype=bf16)
+    record("merge_heads", errs,
+           event_ms(lambda: transpose.merge_heads_cuda(x)),
+           event_ms(lambda: transpose.plain_merge_heads(x)))
+
+    # dropout: hidden states of the encoder and the decoder, and the
+    # decoder self-attention's probabilities; bit-exact (the same Philox).
+    errs = []
+    for dtype in (f32, bf16):
+        for shape in ((16, 1500, 512), (16, 100, 512), (16, 8, 100, 100)):
+            x = randn(*shape, dtype=dtype)
+            errs.append(check(
+                f"dropout {dtype} {list(shape)}",
+                max_err(dropout.dropout_cuda(x, rate, seed),
+                        dropout.plain_dropout(x, rate, seed)), 0.0))
+    x = randn(16, 1500, 512, dtype=bf16)
+    record("dropout", errs,
+           event_ms(lambda: dropout.dropout_cuda(x, rate, seed)),
+           event_ms(lambda: dropout.plain_dropout(x, rate, seed)))
+
+    def qkv(tq, tk, dtype):
+        return (randn(128, tq, 64, dtype=dtype, scale=64 ** -0.5),
+                randn(128, tk, 64, dtype=dtype), randn(128, tk, 64, dtype=dtype))
+
+    # flash forward with dropout: o and lse against the plain version with
+    # the same seed (the same mask); tolerances as at rate 0.
+    errs = []
+    for dtype, tol_o in ((f32, 1e-4), (bf16, 2e-2)):
+        for tq in (1500, 100):
+            q, k, v = qkv(tq, 1500, dtype)
+            o, lse = flash_attention.flash_fwd_cuda(q, k, v, 1500, rate, seed)
+            o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, 1500,
+                                                             rate, seed)
+            errs.append(check(f"flash_fwd_dropout o {dtype} {tq}x1500",
+                              max_err(o, o_ref), tol_o))
+            errs.append(check(f"flash_fwd_dropout lse {dtype} {tq}x1500",
+                              max_err(lse, lse_ref), 1e-4))
+    q, k, v = qkv(1500, 1500, bf16)
+    record("flash_fwd_dropout", errs,
+           event_ms(lambda: flash_attention.flash_fwd_cuda(q, k, v, 1500, rate,
+                                                           seed)),
+           event_ms(lambda: flash_attention.plain_flash_fwd(q, k, v, 1500,
+                                                            rate, seed)))
+
+    # flash backward against plain_flash_bwd (f32: two summation orders,
+    # 1e-4; bf16: dq, dk, dv are bf16 and below 2 in magnitude, where one
+    # bf16 step is at most 0.016, so 3e-2), and in f32 against torch
+    # autograd through the plain forward with the same seed (1e-4).
+    errs = []
+    for dtype, tol in ((f32, 1e-4), (bf16, 3e-2)):
+        for tq in (1500, 100):
+            for r in (0.0, rate):
+                q, k, v = qkv(tq, 1500, dtype)
+                do = randn(128, tq, 64, dtype=dtype)
+                o, lse = flash_attention.plain_flash_fwd(q, k, v, 1500, r, seed)
+                got = flash_attention.flash_bwd_cuda(q, k, v, o, lse, do, 1500,
+                                                     r, seed)
+                want = flash_attention.plain_flash_bwd(q, k, v, o, lse, do,
+                                                       1500, r, seed)
+                for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                    errs.append(check(
+                        f"flash_bwd {name} {dtype} {tq}x1500 rate {r}",
+                        max_err(a, b), tol))
+                if dtype != f32:
+                    continue
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                o_ref, _ = flash_attention.plain_flash_fwd(*leaves, 1500, r,
+                                                           seed)
+                o_ref.backward(do)
+                for name, a, leaf in zip(("dq", "dk", "dv"), got, leaves):
+                    errs.append(check(
+                        f"flash_bwd {name} f32 {tq}x1500 rate {r} vs autograd",
+                        max_err(a, leaf.grad), 1e-4))
+                del leaves, o_ref
+    q, k, v = qkv(1500, 1500, bf16)
+    do = randn(128, 1500, 64, dtype=bf16)
+    o, lse = flash_attention.flash_fwd_cuda(q, k, v, 1500, rate, seed)
+    record("flash_bwd", errs,
+           event_ms(lambda: flash_attention.flash_bwd_cuda(
+               q, k, v, o, lse, do, 1500, rate, seed)),
+           event_ms(lambda: flash_attention.plain_flash_bwd(
+               q, k, v, o, lse, do, 1500, rate, seed)))
 
 
 def seeded_audio(batch: int, seed: int) -> np.ndarray:
@@ -292,6 +420,146 @@ def run_slice_bf16(gpu: str) -> dict:
     return stats
 
 
+def run_train_f32() -> None:
+    """Phase 6: f32 training steps on the card against the CPU."""
+    from tethys_tpu_torch import data
+    from tethys_tpu_torch.models.whisper import create_whisper_model
+    from tethys_tpu_torch.parallel import dp
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev, cpu = require_cuda(), torch.device("cpu")
+    lr = 1e-4
+    model, _ = create_whisper_model(
+        MODEL, device=dev, seed=SEED, param_dtype=torch.float32,
+        dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
+    cpu_model = copy.deepcopy(model).cpu()
+    batches = iter(data.create_whisper_dummy_dataset(TRAIN_F32_BATCH))
+    batches = [next(batches) for _ in range(TRAIN_F32_STEPS)]
+
+    def loss_fn(m, batch, generator):
+        features, labels = batch
+        return m(features, labels=labels, generator=generator)["loss"], {}
+
+    runs = {}
+    for name, m, device in (("card", model, dev), ("cpu", cpu_model, cpu)):
+        m.train()
+        opt = dp.whisper_optimizer(m.parameters(), lr)
+        step = dp.make_train_step(loss_fn, opt)
+        state = dp.TrainState(m, opt)
+        losses, grads = [], None
+        t0 = time.perf_counter()
+        for i, (features, labels) in enumerate(batches):
+            batch = (torch.from_numpy(features).to(device),
+                     torch.from_numpy(labels).to(device))
+            state, loss = step(state, batch, dp.step_generator(SEED, i))
+            losses.append(loss.item())
+            if grads is None:
+                grads = {n: p.grad.detach().to(cpu, copy=True)
+                         for n, p in m.named_parameters()}
+        log(f"  f32 {name}: {TRAIN_F32_STEPS} steps in "
+            f"{time.perf_counter() - t0:.2f} s, losses {losses}")
+        runs[name] = (losses, grads, {n: p.detach().to(cpu)
+                                      for n, p in m.named_parameters()})
+
+    (card_losses, card_grads, card_params) = runs["card"]
+    (cpu_losses, cpu_grads, cpu_params) = runs["cpu"]
+    require(all(np.isfinite(card_losses)), f"card losses {card_losses}")
+    # Losses: two f32 implementations summing in other orders, 1e-4 relative.
+    check("f32 train losses card vs cpu (relative)",
+          max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)),
+          1e-4)
+    # Every parameter gets a finite, nonzero gradient on the card (the
+    # kernels are on the autograd tape), within 1e-3 of the CPU's in norm,
+    # + 1e-6 for k_proj.bias, whose gradient is zero but for rounding
+    # (softmax does not see a key bias).
+    worst = 0.0
+    for n, g in card_grads.items():
+        require(bool(torch.isfinite(g).all()) and bool(g.norm() > 0),
+                f"gradient of {n} on the card is not finite or is zero")
+        gap = (g - cpu_grads[n]).norm().item()
+        bound = 1e-3 * cpu_grads[n].norm().item() + 1e-6
+        require(gap <= bound, f"gradient of {n}: card vs cpu {gap:.3e} > "
+                              f"{bound:.3e}")
+        worst = max(worst, gap / bound)
+    log(f"  f32 step-1 gradients: {len(card_grads)} tensors finite and "
+        f"nonzero on the card; worst gap to cpu {worst:.3f} of its bound "
+        f"(1e-3 * norm + 1e-6)")
+    # Parameters after the last step: Keras Adam moves a weight by about
+    # lr * sign(g) a step, and a gradient near zero may take either sign on
+    # the two devices, so the bound is 2 * lr * steps.
+    check("f32 params after the last step card vs cpu",
+          max(max_err(card_params[n], cpu_params[n]) for n in card_params),
+          2 * lr * TRAIN_F32_STEPS)
+
+
+def run_train_bf16(gpu: str) -> dict:
+    """Phase 7: the training job's loop at the bench's shape."""
+    from tethys_tpu_torch.train import jobs
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    step_times = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        os.environ["TETHYS_WORKSPACE"] = ws
+        os.environ["TETHYS_RESULT"] = ws
+        with open(os.path.join(ws, "model.txt"), "w") as fh:
+            fh.write("chip_smoke")
+        os.makedirs(os.path.join(ws, "chip_smoke"))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result, _, cfg = jobs.train_whisper(
+            model_type=MODEL, batch_size_per_replica=TRAIN_BATCH,
+            num_batches=TRAIN_STEPS, compute_dtype="bfloat16", device=dev,
+            seed=SEED, step_hooks=(lambda i, loss, dur: step_times.append(dur),))
+        jct = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        jobs.finalize_job(result, f"whisper_{MODEL}_model", jct)
+        for path in (("chip_smoke", "worker_0_jct.txt"),
+                     ("checkpoints", f"whisper_{MODEL}_epoch_1", "model.pt"),
+                     ("model_cache", f"whisper_{MODEL}_model", "model.pt")):
+            require(os.path.exists(os.path.join(ws, *path)),
+                    f"the job wrote no {'/'.join(path)}")
+    losses = result.losses
+    require(cfg.dropout == cfg.attention_dropout == DROPOUT_RATE,
+            f"dropout rates {cfg.dropout}, {cfg.attention_dropout}")
+    require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+            f"losses {losses}")
+    require(statistics.mean(losses[-3:]) < losses[0],
+            f"loss did not fall: {losses}")
+    ms = statistics.median(step_times[TRAIN_WARMUP:]) * 1e3
+    stats = {
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "losses": losses,
+        "ms_per_step": ms, "step_ms": [t * 1e3 for t in step_times],
+        "audio_s_per_s": TRAIN_BATCH * AUDIO_SECONDS / (ms / 1e3),
+        "peak_mem_gib": peak / 2 ** 30, "jct_s": jct, "gpu": gpu,
+    }
+    log(f"  bf16 whisper-{MODEL} b{TRAIN_BATCH} train on {gpu}: "
+        f"{ms:.2f} ms/step (median of steps {TRAIN_WARMUP}-{TRAIN_STEPS - 1}),"
+        f" {stats['audio_s_per_s']:.1f} audio-s/s, peak memory "
+        f"{stats['peak_mem_gib']:.2f} GiB")
+    log("  training " + json.dumps(stats))
+    return stats
+
+
+def drive_path(name: str, phases) -> dict:
+    """Runs a path's phases, (title, fn, *args) each, with the launch counts
+    set to 0 just before and read just after; raises unless each of the
+    path's kernels launched."""
+    from tethys_tpu_torch.utils import kernel_lib
+
+    torch.cuda.synchronize()
+    kernel_lib.reset_launch_counts()
+    for title, fn, *args in phases:
+        log(title)
+        fn(*args)
+    torch.cuda.synchronize()
+    counts = kernel_lib.launch_counts()
+    log(f"  launches during the {name} path: {counts}")
+    missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+    require(not missing, f"{name}: kernels never launched: {missing}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -321,14 +589,14 @@ def main() -> int:
     check_kernels(results)
     torch.cuda.synchronize()
 
-    kernel_lib.reset_launch_counts()
-    log("[4] whisper-base f32 slice, card against cpu")
-    run_slice_f32()
-    log("[5] whisper-base bf16 serving")
-    run_slice_bf16(gpu)
-    torch.cuda.synchronize()
-    counts = kernel_lib.launch_counts()
-    log(f"[6] launches during the slice: {counts}")
+    serving = drive_path("serving", (
+        ("[4] whisper-base f32 serving, card against cpu", run_slice_f32),
+        ("[5] whisper-base bf16 serving", run_slice_bf16, gpu)))
+    training = drive_path("training", (
+        ("[6] whisper-base f32 training, card against cpu", run_train_f32),
+        ("[7] whisper-base bf16 training job", run_train_bf16, gpu)))
+    counts = {k: serving[k] + training[k] for k in serving}
+    log(f"[8] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")
 

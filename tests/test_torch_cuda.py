@@ -3,9 +3,11 @@
 Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips
 where torch.cuda.is_available() is false (as on a CPU-only machine).
 These cover the kernels' branches off the main path's shapes: head
-dims 16-128, ragged sequence edges, misaligned and odd-width head splits,
-caches that need more than 48 KB of shared memory, and the wrappers'
-refusals.  On a machine with the card and the CUDA toolkit:
+dims 16-128, ragged sequence edges, misaligned and odd-width head splits
+and merges, dropout on odd lengths and misaligned views, the flash
+backward with and without dropout, caches that need more than 48 KB of
+shared memory, the wrappers' refusals, and a tiny training step on the card
+against the CPU.  On a machine with the card and the CUDA toolkit:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -19,7 +21,8 @@ import torch
 from tethys_tpu_torch.audio import logmel
 from tethys_tpu_torch.audio.frontend import frame_signal
 from tethys_tpu_torch.models.whisper import create_whisper_model, greedy_generate
-from tethys_tpu_torch.ops import decode, flash_attention, transpose
+from tethys_tpu_torch.ops import decode, dropout, flash_attention, transpose
+from tethys_tpu_torch.parallel import dp
 from tethys_tpu_torch.utils import kernel_lib
 
 pytestmark = pytest.mark.cuda
@@ -149,3 +152,159 @@ def test_tiny_greedy_identical_on_card_and_cpu(cuda):
     want, want_len = greedy_generate(cpu_model, feats, max_length=12)
     assert torch.equal(tokens.cpu(), want)
     assert int(length) == int(want_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,h,d", [(37, 3, 16), (1, 8, 64), (5, 4, 6),
+                                   (9, 2, 5), (11, 5, 3)])
+def test_merge_heads_exact(cuda, dtype, t, h, d):
+    """The split's three vector paths, in the merge direction."""
+    x = _randn(cuda, 2, h, t, d, dtype=dtype)
+    before = kernel_lib.MERGE_HEADS.launches
+    got = transpose.merge_heads_cuda(x)
+    assert kernel_lib.MERGE_HEADS.launches == before + 1
+    assert torch.equal(got, transpose.plain_merge_heads(x))
+
+
+def test_split_heads_backward_launches_merge(cuda):
+    x = _randn(cuda, 2, 7, 64).requires_grad_()
+    dy = _randn(cuda, 2, 4, 7, 16, seed=1)
+    before = kernel_lib.MERGE_HEADS.launches
+    transpose.split_heads(x, 4).backward(dy)
+    assert kernel_lib.MERGE_HEADS.launches == before + 1
+    assert torch.equal(x.grad, transpose.plain_merge_heads(dy))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(1, 0), (7, 0), (4096, 0), (1001, 1),
+                                      (3 * 1500 * 512, 0)])
+def test_dropout_exact(cuda, dtype, n, offset):
+    """Bit-exact against the plain Philox, vector and scalar paths."""
+    base = _randn(cuda, n + offset, dtype=dtype, seed=11)
+    x = base[offset:]
+    before = kernel_lib.DROPOUT.launches
+    got = dropout.fused_dropout(x, 0.1, 12345)
+    assert kernel_lib.DROPOUT.launches == before + 1
+    assert torch.equal(got, dropout.plain_dropout(x, 0.1, 12345))
+
+
+def test_dropout_backward_is_the_same_mask(cuda):
+    x = _randn(cuda, 16, 100, 100, dtype=torch.bfloat16).requires_grad_()
+    y = dropout.fused_dropout(x, 0.1, 7)
+    y.backward(torch.ones_like(y))
+    assert torch.equal(x.grad != 0, dropout.keep_mask(7, x.shape, 0.1, cuda))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("tq,tk,kv_len", [(1, 100, 100), (65, 130, 100),
+                                          (200, 77, 77), (100, 1500, 1500)])
+def test_flash_fwd_dropout_matches_plain(cuda, dtype, tol, d, tq, tk, kv_len):
+    q = _randn(cuda, 3, tq, d, dtype=dtype, scale=d ** -0.5, seed=1)
+    k = _randn(cuda, 3, tk, d, dtype=dtype, seed=2)
+    v = _randn(cuda, 3, tk, d, dtype=dtype, seed=3)
+    before = kernel_lib.FLASH_FWD_DROPOUT.launches
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, kv_len, 0.1, 99)
+    assert kernel_lib.FLASH_FWD_DROPOUT.launches == before + 1
+    o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, kv_len, 0.1, 99)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0),
+                                             (torch.bfloat16, 3e-2, 1e-2)])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("tq,tk,kv_len", [(1, 100, 100), (65, 130, 100),
+                                          (200, 77, 77), (100, 300, 300)])
+def test_flash_bwd_matches_plain(cuda, rate, dtype, atol, rtol, d, tq, tk,
+                                 kv_len):
+    """f32: two summation orders.  bf16: the outputs are bf16, and at D 128
+    dq reaches ~7, where one bf16 step is 0.03, so a sum that lands on the
+    other side of a rounding boundary is one step off: rtol 1e-2 (2-3 bf16
+    steps) on top of atol 3e-2."""
+    q = _randn(cuda, 3, tq, d, dtype=dtype, scale=d ** -0.5, seed=1)
+    k = _randn(cuda, 3, tk, d, dtype=dtype, seed=2)
+    v = _randn(cuda, 3, tk, d, dtype=dtype, seed=3)
+    do = _randn(cuda, 3, tq, d, dtype=dtype, seed=4)
+    o, lse = flash_attention.plain_flash_fwd(q, k, v, kv_len, rate, 5)
+    before = kernel_lib.FLASH_BWD.launches
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, kv_len,
+                                              rate, 5)
+    assert kernel_lib.FLASH_BWD.launches == before + 1
+    want = flash_attention.plain_flash_bwd(q, k, v, o, lse, do, kv_len,
+                                           rate, 5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+    assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_backward_matches_autograd_of_plain(cuda, rate):
+    """f32: the kernel backward against torch autograd through the plain
+    forward with the same seed."""
+    q, k, v = (_randn(cuda, 4, 130, 64, scale=s, seed=i)
+               for i, s in ((1, 0.125), (2, 1.0), (3, 1.0)))
+    g = _randn(cuda, 4, 130, 64, seed=4)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention.flash_attention(*(t[None] for t in leaves),
+                                    dropout_rate=rate, seed=6).backward(g[None])
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_ref, _ = flash_attention.plain_flash_fwd(*refs, 130, rate, 6)
+    o_ref.backward(g)
+    for a, b in zip(leaves, refs):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-4)
+
+
+def test_tiny_training_steps_card_against_cpu(cuda):
+    """Three f32 steps with dropout on (the same seeds on both devices, so
+    the same masks): every loss to 1e-4 relative; the first step's
+    gradients to 1e-3 of each tensor's norm + 1e-6 (k_proj.bias has a
+    gradient that is zero but for rounding: softmax does not see a key
+    bias), and finite and nonzero on the
+    card; parameters to 2 * lr * steps, since Keras Adam's first steps move
+    a weight by about lr * sign(g) and a gradient near zero may take either
+    sign on two devices.  Every training kernel launched."""
+    overrides = dict(TINY, n_ctx=600, vocab_size=128,
+                     decoder_start_token_id=101, max_target_positions=128)
+    lr, steps = 1e-4, 3
+    feats = _randn(torch.device("cpu"), 2, 8, 1200, seed=10)
+    labels = torch.randint(3, 100, (2, 40),
+                           generator=torch.Generator().manual_seed(0))
+    kernel_lib.reset_launch_counts()
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        model, _ = create_whisper_model(device=dev, seed=3,
+                                        param_dtype=torch.float32, **overrides)
+        model.train()
+        opt = dp.whisper_optimizer(model.parameters(), lr)
+        step = dp.make_train_step(
+            lambda m, b, g: (m(b[0], labels=b[1], generator=g)["loss"], {}),
+            opt)
+        state = dp.TrainState(model, opt)
+        losses, grads = [], None
+        for i in range(steps):
+            state, loss = step(state, (feats.to(dev), labels.to(dev)),
+                               dp.step_generator(0, i))
+            losses.append(loss.item())
+            if grads is None:
+                grads = [p.grad.detach().cpu().clone()
+                         for p in model.parameters()]
+        runs.append((model, losses, grads))
+        if dev.type == "cuda":
+            counts = kernel_lib.launch_counts()
+    (card, card_losses, card_grads), (cpu, cpu_losses, cpu_grads) = runs
+    assert all(counts[name] > 0 for name in (
+        "split_heads", "merge_heads", "flash_fwd_dropout", "flash_bwd",
+        "dropout"))
+    torch.testing.assert_close(torch.tensor(card_losses),
+                               torch.tensor(cpu_losses), rtol=1e-4, atol=0)
+    for (name, _), a, b in zip(cpu.named_parameters(), card_grads, cpu_grads):
+        assert torch.isfinite(a).all() and a.norm() > 0, name
+        assert (a - b).norm() <= 1e-3 * b.norm() + 1e-6, name
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=2 * lr * steps)

@@ -3,6 +3,9 @@
 Each kernel's plain version (what a CPU tensor runs) is held to the JAX
 function that reaches the Pallas kernel, run in interpret mode as the JAX
 package's own tests run it.  Inputs come from numpy seeds; f32 throughout.
+Dropout bits cannot match the TPU's (another generator), so dropout is
+held to JAX at rate 0 and otherwise to its own contract: Philox's
+known-answer vectors, the kept fraction, one mask in forward and backward.
 """
 
 import ast
@@ -21,7 +24,13 @@ from tethys_tpu.ops.activations import gelu as jax_gelu
 from tethys_tpu.ops.attention import decode_attention as jax_decode_attention
 from tethys_tpu.ops.masks import causal_additive_mask as jax_causal
 from tethys_tpu.ops.posenc import sinusoidal_table as jax_sinusoidal
-from tethys_tpu_torch.ops import attention, decode, flash_attention, transpose
+from tethys_tpu_torch.ops import (
+    attention,
+    decode,
+    dropout,
+    flash_attention,
+    transpose,
+)
 from tethys_tpu_torch.ops.activations import gelu
 from tethys_tpu_torch.ops.masks import causal_additive_mask
 from tethys_tpu_torch.ops.posenc import sinusoidal_table
@@ -80,9 +89,158 @@ def test_plain_flash_matches_pallas(monkeypatch, t, kv_len):
 
 
 def test_flash_dropout_not_ported():
-    q = torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention.flash_attention(q, q, q, dropout_rate=0.1)
+    """Dropout in flash attention is ported (this test once pinned the
+    refusal of a nonzero rate).  At rate 0.1 it drops the probabilities
+    of its own (seed, flat [BH, Tq, Tk] index) mask after the row sum: the output
+    equals the composition written out, a seed gives one output, and rate
+    0 is the undropped forward."""
+    rng = np.random.default_rng(11)
+    q = _t(rng.standard_normal((1, 2, 24, 16)).astype(np.float32) * 0.3)
+    k = _t(rng.standard_normal((1, 2, 40, 16)).astype(np.float32) * 0.3)
+    v = _t(rng.standard_normal((1, 2, 40, 16)).astype(np.float32))
+    got = flash_attention.flash_attention(q, k, v, dropout_rate=0.1, seed=7)
+    s = torch.matmul(q[0], k[0].transpose(1, 2))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    keep = dropout.keep_mask(7, (2, 24, 40), 0.1)
+    want = (torch.matmul(torch.where(keep, p, 0.0), v[0])
+            * (dropout.dropout_scale(0.1) / p.sum(-1, keepdim=True)))
+    np.testing.assert_allclose(got[0].numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    again = flash_attention.flash_attention(q, k, v, dropout_rate=0.1, seed=7)
+    assert torch.equal(got, again)
+    other = flash_attention.flash_attention(q, k, v, dropout_rate=0.1, seed=8)
+    assert not torch.equal(got, other)
+    undropped = flash_attention.flash_attention(q, k, v, dropout_rate=0.0,
+                                                seed=7)
+    assert torch.equal(undropped, flash_attention.flash_attention(q, k, v))
+    # the backward regenerates that mask: FlashAttention's gradients equal
+    # autograd through the plain forward with the same seed.
+    qs, ks, vs = (x[0].clone().requires_grad_() for x in (q, k, v))
+    g = _t(rng.standard_normal((2, 24, 16)).astype(np.float32))
+    flash_attention.FlashAttention.apply(qs, ks, vs, 40, 0.1, 7).backward(g)
+    qr, kr, vr = (x[0].clone().requires_grad_() for x in (q, k, v))
+    o_ref, _ = flash_attention.plain_flash_fwd(qr, kr, vr, 40, 0.1, 7)
+    o_ref.backward(g)
+    for a, b in ((qs, qr), (ks, kr), (vs, vr)):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("tq,tk,kv_len", [(200, 200, 200), (100, 640, 640),
+                                          (100, 640, 600)])
+def test_plain_flash_bwd_matches_pallas(monkeypatch, tq, tk, kv_len):
+    """dq, dk, dv of the plain backward (and of the FlashAttention Function
+    on CPU tensors) against jax.grad of the Pallas flash attention in
+    interpret mode at rate 0: self (1, 2, 200, 64) and cross 100 x 640,
+    with and without masked keys; rtol 1e-4, atol 1e-5 as
+    tests/test_pallas_attention.py."""
+    monkeypatch.setattr(pa, "_INTERPRET", True)
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((1, 2, tq, 64)).astype(np.float32) * 0.3
+    k = rng.standard_normal((1, 2, tk, 64)).astype(np.float32) * 0.3
+    v = rng.standard_normal((1, 2, tk, 64)).astype(np.float32)
+    g = rng.standard_normal((1, 2, tq, 64)).astype(np.float32)
+    want = jax.grad(
+        lambda q, k, v: jnp.sum(pa.flash_attention(q, k, v, kv_len=kv_len)
+                                * jnp.asarray(g)),
+        argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    q3, k3, v3, g3 = (_t(x[0]) for x in (q, k, v, g))
+    o, lse = flash_attention.flash_attention_fwd(q3, k3, v3, kv_len)
+    plain = flash_attention.flash_attention_bwd(q3, k3, v3, o, lse, g3,
+                                                kv_len)
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    flash_attention.flash_attention(*leaves, kv_len=kv_len).backward(_t(g))
+    for w, p, leaf in zip(want, plain, leaves):
+        np.testing.assert_allclose(p.numpy(), np.asarray(w)[0], rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_split_heads_gradient_is_a_merge():
+    x = _t(np.random.default_rng(13).standard_normal((2, 5, 12)).astype(
+        np.float32)).requires_grad_()
+    y = transpose.split_heads(x, 3)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(0))
+    y.backward(dy)
+    assert torch.equal(x.grad, transpose.plain_merge_heads(dy))
+    assert torch.equal(x.grad, transpose.merge_heads(dy))
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_plain_philox_known_answers(counter, key, want):
+    """Random123's Philox4x32-10 known-answer vectors."""
+    words = dropout.philox4x32_10(
+        [torch.tensor([c], dtype=torch.int64) for c in counter], key)
+    assert tuple(int(w) for w in words) == want
+
+
+def test_dropout_bits_are_a_function_of_seed_and_index():
+    bits = dropout.philox_bits(5, 103)
+    assert torch.equal(bits, dropout.philox_bits(5, 103))
+    assert torch.equal(bits[:50], dropout.philox_bits(5, 50))
+    assert not torch.equal(bits, dropout.philox_bits(6, 103))
+    # elements 100-102 are outputs 0-2 of Philox at counter 25, key (5, 0)
+    zero = torch.zeros(1, dtype=torch.int64)
+    words = dropout.philox4x32_10((zero + 25, zero, zero, zero), (5, 0))
+    assert [int(w) for w in words[:3]] == bits[100:].tolist()
+    assert dropout.dropout_threshold(0.1) == int(0.1 * 2 ** 32)
+    assert dropout.dropout_threshold(1.0) == 2 ** 32 - 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_identity_at_rate_zero(dtype):
+    x = torch.randn(4, 9, generator=torch.Generator().manual_seed(1)).to(dtype)
+    assert dropout.fused_dropout(x, 0.0, 3) is x
+    assert dropout.module_dropout(x, 0.1, False, None) is x
+    assert dropout.module_dropout(x, 0.0, True, None) is x
+
+
+def test_dropout_kept_fraction_and_scale():
+    """At rate 0.1 over 1e5 elements the kept fraction lies within 5
+    binomial standard deviations of 0.9, and survivors are x / 0.9."""
+    n, rate = 100_000, 0.1
+    x = torch.full((n // 100, 100), 2.0)
+    y = dropout.fused_dropout(x, rate, 1234)
+    kept = (y != 0).float().mean().item()
+    assert abs(kept - (1 - rate)) < 5 * (rate * (1 - rate) / n) ** 0.5
+    assert torch.equal(y[y != 0], torch.full_like(y[y != 0],
+                                                  2.0 * dropout.dropout_scale(rate)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_same_mask_forward_and_backward(dtype):
+    """grad of sum(dropout(x)) is exactly mask / (1 - r), the forward's
+    mask."""
+    x = torch.randn(3, 7, 5, generator=torch.Generator().manual_seed(2)).to(
+        dtype).requires_grad_()
+    y = dropout.fused_dropout(x, 0.25, 99)
+    y.sum().backward()
+    keep = dropout.keep_mask(99, x.shape, 0.25)
+    scale = torch.tensor(dropout.dropout_scale(0.25)).to(dtype)
+    assert torch.equal(x.grad, torch.where(keep, scale, 0.0).to(dtype))
+    assert torch.equal(y != 0, keep & (x != 0))
+
+
+def test_dropout_seeds_come_from_a_cpu_generator():
+    gen = torch.Generator().manual_seed(0)
+    seeds = [dropout.seed_from_generator(gen) for _ in range(3)]
+    assert all(0 <= s < 2 ** 31 - 1 for s in seeds) and len(set(seeds)) == 3
+    assert dropout.seed_from_generator(
+        torch.Generator().manual_seed(0)) == seeds[0]
+    with pytest.raises(ValueError, match="Generator"):
+        dropout.module_dropout(torch.ones(3), 0.1, True, None)
+    with pytest.raises(ValueError, match="generator"):
+        attention.multi_head_attention(*(torch.ones(1, 1, 2, 4),) * 3,
+                                       dropout_rate=0.1, training=True)
 
 
 def _decode_inputs(rng, b, h, d, t, idx):
@@ -161,6 +319,15 @@ def test_wrappers_refuse_other_devices():
     buf = torch.empty(1, 2, 4, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         decode.decode_self_attention(q, q, q, buf, buf, 0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        dropout.fused_dropout(meta, 0.1, 0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        transpose.split_heads(meta.requires_grad_(), 2)
+    q3 = torch.empty(2, 8, 4, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash_attention.flash_attention_bwd(q3, q3, q3, q3,
+                                            torch.empty(2, 8, device="meta"),
+                                            q3)
 
 
 def test_cpu_tensors_leave_launch_counts_at_zero():
@@ -172,9 +339,16 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     q = torch.zeros(1, 2, 1, 4)
     decode.decode_self_attention(q, q, q, torch.zeros(1, 2, 4, 3),
                                  torch.zeros(1, 2, 4, 3), 1)
+    xg = x.clone().requires_grad_()
+    transpose.split_heads(xg, 2).sum().backward()
+    q3g = q3.clone().requires_grad_()
+    flash_attention.flash_attention(q3g[None], q3g[None], q3g[None],
+                                    dropout_rate=0.1, seed=1).sum().backward()
+    dropout.fused_dropout(x, 0.1, 1)
     assert all(n == 0 for n in kernel_lib.launch_counts().values())
     assert [k.name for k in kernel_lib.KERNELS] == [
-        "log_mel", "split_heads", "flash_fwd", "decode_self"]
+        "log_mel", "split_heads", "merge_heads", "flash_fwd",
+        "flash_fwd_dropout", "flash_bwd", "dropout", "decode_self"]
     for k in kernel_lib.KERNELS:
         assert (PKG.parent / k.source).is_file()
         assert (PKG.parent / k.replaces.split(":")[0]).is_file()

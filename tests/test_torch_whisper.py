@@ -148,4 +148,6 @@ def test_cpu_slice_launches_no_kernel(tiny):
     wave = np.random.default_rng(8).standard_normal(4000).astype(np.float32)
     transcribe_audio(port, wave, max_length=4)
     assert kernel_lib.launch_counts() == {
-        "log_mel": 0, "split_heads": 0, "flash_fwd": 0, "decode_self": 0}
+        "log_mel": 0, "split_heads": 0, "merge_heads": 0, "flash_fwd": 0,
+        "flash_fwd_dropout": 0, "flash_bwd": 0, "dropout": 0,
+        "decode_self": 0}

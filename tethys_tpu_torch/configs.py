@@ -3,7 +3,8 @@
 Field for field the same as ``tethys_tpu.configs.WhisperConfig`` (the
 reference's nonstandard "small" default: d_model 768 with 4 + 4 layers),
 with ``dtype`` resolving ``compute_dtype`` to a torch dtype.  The model
-holds its parameters in that dtype (models/whisper.py).
+computes in that dtype; training holds f32 master weights and serving its
+weights in that dtype (models/whisper.py).
 """
 
 from __future__ import annotations

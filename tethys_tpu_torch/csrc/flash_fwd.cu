@@ -1,8 +1,10 @@
-// Flash attention forward: o = softmax(q k^T, keys >= kv_len masked) v and
-// the per-row log-sum-exp, on [B*H, T, D] with q pre-scaled.
+// Flash attention forward: o = dropout(softmax(q k^T, keys >= kv_len
+// masked)) v and the per-row log-sum-exp, on [B*H, T, D] with q pre-scaled.
 //
 // Replaces tethys_tpu/ops/pallas_attention.py::_fwd_kernel (launched by
-// _flash_fwd, via flash_attention) at dropout rate 0.  The TPU kernel took
+// _flash_fwd, via flash_attention).  Two entry points: tethys_flash_fwd
+// (rate 0, serving) and tethys_flash_fwd_dropout (training), one template
+// with the dropout code compiled in or out.  The TPU kernel took
 // the whole key range of whisper's 1500 frames as one [512, 2048] VMEM
 // block; here one block of 256 threads owns BQ = 64 query rows of one
 // (batch, head) and streams the keys through shared memory BK = 64 at a
@@ -19,6 +21,14 @@
 // input dtype before the P @ V product, as the TPU kernel rounds them.
 // wgmma and TMA are the next step (ROADMAP.md, queue 2).
 //
+// Dropout, as in the TPU kernel: the running max m and sum l come from the
+// undropped probabilities, a dropped probability is zeroed before its
+// rounding and the P @ V product, the output is acc * (scale / l) with
+// scale = 1 / (1 - rate), and lse = m + log l is unchanged.  The keep bit
+// of (row, col) is Philox at the counter (bh * Tq + row) * Tk + col
+// (philox.cuh), independent of the 64-key tiling; each tile's 64 x 64 bits
+// are drawn into shared memory by the whole block, 16 keys a thread.
+//
 // Masking: keys at or past min(kv_len, Tk) get probability 0 and key tiles
 // wholly past it are never loaded, so every tile the loop sees holds at
 // least one valid key.  Query rows at or past Tq are zero-filled and not
@@ -26,6 +36,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -36,20 +47,22 @@ constexpr int kPad = 4;  // keeps float4 alignment, spreads banks
 constexpr int kRows = 4; // query rows per thread
 constexpr int kCols = 4; // key columns per thread
 
-template <int DMAX>
+template <int DMAX, bool kDropout>
 constexpr int smem_floats() {
   return DMAX * (kBQ + kPad)    // q, transposed [d][row]
          + DMAX * (kBK + kPad)  // k, transposed [d][key]
          + kBK * DMAX           // v [key][d]
-         + kBK * (kBQ + kPad);  // p, transposed [key][row]
+         + kBK * (kBQ + kPad)   // p, transposed [key][row]
+         + (kDropout ? kBQ * 2 : 0);  // keep bits, 64 per row
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int Tq, int Tk, int D,
-                     int kv_len) {
+                     int kv_len, uint32_t seed, uint32_t threshold,
+                     float scale) {
   constexpr int kOutCols = DMAX / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -57,6 +70,8 @@ __global__ void __launch_bounds__(kThreads)
   float* sK = sQ + DMAX * (kBQ + kPad);
   float* sV = sK + DMAX * (kBK + kPad);
   float* sP = sV + kBK * DMAX;
+  // keep bits: row r's keys 16j .. 16j + 15 in sMask[r * 4 + j]
+  uint16_t* sMask = reinterpret_cast<uint16_t*>(sP + kBK * (kBQ + kPad));
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // 16 threads share a row group
@@ -94,6 +109,13 @@ __global__ void __launch_bounds__(kThreads)
       const long long off = (long long)key * D + d;
       sK[d * (kBK + kPad) + c] = ok ? tethys::to_f32<T>(kb[off]) : 0.f;
       sV[c * DMAX + d] = ok ? tethys::to_f32<T>(vb[off]) : 0.f;
+    }
+    if constexpr (kDropout) {
+      const int r = tid >> 2, quarter = tid & 3;  // 64 rows x 4 quarters
+      const uint64_t n0 = ((uint64_t)bh * Tq + (q0 + r)) * (uint64_t)Tk +
+                          (uint64_t)(k0 + 16 * quarter);
+      sMask[r * 4 + quarter] =
+          (uint16_t)tethys::keep_bits16(n0, seed, threshold);
     }
     __syncthreads();
 
@@ -133,8 +155,11 @@ __global__ void __launch_bounds__(kThreads)
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
+        float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
         sum += p;
+        if constexpr (kDropout) {
+          if (!((sMask[(ty * kRows + i) * 4 + j] >> tx) & 1u)) p = 0.f;
+        }
         s[i][j] = tethys::round_to<T>(p);
       }
 #pragma unroll
@@ -171,7 +196,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty * kRows + i;
     if (row >= Tq) continue;
-    const float inv = 1.f / l[i];
+    const float inv = scale / l[i];
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j) {
       const int d = tx + 16 * j;
@@ -182,19 +207,42 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kDropout>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int BH, int Tq, int Tk, int D, int kv_len, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<DMAX>();
+           int BH, int Tq, int Tk, int D, int kv_len, uint32_t seed,
+           uint32_t threshold, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats<DMAX, kDropout>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, DMAX, kDropout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, DMAX, kDropout><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, Tq, Tk, D,
-      kv_len);
+      kv_len, seed, threshold, scale);
   return (int)cudaGetLastError();
+}
+
+template <bool kDropout>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int BH, int Tq, int Tk, int D, int kv_len, int is_bf16,
+             uint32_t seed, uint32_t threshold, float scale, void* stream) {
+  if (BH <= 0 || BH > 65535 || Tq <= 0 || Tk <= 0 || D <= 0 || D > 128 ||
+      kv_len <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    if (D <= 64)
+      return launch<__nv_bfloat16, 64, kDropout>(
+          q, k, v, o, lse, BH, Tq, Tk, D, kv_len, seed, threshold, scale, s);
+    return launch<__nv_bfloat16, 128, kDropout>(
+        q, k, v, o, lse, BH, Tq, Tk, D, kv_len, seed, threshold, scale, s);
+  }
+  if (D <= 64)
+    return launch<float, 64, kDropout>(q, k, v, o, lse, BH, Tq, Tk, D, kv_len,
+                                       seed, threshold, scale, s);
+  return launch<float, 128, kDropout>(q, k, v, o, lse, BH, Tq, Tk, D, kv_len,
+                                      seed, threshold, scale, s);
 }
 
 }  // namespace
@@ -206,15 +254,19 @@ TETHYS_EXPORT int tethys_flash_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int BH,
                                    int Tq, int Tk, int D, int kv_len,
                                    int is_bf16, void* stream) {
-  if (BH <= 0 || BH > 65535 || Tq <= 0 || Tk <= 0 || D <= 0 || D > 128 ||
-      kv_len <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    if (D <= 64)
-      return launch<__nv_bfloat16, 64>(q, k, v, o, lse, BH, Tq, Tk, D, kv_len, s);
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, BH, Tq, Tk, D, kv_len, s);
-  }
-  if (D <= 64) return launch<float, 64>(q, k, v, o, lse, BH, Tq, Tk, D, kv_len, s);
-  return launch<float, 128>(q, k, v, o, lse, BH, Tq, Tk, D, kv_len, s);
+  return dispatch<false>(q, k, v, o, lse, BH, Tq, Tk, D, kv_len, is_bf16, 0u,
+                         0u, 1.f, stream);
+}
+
+// The same with attention dropout: keep = Philox bits >= threshold
+// (threshold = uint32(rate * 2^32)), scale = 1 / (1 - rate), both as the
+// wrapper computes them.
+TETHYS_EXPORT int tethys_flash_fwd_dropout(const void* q, const void* k,
+                                           const void* v, void* o, void* lse,
+                                           int BH, int Tq, int Tk, int D,
+                                           int kv_len, int is_bf16,
+                                           uint32_t seed, uint32_t threshold,
+                                           float scale, void* stream) {
+  return dispatch<true>(q, k, v, o, lse, BH, Tq, Tk, D, kv_len, is_bf16, seed,
+                        threshold, scale, stream);
 }

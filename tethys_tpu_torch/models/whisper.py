@@ -1,4 +1,4 @@
-"""Whisper encoder-decoder for serving (tethys_tpu/models/whisper.py).
+"""Whisper encoder-decoder, training and serving (tethys_tpu/models/whisper.py).
 
 The module tree mirrors the flax parameter tree, so a state_dict key is
 the flax path with ``layers_{i}`` written ``layers.{i}`` and ``kernel`` /
@@ -14,9 +14,20 @@ Architecture, as in the JAX model:
   head_dim^-0.5 after the bias;
 * an lm_head with no bias, not tied to the embedding.
 
-The model HOLDS its parameters in ``config.dtype`` (``create_whisper_model``
-casts once after init; ``load_state_dict`` casts the f32 converted weights
-on copy), so bf16 serving reads bf16 weights.
+Parameters are cast to ``config.dtype`` where they are used, as flax's
+``dtype=`` casts them: training holds f32 master weights
+(``create_whisper_model(param_dtype=torch.float32)``) and computes in the
+compute dtype; serving holds the weights in the compute dtype, where every
+cast is a no-op.  LayerNorm takes its statistics in f32 and returns the
+compute dtype; the embedding table is cast before the gather.
+
+Training (``model.train()`` with a CPU ``torch.Generator``): dropout at
+exactly the JAX sites -- the encoder input after the positional add, the
+decoder input after embedding and positions, the FFN after gelu
+(activation_dropout) and after fc2 (dropout), and the attention
+probabilities (attention_dropout); none on the attention output or the
+residuals.  ``forward(input_features, labels=...)`` right-shifts the labels
+behind ``decoder_start_token_id`` and returns the shifted CE loss.
 
 Serving: ``greedy_generate`` encodes, projects every decoder layer's
 cross-attention K/V once (transposed, [B, H, D, T_enc]), then runs a
@@ -35,14 +46,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from tethys_tpu_torch.configs import WhisperConfig
+from tethys_tpu_torch.losses import seq2seq_shifted_ce
 from tethys_tpu_torch.ops.activations import gelu
 from tethys_tpu_torch.ops.attention import decode_attention, multi_head_attention
 from tethys_tpu_torch.ops.decode import decode_self_attention
+from tethys_tpu_torch.ops.dropout import module_dropout
 from tethys_tpu_torch.ops.masks import causal_additive_mask
 from tethys_tpu_torch.ops.posenc import sinusoidal_table
 from tethys_tpu_torch.ops.qkv import merge_project, project_split
 
 Cache = Dict[str, torch.Tensor]   # {"k": [B, H, D, T_max], "v": ...}
+Generator = Optional[torch.Generator]
 
 
 @functools.lru_cache(maxsize=8)
@@ -73,14 +87,17 @@ class WhisperAttention(nn.Module):
 
     def _proj(self, name: str, scale: float = 1.0):
         layer = getattr(self, name)
-        return layer.weight, layer.bias, scale
+        dtype = self.config.dtype
+        return layer.weight.to(dtype), layer.bias.to(dtype), scale
 
     def _out(self, attn: torch.Tensor) -> torch.Tensor:
-        return merge_project(attn, self.out_proj.weight, self.out_proj.bias)
+        weight, bias, _ = self._proj("out_proj")
+        return merge_project(attn, weight, bias)
 
     def forward(self, hidden_states: torch.Tensor,
                 key_value_states: Optional[torch.Tensor] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                generator: Generator = None) -> torch.Tensor:
         """Full-sequence self-attention (key_value_states None) or
         cross-attention; [B, Tq, E] -> [B, Tq, E]."""
         scaling = self.head_dim ** -0.5
@@ -96,7 +113,9 @@ class WhisperAttention(nn.Module):
                                  [self._proj("k_proj"), self._proj("v_proj")],
                                  self.num_heads)
         attn = multi_head_attention(
-            q, k, v, bias=bias, use_flash=self.config.use_flash_attention)
+            q, k, v, bias=bias, dropout_rate=self.config.attention_dropout,
+            generator=generator, training=self.training,
+            use_flash=self.config.use_flash_attention)
         return self._out(attn)
 
     def project_kv(self, kv_source: torch.Tensor):
@@ -127,18 +146,39 @@ class WhisperAttention(nn.Module):
         return self._out(decode_attention(q, *cross_kv))
 
 
+def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x, layer.weight.to(dtype), bias)
+
+
 class WhisperFeedForward(nn.Module):
     def __init__(self, config: WhisperConfig):
         super().__init__()
+        self.config = config
         self.fc1 = nn.Linear(config.d_model, config.d_ff)
         self.fc2 = nn.Linear(config.d_ff, config.d_model)
 
+    def forward(self, x: torch.Tensor, generator: Generator = None
+                ) -> torch.Tensor:
+        cfg = self.config
+        x = gelu(_linear(self.fc1, x, cfg.dtype))
+        x = module_dropout(x, cfg.activation_dropout, self.training, generator)
+        x = _linear(self.fc2, x, cfg.dtype)
+        return module_dropout(x, cfg.dropout, self.training, generator)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm whose parameters are cast to the input's dtype; the
+    statistics are f32 inside torch's kernel, as in flax's dtype=bf16."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+        return F.layer_norm(x, self.normalized_shape,
+                            self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps)
 
 
-def _layer_norm(config: WhisperConfig) -> nn.LayerNorm:
-    return nn.LayerNorm(config.d_model, eps=config.layer_norm_eps)
+def _layer_norm(config: WhisperConfig) -> LayerNorm:
+    return LayerNorm(config.d_model, eps=config.layer_norm_eps)
 
 
 class WhisperEncoderLayer(nn.Module):
@@ -149,9 +189,11 @@ class WhisperEncoderLayer(nn.Module):
         self.final_layer_norm = _layer_norm(config)
         self.feed_forward = WhisperFeedForward(config)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(self.self_attn_layer_norm(x))
-        return x + self.feed_forward(self.final_layer_norm(x))
+    def forward(self, x: torch.Tensor, generator: Generator = None
+                ) -> torch.Tensor:
+        x = x + self.self_attn(self.self_attn_layer_norm(x),
+                               generator=generator)
+        return x + self.feed_forward(self.final_layer_norm(x), generator)
 
 
 class WhisperDecoderLayer(nn.Module):
@@ -165,13 +207,15 @@ class WhisperDecoderLayer(nn.Module):
         self.final_layer_norm = _layer_norm(config)
         self.feed_forward = WhisperFeedForward(config)
 
-    def forward(self, x, encoder_hidden_states, self_attn_bias=None):
+    def forward(self, x, encoder_hidden_states, self_attn_bias=None,
+                generator: Generator = None):
         """Teacher-forced: the full target sequence at once."""
         x = x + self.self_attn(self.self_attn_layer_norm(x),
-                               bias=self_attn_bias)
+                               bias=self_attn_bias, generator=generator)
         x = x + self.encoder_attn(self.encoder_attn_layer_norm(x),
-                                  key_value_states=encoder_hidden_states)
-        return x + self.feed_forward(self.final_layer_norm(x))
+                                  key_value_states=encoder_hidden_states,
+                                  generator=generator)
+        return x + self.feed_forward(self.final_layer_norm(x), generator)
 
     def decode(self, x, cache: Cache, index: int, cross_kv):
         """One token [B, 1, E] against the caches."""
@@ -192,21 +236,29 @@ class WhisperEncoder(nn.Module):
             WhisperEncoderLayer(config) for _ in range(config.encoder_layers))
         self.layer_norm = _layer_norm(config)
 
+    def _conv(self, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.config.dtype
+        x = F.pad(x, _same_pad(x.shape[-1], 3, conv.stride[0]))
+        return F.conv1d(x, conv.weight.to(dtype), conv.bias.to(dtype),
+                        conv.stride)
+
     def forward(self, input_features: torch.Tensor,
-                output_hidden_states: bool = False):
+                output_hidden_states: bool = False,
+                generator: Generator = None):
         """input_features [B, n_mels, T] -> [B, ceil(T/2), E].  With
         ``output_hidden_states`` also returns the output of the stem and of
         every layer (before the final LayerNorm)."""
         cfg = self.config
-        x = input_features.to(self.conv1.weight.dtype)
-        x = gelu(self.conv1(F.pad(x, _same_pad(x.shape[-1], 3, 1))))
-        x = gelu(self.conv2(F.pad(x, _same_pad(x.shape[-1], 3, 2))))
+        x = input_features.to(cfg.dtype)
+        x = gelu(self._conv(self.conv1, x))
+        x = gelu(self._conv(self.conv2, x))
         x = x.transpose(1, 2)                               # [B, T, E]
         pe = _positions(cfg.n_ctx, cfg.d_model, x.device)
         x = x + pe[: x.shape[1]].to(x.dtype)
+        x = module_dropout(x, cfg.dropout, self.training, generator)
         states: List[torch.Tensor] = [x]
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator)
             states.append(x)
         x = self.layer_norm(x)
         return (x, states) if output_hidden_states else x
@@ -225,15 +277,21 @@ class WhisperDecoder(nn.Module):
         cfg = self.config
         return _positions(cfg.max_target_positions, cfg.d_model, device)
 
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """flax Embed with dtype=: the table is cast, then gathered."""
+        return F.embedding(ids, self.embed_tokens.weight.to(self.config.dtype))
+
     def forward(self, input_ids: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor,
+                generator: Generator = None) -> torch.Tensor:
         """Teacher-forced decoder: [B, T] ids -> [B, T, E]."""
-        x = self.embed_tokens(input_ids)
+        x = self._embed(input_ids)
         t = x.shape[1]
         x = x + self._pe(x.device)[:t].to(x.dtype)
+        x = module_dropout(x, self.config.dropout, self.training, generator)
         bias = causal_additive_mask(t, device=x.device)
         for layer in self.layers:
-            x = layer(x, encoder_hidden_states, bias)
+            x = layer(x, encoder_hidden_states, bias, generator)
         return self.layer_norm(x)
 
     def precompute_cross_kv(self, encoder_hidden_states: torch.Tensor):
@@ -243,7 +301,7 @@ class WhisperDecoder(nn.Module):
     def decode_step(self, token: torch.Tensor, caches, index: int, cross_kvs):
         """token [B, 1] at position ``index`` -> [B, 1, E]; caches are
         appended in place."""
-        x = self.embed_tokens(token)
+        x = self._embed(token)
         x = x + self._pe(x.device)[index].to(x.dtype)
         for layer, cache, cross_kv in zip(self.layers, caches, cross_kvs):
             x = layer.decode(x, cache, index, cross_kv)
@@ -267,12 +325,38 @@ class WhisperForConditionalGeneration(nn.Module):
         self.model = WhisperModel(config)
         self.lm_head = nn.Linear(config.d_model, config.vocab_size, bias=False)
 
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        return F.linear(hidden, self.lm_head.weight.to(self.config.dtype))
+
     def forward(self, input_features: torch.Tensor,
-                decoder_input_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Teacher-forced logits [B, T, vocab] and the encoder output."""
-        enc = self.model.encoder(input_features)
-        hidden = self.model.decoder(decoder_input_ids, enc)
-        return {"logits": self.lm_head(hidden),
+                decoder_input_ids: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
+                decoder_attention_mask: Optional[torch.Tensor] = None,
+                generator: Generator = None) -> Dict[str, torch.Tensor]:
+        """Teacher-forced logits [B, T, vocab], the encoder output and, with
+        ``labels``, the shifted CE loss.  Without decoder inputs, labels are
+        right-shifted behind decoder_start_token_id (no labels either: one
+        start token).  Dropout draws its seeds from ``generator`` in
+        training mode."""
+        cfg = self.config
+        if decoder_input_ids is None:
+            if labels is not None:
+                start = torch.full((labels.shape[0], 1),
+                                   cfg.decoder_start_token_id,
+                                   dtype=labels.dtype, device=labels.device)
+                decoder_input_ids = torch.cat([start, labels[:, :-1]], dim=1)
+            else:
+                decoder_input_ids = torch.full(
+                    (input_features.shape[0], 1), cfg.decoder_start_token_id,
+                    dtype=torch.int32, device=input_features.device)
+        enc = self.model.encoder(input_features, generator=generator)
+        hidden = self.model.decoder(decoder_input_ids, enc,
+                                    generator=generator)
+        logits = self._logits(hidden)
+        loss = None
+        if labels is not None:
+            loss = seq2seq_shifted_ce(logits, labels, decoder_attention_mask)
+        return {"loss": loss, "logits": logits,
                 "encoder_last_hidden_state": enc}
 
     def encode(self, input_features: torch.Tensor) -> torch.Tensor:
@@ -285,7 +369,7 @@ class WhisperForConditionalGeneration(nn.Module):
     def decode_step(self, token: torch.Tensor, caches, index: int, cross_kvs):
         """token [B, 1] -> logits [B, 1, vocab]; caches appended in place."""
         hidden = self.model.decoder.decode_step(token, caches, index, cross_kvs)
-        return self.lm_head(hidden)
+        return self._logits(hidden)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -319,15 +403,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def create_whisper_model(model_type: str = "small", *, device="cpu",
-                         seed: int = 0, **overrides):
+                         seed: int = 0, param_dtype=None, **overrides):
     """(model, config) with random weights from ``seed``, held on ``device``
-    in ``config.dtype``, in eval mode."""
+    in ``param_dtype`` (default ``config.dtype``, the serving choice;
+    training passes torch.float32 for master weights), in eval mode."""
     config = WhisperConfig.from_size(model_type, **overrides)
     with torch.device("meta"):
         model = WhisperForConditionalGeneration(config)
     model = model.to_empty(device=device)
     init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(config.dtype).eval(), config
+    return model.to(param_dtype or config.dtype).eval(), config
 
 
 def init_kv_caches(config: WhisperConfig, batch: int, max_length: int,

@@ -2,11 +2,14 @@
 
 Queries arrive pre-scaled by head_dim^-0.5.  Scores and the softmax are
 f32 whatever the compute dtype; the probabilities are cast back to it.
-Long self-attention on a CUDA tensor takes the flash kernel
+Long self- and cross-attention on a CUDA tensor takes the flash kernels
 (ops/flash_attention.py) under the JAX package's thresholds; everything
-else, and every CPU tensor, takes the plain ``_xla_attention``.  Serving is
-deterministic: attention dropout (the JAX ``dropout_rate``) is not ported
-yet (ROADMAP.md).
+else, and every CPU tensor, takes the plain ``_xla_attention``.  In
+training (``training=True``) the probabilities are dropped at
+``dropout_rate``: inside the flash kernels, or on the plain path through
+``fused_dropout`` on the compute-dtype probabilities, as the JAX package
+does on the chip (attention.py:109-121).  Seeds come from the caller's CPU
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from tethys_tpu_torch.ops.dropout import fused_dropout, seed_from_generator
 from tethys_tpu_torch.ops.masks import NEG_INF
 
 # Same thresholds as tethys_tpu.ops.attention (_FLASH_MIN_SEQ and
@@ -36,20 +40,32 @@ def multi_head_attention(
     key: torch.Tensor,     # [B, H, Tk, D]
     value: torch.Tensor,   # [B, H, Tk, D]
     bias: Optional[torch.Tensor] = None,  # additive, broadcast to [B,H,Tq,Tk]
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    training: bool = False,
     use_flash: bool = False,
     kv_len: Optional[int] = None,  # true KV length when key/value are padded
 ) -> torch.Tensor:
     """Returns [B, H, Tq, D]."""
+    rate = dropout_rate if training else 0.0
+    if rate > 0.0 and generator is None:
+        # As the JAX package: fail on every device alike.
+        raise ValueError("multi_head_attention: dropout_rate > 0 in training "
+                         "requires a generator")
+    seed = seed_from_generator(generator) if rate > 0.0 else 0
     if flash_active(use_flash, query.shape[2], key.shape[2], query.is_cuda):
         from tethys_tpu_torch.ops import flash_attention as fa
 
         if fa.supported(query, key, value, bias):
-            return fa.flash_attention(query, key, value, kv_len=kv_len)
-    return _xla_attention(query, key, value, bias, kv_len)
+            return fa.flash_attention(query, key, value, dropout_rate=rate,
+                                      seed=seed, kv_len=kv_len)
+    return _xla_attention(query, key, value, bias, kv_len, rate, seed)
 
 
-def _xla_attention(query, key, value, bias=None, kv_len=None):
-    """The plain composition: f32 scores, softmax, compute-dtype probs."""
+def _xla_attention(query, key, value, bias=None, kv_len=None,
+                   dropout_rate=0.0, seed=0):
+    """The plain composition: f32 scores, softmax, compute-dtype probs,
+    dropout on those probs."""
     scores = torch.matmul(query.float(), key.float().transpose(-1, -2))
     if bias is not None:
         scores = scores + bias.float()
@@ -57,6 +73,7 @@ def _xla_attention(query, key, value, bias=None, kv_len=None):
         col = torch.arange(key.shape[2], device=scores.device)
         scores = torch.where(col < kv_len, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(query.dtype)
+    probs = fused_dropout(probs, dropout_rate, seed)
     return torch.matmul(probs, value)
 
 

@@ -1,10 +1,11 @@
 """Head split and merge (tethys_tpu/ops/pallas_transpose.py).
 
-``split_heads`` launches the CUDA kernel (csrc/split_heads.cu) for a CUDA
-tensor and takes its plain version for a CPU tensor.  ``merge_heads`` is
-plain torch, as the JAX forward's default (``MERGE_IMPL = "xla"``); its
-kernel serves only as split_heads' gradient in training and waits for the
-training port.
+``split_heads`` is an autograd Function: its forward launches
+csrc/split_heads.cu, its backward the merge kernel csrc/merge_heads.cu (the
+JAX ``_split_bwd``), each on a CUDA tensor; CPU tensors take the plain
+versions, so the CPU tests run the same backward formula.  ``merge_heads``
+in the forward stays plain torch, as the JAX default (``MERGE_IMPL =
+"xla"``).
 """
 
 from __future__ import annotations
@@ -40,12 +41,58 @@ def split_heads_cuda(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return y
 
 
-def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """[B, T, H*d] -> [B, H, T, d]: the kernel on CUDA, plain on CPU."""
+def plain_merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, T, d] -> [B, T, H*d] (a contiguous copy)."""
+    b, num_heads, t, head_dim = x.shape
+    return x.transpose(1, 2).reshape(b, t, num_heads * head_dim).contiguous()
+
+
+def merge_heads_cuda(x: torch.Tensor) -> torch.Tensor:
+    check_kernel_inputs("merge_heads", x)
+    if x.dtype not in _SPLIT_DTYPES:
+        raise ValueError(f"merge_heads: unsupported dtype {x.dtype}")
+    b, num_heads, t, head_dim = x.shape
+    y = torch.empty((b, t, num_heads * head_dim), dtype=x.dtype,
+                    device=x.device)
+    with torch.cuda.device(x.device):
+        kernel_lib.MERGE_HEADS(
+            x.data_ptr(), y.data_ptr(), b, t, num_heads, head_dim,
+            x.element_size(), kernel_lib.stream_handle(x))
+    return y
+
+
+def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     if x.is_cuda:
         return split_heads_cuda(x, num_heads)
     cpu_or_raise("split_heads", x)
     return plain_split_heads(x, num_heads)
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda:
+        return merge_heads_cuda(x)
+    cpu_or_raise("merge_heads", x)
+    return plain_merge_heads(x)
+
+
+class SplitHeads(torch.autograd.Function):
+    """y = split(x); dx = merge(dy), the merge kernel on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, x, num_heads: int):
+        return _split(x, num_heads)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _merge(dy.contiguous()), None
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, T, H*d] -> [B, H, T, d]: the kernel on CUDA, plain on CPU.
+    Without a gradient to record (serving) the Function is skipped."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return SplitHeads.apply(x, num_heads)
+    return _split(x, num_heads)
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Build, load and launch the port's CUDA kernels.
 
 The sources in ``tethys_tpu_torch/csrc/*.cu`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, bound with
-``ctypes``.  The build happens at the first launch (never at import), into
+``sm_90a``, one process per source and all at once, then linked into one
+shared library with a plain C interface, bound with ``ctypes``.  The build
+happens at the first launch (never at import), into
 ``tethys_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and the
 flags, so a checkout builds from its own sources and a changed source
 rebuilds.  A failed build, a missing ``nvcc`` or a refused launch raises.
@@ -29,11 +30,14 @@ BUILD_DIR = _PKG_DIR / "_build"
 LIB_NAME = "libtethys_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_U = ctypes.c_uint32
+_F = ctypes.c_float
 
 _lock = threading.Lock()
 _lib = None
@@ -72,18 +76,40 @@ SPLIT_HEADS = Kernel(
     "split_heads", "tethys_split_heads", (_P, _P, _I, _I, _I, _I, _I, _P),
     "tethys_tpu_torch/csrc/split_heads.cu",
     "tethys_tpu/ops/pallas_transpose.py:79")
+MERGE_HEADS = Kernel(
+    "merge_heads", "tethys_merge_heads", (_P, _P, _I, _I, _I, _I, _I, _P),
+    "tethys_tpu_torch/csrc/merge_heads.cu",
+    "tethys_tpu/ops/pallas_transpose.py:85")
 FLASH_FWD = Kernel(
     "flash_fwd", "tethys_flash_fwd",
     (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tethys_tpu_torch/csrc/flash_fwd.cu",
     "tethys_tpu/ops/pallas_attention.py:135")
+# The same TPU kernel at a nonzero rate (its dropout branch, lines 155-164
+# and 192-196): the template with the mask compiled in.
+FLASH_FWD_DROPOUT = Kernel(
+    "flash_fwd_dropout", "tethys_flash_fwd_dropout",
+    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _F, _P),
+    "tethys_tpu_torch/csrc/flash_fwd.cu",
+    "tethys_tpu/ops/pallas_attention.py:135")
+FLASH_BWD = Kernel(
+    "flash_bwd", "tethys_flash_bwd",
+    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U,
+     _F, _F, _P),
+    "tethys_tpu_torch/csrc/flash_bwd.cu",
+    "tethys_tpu/ops/pallas_attention.py:380")
+DROPOUT = Kernel(
+    "dropout", "tethys_dropout", (_P, _P, _L, _U, _U, _F, _I, _P),
+    "tethys_tpu_torch/csrc/dropout.cu",
+    "tethys_tpu/ops/pallas_dropout.py:29")
 DECODE_SELF = Kernel(
     "decode_self", "tethys_decode_self",
     (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tethys_tpu_torch/csrc/decode_self.cu",
     "tethys_tpu/ops/pallas_decode.py:77")
 
-KERNELS = (LOG_MEL, SPLIT_HEADS, FLASH_FWD, DECODE_SELF)
+KERNELS = (LOG_MEL, SPLIT_HEADS, MERGE_HEADS, FLASH_FWD, FLASH_FWD_DROPOUT,
+           FLASH_BWD, DROPOUT, DECODE_SELF)
 
 
 def launch_counts() -> dict:
@@ -122,16 +148,31 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    sources = [str(path) for path in sorted(CSRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    build_log = proc.stdout + proc.stderr
+    objects, procs = [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [proc.communicate()[0] for proc in procs]
+    build_log = "".join(logs)
+    failed = [log for proc, log in zip(procs, logs) if proc.returncode != 0]
+    if not failed:
+        tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True, check=False)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(link.stdout + link.stderr)
     (out_dir / "build.log").write_text(build_log)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc exited with {proc.returncode}:\n{build_log[-6000:]}")
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-6000:])
     os.replace(tmp, lib_path)  # atomic: a reader never sees half a library
     build_seconds = time.perf_counter() - t0
     return lib_path
