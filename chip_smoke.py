@@ -9,8 +9,10 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    name and power limit as nvidia-smi reports them;
 2. build the kernel library from tethys_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the serving and the training path, f32 and bf16, with CUDA-event
-   times (median of 30);
+   of the serving and the two training paths, f32 and bf16, with CUDA-event
+   times (median of 30), its bound (the larger of the bytes it must move
+   over 3.35 TB/s and its operations over the card's peak for their type)
+   and, where one PyTorch call computes the same function, that call's time;
 4. serving: whisper-base in f32 (random weights from seed 0) serves 2
    requests of 30 s seeded audio on the card; the same model and inputs
    run on the CPU, where every kernel's plain version runs; greedy tokens
@@ -26,9 +28,21 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    batch 16, bf16 compute on f32 master weights, dropout on), 10 steps:
    ms per step, audio seconds per second, peak memory; every loss finite
    and the last 3 below the first on average;
-8. launch counts: set to 0 before each path (serving: phases 4-5,
-   training: phases 6-7) and read after it; every kernel of a path must
-   have launched during it.
+8. Wav2Vec2 pretraining: wav2vec2-base in f32 with every dropout rate 0
+   takes 2 hardened steps on batches of 2 two-second clips, on the card and
+   on the CPU, with the same negatives; the quantizer's argmin indices are
+   compared (a flip must be a tie), losses, first-step gradients and the
+   parameters after step 2 must agree, every trainable parameter gets a
+   finite gradient (nonzero but where it is zero up to rounding), and the
+   codevectors and the quantizer's input projection none;
+9. the job's train_wav2vec2 at the bench's shape (wav2vec2-base, batch 32,
+   2 s clips, bf16 compute on f32 master weights, the config's dropout),
+   10 steps: ms per step, audio seconds per second, peak memory; 10 finite
+   losses, the last 3 below the first on average, no ``Error at step``
+   line, the checkpoint and the JCT file written;
+10. launch counts: set to 0 before each path (serving: phases 4-5,
+   training: phases 6-7, wav2vec2: phases 8-9) and read after it; every
+   kernel of a path must have launched during it.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -63,12 +77,24 @@ TRAIN_BATCH = 16
 TRAIN_STEPS = 10
 TRAIN_WARMUP = 2
 AUDIO_SECONDS = 30.0    # per sample: 3000 mel frames
+W2V_MODEL = "base"
+W2V_F32_BATCH = 2
+W2V_F32_STEPS = 2
+W2V_BATCH = 32          # bench.py's wav2vec2-base pretraining shape
+W2V_STEPS = 10
+W2V_SAMPLES = 32000     # 2 s clips: T = 6400, 3200, ..., 100 after the convs
+W2V_LR = 3e-5
 # The kernels each path must launch.
 PATH_KERNELS = {
     "serving": ("log_mel", "split_heads", "flash_fwd", "decode_self"),
     "training": ("split_heads", "merge_heads", "flash_fwd",
                  "flash_fwd_dropout", "flash_bwd", "dropout"),
+    "wav2vec2": ("gn_stats", "dropout"),
 }
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s and FLOP/s by
+# the type of the operands.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -126,6 +152,14 @@ def require(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def bound(bytes_moved: float, flops: float, kind: str):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of bytes over HBM bandwidth and operations over the peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def check(name: str, err: float, tol: float) -> float:
     log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:g})")
     if not err <= tol:
@@ -146,10 +180,15 @@ def check_kernels(results: dict) -> None:
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def record(name, errs, ms, plain_ms):
+    def record(name, errs, ms, plain_ms, bytes_moved, flops, kind,
+               library_ms=None):
+        bound_ms, bound_by = bound(bytes_moved, flops, kind)
         results[name] = {"max_abs_err": max(errs), "ms": ms,
-                         "plain_ms": plain_ms}
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms}
+        library = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), library {library}")
 
     # log-mel: 4 requests of 30 s -> 2998 frames each, 80 mels (f32 only).
     wave = randn(4, SAMPLE_RATE * 30)
@@ -160,8 +199,12 @@ def check_kernels(results: dict) -> None:
     require(got.shape == (4, 2998, 80), f"log_mel shape {tuple(got.shape)}")
     errs = [check("log_mel f32 [4, 2998, 400] -> 80", max_err(got, want),
                   1e-3)]
+    rows, bins = frames.shape[0] * frames.shape[1], mats[0].shape[1]
     record("log_mel", errs, event_ms(lambda: logmel.log_mel_cuda(frames, *mats)),
-           event_ms(lambda: logmel.plain_log_mel(frames, *mats)))
+           event_ms(lambda: logmel.plain_log_mel(frames, *mats)),
+           4 * (frames.numel() + sum(m.numel() for m in mats) + rows * 80),
+           2 * rows * 400 * bins * 2 + 3 * rows * bins + 2 * rows * bins * 80,
+           "f32")
 
     # split_heads: [4, T, 8*64] for the encoder (T=1500) and a decode step.
     errs = []
@@ -175,7 +218,10 @@ def check_kernels(results: dict) -> None:
     x = randn(4, 1500, 512, dtype=torch.bfloat16)
     record("split_heads", errs,
            event_ms(lambda: transpose.split_heads_cuda(x, 8)),
-           event_ms(lambda: transpose.plain_split_heads(x, 8)))
+           event_ms(lambda: transpose.plain_split_heads(x, 8)),
+           2 * x.numel() * 2, 0, "bf16",
+           event_ms(lambda: x.view(4, 1500, 8, 64).permute(0, 2, 1, 3)
+                    .contiguous()))
 
     # flash forward: B*H = 32 at T = 1500, and keys padded to 1536 with
     # kv_len = 1500.  f32: two f32 summation orders; bf16: the kernel rounds
@@ -198,7 +244,9 @@ def check_kernels(results: dict) -> None:
     v = randn(32, 1500, 64, dtype=torch.bfloat16)
     record("flash_fwd", errs,
            event_ms(lambda: flash_attention.flash_fwd_cuda(q, k, v, 1500)),
-           event_ms(lambda: flash_attention.plain_flash_fwd(q, k, v, 1500)))
+           event_ms(lambda: flash_attention.plain_flash_fwd(q, k, v, 1500)),
+           4 * q.numel() * 2 + 32 * 1500 * 4, 4 * 32 * 1500 * 1500 * 64,
+           "bf16", event_ms(lambda: sdpa(q, k, v)))
 
     # decode self-attention: B=16, H=8, D=64, T_max=128; caches exact.
     errs = []
@@ -223,7 +271,11 @@ def check_kernels(results: dict) -> None:
     record("decode_self", errs,
            event_ms(lambda: decode.decode_self_cuda(q, kn, vn, kb, vb, 127)),
            event_ms(lambda: decode.plain_decode_self_attention(
-               q, kn, vn, kb, vb, 127)))
+               q, kn, vn, kb, vb, 127)),
+           # q, the new k and v, the output; 127 cached columns of K and V
+           # read and one written.
+           4 * q.numel() * 2 + 2 * 128 * 16 * 8 * 64 * 2,
+           4 * 16 * 8 * 128 * 64, "bf16")
     check_training_kernels(record, randn)
 
 
@@ -247,7 +299,9 @@ def check_training_kernels(record, randn) -> None:
     x = randn(16, 8, 1500, 64, dtype=bf16)
     record("merge_heads", errs,
            event_ms(lambda: transpose.merge_heads_cuda(x)),
-           event_ms(lambda: transpose.plain_merge_heads(x)))
+           event_ms(lambda: transpose.plain_merge_heads(x)),
+           2 * x.numel() * 2, 0, "bf16",
+           event_ms(lambda: x.permute(0, 2, 1, 3).contiguous()))
 
     # dropout: hidden states of the encoder and the decoder, and the
     # decoder self-attention's probabilities; bit-exact (the same Philox).
@@ -260,9 +314,11 @@ def check_training_kernels(record, randn) -> None:
                 max_err(dropout.dropout_cuda(x, rate, seed),
                         dropout.plain_dropout(x, rate, seed)), 0.0))
     x = randn(16, 1500, 512, dtype=bf16)
+    # No PyTorch call draws these Philox bits: library_ms stays None.
     record("dropout", errs,
            event_ms(lambda: dropout.dropout_cuda(x, rate, seed)),
-           event_ms(lambda: dropout.plain_dropout(x, rate, seed)))
+           event_ms(lambda: dropout.plain_dropout(x, rate, seed)),
+           2 * x.numel() * 2, x.numel(), "f32")
 
     def qkv(tq, tk, dtype):
         return (randn(128, tq, 64, dtype=dtype, scale=64 ** -0.5),
@@ -286,7 +342,9 @@ def check_training_kernels(record, randn) -> None:
            event_ms(lambda: flash_attention.flash_fwd_cuda(q, k, v, 1500, rate,
                                                            seed)),
            event_ms(lambda: flash_attention.plain_flash_fwd(q, k, v, 1500,
-                                                            rate, seed)))
+                                                            rate, seed)),
+           4 * q.numel() * 2 + 128 * 1500 * 4, 4 * 128 * 1500 * 1500 * 64,
+           "bf16", event_ms(lambda: sdpa(q, k, v, rate)))
 
     # flash backward against plain_flash_bwd (f32: two summation orders,
     # 1e-4; bf16: dq, dk, dv are bf16 and below 2 in magnitude, where one
@@ -318,14 +376,72 @@ def check_training_kernels(record, randn) -> None:
                         f"flash_bwd {name} f32 {tq}x1500 rate {r} vs autograd",
                         max_err(a, leaf.grad), 1e-4))
                 del leaves, o_ref
+    check_gn_stats(record, randn)
     q, k, v = qkv(1500, 1500, bf16)
     do = randn(128, 1500, 64, dtype=bf16)
     o, lse = flash_attention.flash_fwd_cuda(q, k, v, 1500, rate, seed)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_lib = sdpa(*leaves, rate)
     record("flash_bwd", errs,
            event_ms(lambda: flash_attention.flash_bwd_cuda(
                q, k, v, o, lse, do, 1500, rate, seed)),
            event_ms(lambda: flash_attention.plain_flash_bwd(
-               q, k, v, o, lse, do, 1500, rate, seed)))
+               q, k, v, o, lse, do, 1500, rate, seed)),
+           8 * q.numel() * 2 + 128 * 1500 * 4, 10 * 128 * 1500 * 1500 * 64,
+           "bf16", event_ms(lambda: torch.autograd.grad(
+               o_lib, leaves, do, retain_graph=True)))
+    del leaves, o_lib
+
+
+def sdpa(q, k, v, rate: float = 0.0):
+    """The library yardstick of the flash kernels: scaled_dot_product_attention
+    on [1, B*H, T, D] with the queries pre-scaled (scale 1), at ``rate``.
+    Timed only; the port never calls it."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[None], k[None], v[None], dropout_p=rate, scale=1.0)[0]
+
+
+def check_gn_stats(record, randn) -> None:
+    """Phase 3, Wav2Vec2's GroupNorm statistics at every GN input of
+    wav2vec2-base at b32 on 2 s clips, [32, T, 512] for T = 6400 ... 100, and
+    a 5 s clip's ragged T = 250, in bf16 and f32, around a mean of 3 and of
+    50.  Both versions read the same x and sum in f32 in other orders:
+    mean to 1e-5 of (1 + |mean|), var to 1e-4 relative."""
+    from tethys_tpu_torch.ops import group_norm
+
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (6400, 3200, 1600, 800, 400, 200, 100, 250):
+            for mean in (3.0, 50.0):
+                x = (randn(32, t, 512) + mean).to(dtype)
+                got = group_norm.group_moments_cuda(x, 16)
+                want = group_norm.plain_group_moments(x, 16)
+                err_mean = max_err(got[0], want[0])
+                rel_var = ((got[1] - want[1]).abs() / want[1]).max().item()
+                errs += [check(f"gn_stats mean {dtype} T={t} mean {mean}",
+                               err_mean, 1e-5 * (1 + mean)),
+                         max_err(got[1], want[1])]
+                check(f"gn_stats var (relative) {dtype} T={t} mean {mean}",
+                      rel_var, 1e-4)
+                if mean != 3.0:
+                    continue
+                xv = x.view(32, t, 16, 32)
+                times = [event_ms(lambda: group_norm.group_moments_cuda(x, 16)),
+                         event_ms(lambda: group_norm.plain_group_moments(x, 16)),
+                         event_ms(lambda: torch.var_mean(xv, dim=(1, 3),
+                                                         correction=0)),
+                         bound(x.numel() * x.element_size(), 3 * x.numel(),
+                               "f32")[0]]
+                log(f"  gn_stats {dtype} [32, {t}, 512]: kernel "
+                    "{:.4f} ms, plain {:.4f} ms, torch.var_mean {:.4f} ms, "
+                    "bound {:.4f} ms".format(*times))
+    x = (randn(32, 6400, 512) + 3.0).to(torch.bfloat16)
+    xv = x.view(32, 6400, 16, 32)
+    record("gn_stats", errs,
+           event_ms(lambda: group_norm.group_moments_cuda(x, 16)),
+           event_ms(lambda: group_norm.plain_group_moments(x, 16)),
+           x.numel() * 2 + 2 * 32 * 16 * 4, 3 * x.numel(), "f32",
+           event_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0)))
 
 
 def seeded_audio(batch: int, seed: int) -> np.ndarray:
@@ -541,6 +657,193 @@ def run_train_bf16(gpu: str) -> dict:
     return stats
 
 
+# Gradients that are zero but for rounding: softmax does not see a key
+# bias, and the contrastive loss does not see a shift of project_q's output.
+ROUNDING_ONLY = ("k_proj.bias", "project_q.layer_norm.bias")
+
+
+def run_w2v_f32() -> None:
+    """Phase 8: f32 Wav2Vec2 pretraining steps on the card against the CPU."""
+    from tethys_tpu_torch import data, losses
+    from tethys_tpu_torch.models import wav2vec2
+    from tethys_tpu_torch.parallel import dp
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev, cpu = require_cuda(), torch.device("cpu")
+    model, config = wav2vec2.create_full_model(
+        "pretraining", W2V_MODEL, device=dev, seed=SEED, hidden_dropout=0.0,
+        activation_dropout=0.0, attention_dropout=0.0)
+    cpu_model = copy.deepcopy(model).cpu()
+    batches = iter(data.create_wav2vec2_dummy_dataset(W2V_F32_BATCH,
+                                                      W2V_SAMPLES))
+    batches = [torch.from_numpy(next(batches)[0])
+               for _ in range(W2V_F32_STEPS)]
+    frames = config.downsampled_length(W2V_SAMPLES)
+    negatives = [losses.sample_negative_indices(
+        torch.Generator().manual_seed(i), W2V_F32_BATCH, frames,
+        config.num_negatives) for i in range(W2V_F32_STEPS)]
+
+    runs = {}
+    for name, m, device in (("card", model, dev), ("cpu", cpu_model, cpu)):
+        m.train()
+        opt = dp.wav2vec2_optimizer(m.parameters(), W2V_LR)
+        codes = []
+
+        def loss_fn(mod, batch, generator):
+            audio, neg = batch
+            out = mod(audio, generator=generator)
+            codes.append((out["codevector_indices"].cpu(),
+                          out["codevector_distances"].cpu()))
+            return wav2vec2.pretraining_loss(config, out,
+                                             negative_indices=neg)
+
+        step = dp.make_train_step(loss_fn, opt, hardened=True)
+        state = dp.TrainState(m, opt)
+        losses_seen, grads = [], None
+        t0 = time.perf_counter()
+        for i, audio in enumerate(batches):
+            state, loss = step(state, (audio.to(device), negatives[i]),
+                               dp.step_generator(SEED, i))
+            losses_seen.append(loss.item())
+            if grads is None:
+                grads = {n: None if p.grad is None
+                         else p.grad.detach().to(cpu, copy=True)
+                         for n, p in m.named_parameters()}
+        log(f"  f32 {name}: {W2V_F32_STEPS} hardened steps in "
+            f"{time.perf_counter() - t0:.2f} s, losses {losses_seen}")
+        runs[name] = (losses_seen, grads, codes,
+                      {n: p.detach().to(cpu) for n, p in m.named_parameters()})
+
+    (card_losses, card_grads, card_codes, card_params) = runs["card"]
+    (cpu_losses, cpu_grads, cpu_codes, cpu_params) = runs["cpu"]
+    require(all(np.isfinite(card_losses)), f"card losses {card_losses}")
+    # The quantizer's argmin on the two devices' f32 distances: a flip is
+    # allowed only at a tie (the two distances within 1e-5 relative).
+    flips = 0
+    for (idx_a, _), (idx_b, dist_b) in zip(card_codes, cpu_codes):
+        diff = idx_a != idx_b
+        flips += int(diff.sum())
+        if diff.any():
+            d = dist_b.gather(-1, idx_a[..., None])[..., 0][diff]
+            d_min = dist_b.gather(-1, idx_b[..., None])[..., 0][diff]
+            gap = ((d - d_min).abs() / d_min.abs().clamp_min(1e-6)).max()
+            require(gap.item() <= 1e-5, f"argmin differs off a tie: {gap}")
+    log(f"  quantizer argmin: {flips} of "
+        f"{sum(c[0].numel() for c in card_codes)} indices differ between "
+        "the card and the cpu")
+    if flips:
+        log("  every flip is a tie (within 1e-5 relative), so the targets, "
+            "losses and gradients differ by design: not held")
+    else:
+        check("f32 w2v losses card vs cpu (relative)",
+              max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses)), 1e-4)
+    # Every trainable parameter gets a finite gradient on the card, nonzero
+    # unless it is zero up to rounding (ROUNDING_ONLY); the codevectors
+    # (frozen, quirk #13) and the quantizer's input projection (behind
+    # argmin) get none, as their JAX gradients are exactly 0.
+    worst = 0.0
+    for n, g in card_grads.items():
+        if "quantizer." in n:
+            require(g is None, f"{n} got a gradient on the card")
+            continue
+        require(g is not None and bool(torch.isfinite(g).all()),
+                f"gradient of {n} on the card is missing or not finite")
+        if n.endswith(ROUNDING_ONLY):
+            continue
+        require(bool(g.norm() > 0), f"gradient of {n} on the card is zero")
+        if flips:
+            continue
+        gap = (g - cpu_grads[n]).norm().item()
+        limit = 1e-3 * cpu_grads[n].norm().item() + 1e-6
+        require(gap <= limit, f"gradient of {n}: card vs cpu {gap:.3e} > "
+                              f"{limit:.3e}")
+        worst = max(worst, gap / limit)
+    log(f"  f32 w2v step-1 gradients (after both clips): {len(card_grads)} "
+        f"tensors checked; worst gap to cpu {worst:.3f} of its bound "
+        "(1e-3 * norm + 1e-6)")
+    if not flips:
+        # Keras Adam moves a weight by about lr * sign(g) a step, and a
+        # gradient near zero may take either sign on the two devices.
+        check("f32 w2v params after the last step card vs cpu",
+              max(max_err(card_params[n], cpu_params[n])
+                  for n in card_params), 2 * W2V_LR * W2V_F32_STEPS)
+
+
+class Tee:
+    """stdout that is also kept, to scan the loop's lines."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, data):
+        self.text.append(data)
+        return self.out.write(data)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_w2v_bf16(gpu: str) -> dict:
+    """Phase 9: the Wav2Vec2 job's loop at bench.py's shape."""
+    from tethys_tpu_torch.train import jobs
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    step_times = []
+    tee = Tee(sys.stdout)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        os.environ["TETHYS_WORKSPACE"] = ws
+        os.environ["TETHYS_RESULT"] = ws
+        with open(os.path.join(ws, "model.txt"), "w") as fh:
+            fh.write("chip_smoke")
+        os.makedirs(os.path.join(ws, "chip_smoke"))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sys.stdout = tee
+        try:
+            result, _, cfg = jobs.train_wav2vec2(
+                model_type="pretraining", model_size=W2V_MODEL,
+                batch_size_per_replica=W2V_BATCH, num_batches=W2V_STEPS,
+                compute_dtype="bfloat16", audio_length=W2V_SAMPLES,
+                device=dev, seed=SEED,
+                step_hooks=(lambda i, loss, dur: step_times.append(dur),))
+        finally:
+            sys.stdout = tee.out
+        jct = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        jobs.finalize_job(result, f"wav2vec2_{W2V_MODEL}_model", jct)
+        for path in (("chip_smoke", "worker_0_jct.txt"),
+                     ("checkpoints", "model_epoch_1", "model.pt"),
+                     ("model_cache", f"wav2vec2_{W2V_MODEL}_model",
+                      "model.pt")):
+            require(os.path.exists(os.path.join(ws, *path)),
+                    f"the job wrote no {'/'.join(path)}")
+    losses = result.losses
+    require("Error at step" not in "".join(tee.text),
+            "the resilient loop caught a failing step")
+    require(cfg.hidden_dropout == cfg.attention_dropout == DROPOUT_RATE,
+            f"dropout rates {cfg.hidden_dropout}, {cfg.attention_dropout}")
+    require(len(losses) == W2V_STEPS and all(np.isfinite(losses)),
+            f"losses {losses}")
+    require(statistics.mean(losses[-3:]) < losses[0],
+            f"loss did not fall: {losses}")
+    ms = statistics.median(step_times[TRAIN_WARMUP:]) * 1e3
+    seconds = W2V_SAMPLES / SAMPLE_RATE
+    stats = {
+        "batch": W2V_BATCH, "steps": W2V_STEPS, "losses": losses,
+        "ms_per_step": ms, "step_ms": [t * 1e3 for t in step_times],
+        "audio_s_per_s": W2V_BATCH * seconds / (ms / 1e3),
+        "peak_mem_gib": peak / 2 ** 30, "jct_s": jct, "gpu": gpu,
+    }
+    log(f"  bf16 wav2vec2-{W2V_MODEL} b{W2V_BATCH} pretrain on {gpu}: "
+        f"{ms:.2f} ms/step (median of steps {TRAIN_WARMUP}-{W2V_STEPS - 1}),"
+        f" {stats['audio_s_per_s']:.1f} audio-s/s, peak memory "
+        f"{stats['peak_mem_gib']:.2f} GiB")
+    log("  wav2vec2 " + json.dumps(stats))
+    return stats
+
+
 def drive_path(name: str, phases) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -595,8 +898,11 @@ def main() -> int:
     training = drive_path("training", (
         ("[6] whisper-base f32 training, card against cpu", run_train_f32),
         ("[7] whisper-base bf16 training job", run_train_bf16, gpu)))
-    counts = {k: serving[k] + training[k] for k in serving}
-    log(f"[8] launches on the paths: {counts}")
+    w2v = drive_path("wav2vec2", (
+        ("[8] wav2vec2-base f32 pretraining, card against cpu", run_w2v_f32),
+        ("[9] wav2vec2-base bf16 pretraining job", run_w2v_bf16, gpu)))
+    counts = {k: serving[k] + training[k] + w2v[k] for k in serving}
+    log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")
 

@@ -78,9 +78,10 @@ def test_create_model_is_seeded_and_held_in_compute_dtype():
     kw = dict(d_model=32, encoder_layers=1, encoder_attention_heads=4,
               decoder_layers=1, decoder_attention_heads=4, d_ff=48, n_mels=8,
               n_ctx=16, vocab_size=40, max_target_positions=8)
-    a, _ = create_whisper_model(seed=3, **kw)
-    b, _ = create_whisper_model(seed=3, **kw)
-    c, cfg = create_whisper_model(seed=3, compute_dtype="bfloat16", **kw)
+    a, _ = create_whisper_model(seed=3, device="cpu", **kw)
+    b, _ = create_whisper_model(seed=3, device="cpu", **kw)
+    c, cfg = create_whisper_model(seed=3, device="cpu",
+                                  compute_dtype="bfloat16", **kw)
     for (name, pa), pb, pc in zip(a.state_dict().items(),
                                   b.state_dict().values(),
                                   c.state_dict().values()):

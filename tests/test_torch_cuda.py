@@ -6,8 +6,9 @@ These cover the kernels' branches off the main path's shapes: head
 dims 16-128, ragged sequence edges, misaligned and odd-width head splits
 and merges, dropout on odd lengths and misaligned views, the flash
 backward with and without dropout, caches that need more than 48 KB of
-shared memory, the wrappers' refusals, and a tiny training step on the card
-against the CPU.  On a machine with the card and the CUDA toolkit:
+shared memory, the GroupNorm statistics at ragged T and C and far-off
+means, the wrappers' refusals, and tiny Whisper and Wav2Vec2 training steps
+on the card against the CPU.  On a machine with the card and the CUDA toolkit:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -20,8 +21,16 @@ import torch
 
 from tethys_tpu_torch.audio import logmel
 from tethys_tpu_torch.audio.frontend import frame_signal
+from tethys_tpu_torch.models import wav2vec2
 from tethys_tpu_torch.models.whisper import create_whisper_model, greedy_generate
-from tethys_tpu_torch.ops import decode, dropout, flash_attention, transpose
+from tethys_tpu_torch.ops import (
+    decode,
+    dropout,
+    flash_attention,
+    group_norm,
+    norms,
+    transpose,
+)
 from tethys_tpu_torch.parallel import dp
 from tethys_tpu_torch.utils import kernel_lib
 
@@ -143,7 +152,7 @@ def test_tiny_greedy_identical_on_card_and_cpu(cuda):
     """The encoder (600 frames -> flash kernel), the decode kernel and the
     split kernel in one f32 generate; tokens identical to the CPU run."""
     model, _ = create_whisper_model(device=cuda, seed=1, **TINY)
-    cpu_model, _ = create_whisper_model(seed=1, **TINY)
+    cpu_model, _ = create_whisper_model(seed=1, device="cpu", **TINY)
     feats = _randn(torch.device("cpu"), 2, 8, 1200, seed=10)
     kernel_lib.reset_launch_counts()
     tokens, length = greedy_generate(model, feats.to(cuda), max_length=12)
@@ -308,3 +317,96 @@ def test_tiny_training_steps_card_against_cpu(cuda):
     for a, b in zip(card.parameters(), cpu.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
                                    atol=2 * lr * steps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,groups,mean", [
+    (2, 100, 512, 16, 3.0), (3, 37, 100, 4, 50.0), (1, 1, 16, 16, 0.0),
+    (4, 250, 512, 16, -7.0), (2, 6400, 512, 16, 50.0), (5, 17, 130, 2, 1.0),
+])
+def test_gn_stats_matches_plain(cuda, dtype, b, t, c, groups, mean):
+    """Ragged last chunk, C not a multiple of the 128-thread tile, one row,
+    means far from zero (50, where E[x^2] - mu^2 would lose digits).  Both
+    read the same dtype-rounded x and sum in f32 in other orders: mean to
+    1e-5 of (1 + |mean|), var to 1e-4 relative."""
+    x = (_randn(cuda, b, t, c, seed=12) + mean).to(dtype)
+    before = kernel_lib.GN_STATS.launches
+    got_mean, got_var = group_norm.group_moments(x, groups)
+    assert kernel_lib.GN_STATS.launches == before + 1
+    want_mean, want_var = group_norm.plain_group_moments(x, groups)
+    assert got_mean.shape == got_var.shape == (b, groups)
+    torch.testing.assert_close(got_mean, want_mean, rtol=0,
+                               atol=1e-5 * (1 + abs(mean)))
+    torch.testing.assert_close(got_var, want_var, rtol=1e-4, atol=1e-7)
+
+
+def test_group_norm_on_card_matches_cpu(cuda):
+    """The GroupNorm Function's forward (gn_stats) and closed-form backward
+    on the card against the CPU, f32, 1e-5."""
+    gn = norms.ReferenceGroupNorm(64, 16).to(cuda)
+    with torch.no_grad():
+        gn.gamma.copy_(_randn(cuda, 64, seed=13))
+        gn.beta.copy_(_randn(cuda, 64, seed=14))
+    x = (_randn(cuda, 3, 90, 64, seed=15) + 5.0).requires_grad_()
+    dy = _randn(cuda, 3, 90, 64, seed=16)
+    gn(x).backward(dy)
+    cpu = norms.ReferenceGroupNorm(64, 16)
+    cpu.load_state_dict({k: v.cpu() for k, v in gn.state_dict().items()})
+    xc = x.detach().cpu().requires_grad_()
+    yc = cpu(xc)
+    yc.backward(dy.cpu())
+    torch.testing.assert_close(gn(x).detach().cpu(), yc.detach(), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gn.gamma.grad.cpu(), cpu.gamma.grad,
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gn.beta.grad.cpu(), cpu.beta.grad, rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_gn_stats_refuses_what_it_does_not_take(cuda):
+    x = _randn(cuda, 2, 8, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        group_norm.group_moments(x.transpose(0, 1), 4)
+    with pytest.raises(ValueError, match="dtype"):
+        group_norm.group_moments(x.half(), 4)
+    with pytest.raises(ValueError, match="groups"):
+        group_norm.group_moments(x, 5)
+
+
+def test_tiny_wav2vec2_steps_card_against_cpu(cuda):
+    """Three hardened f32 steps of a tiny Wav2Vec2 pretraining model with
+    dropout on (the same seeds and negatives on both devices, so the same
+    masks): every loss to 1e-4 relative, and gn_stats and dropout
+    launched."""
+    cfg = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+               intermediate_size=128, conv_dim=(32, 32, 32),
+               conv_stride=(5, 2, 2), conv_kernel=(10, 3, 2),
+               num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+               num_codevectors_per_group=24, codevector_dim=32,
+               proj_codevector_dim=32, num_negatives=10)
+    audio = _randn(torch.device("cpu"), 2, 4000, seed=17)
+    kernel_lib.reset_launch_counts()
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        model, config = wav2vec2.create_full_model(
+            "pretraining", "tiny", device=dev, seed=4, **cfg)
+        model.train()
+        opt = dp.wav2vec2_optimizer(model.parameters(), 1e-4)
+
+        def loss_fn(m, batch, gen):
+            neg = torch.randint(0, 200, (2, 10),
+                                generator=torch.Generator().manual_seed(1))
+            return wav2vec2.pretraining_loss(config, m(batch, generator=gen),
+                                             negative_indices=neg)
+
+        step = dp.make_train_step(loss_fn, opt, hardened=True)
+        state = dp.TrainState(model, opt)
+        losses = [step(state, audio.to(dev), dp.step_generator(0, i))[1].item()
+                  for i in range(3)]
+        runs.append(losses)
+        if dev.type == "cuda":
+            counts = kernel_lib.launch_counts()
+    assert counts["gn_stats"] == 3 * 3 and counts["dropout"] > 0
+    torch.testing.assert_close(torch.tensor(runs[0]), torch.tensor(runs[1]),
+                               rtol=1e-4, atol=0)

@@ -19,6 +19,7 @@ import torch
 
 import tethys_tpu.ops.pallas_attention as pa
 from tethys_tpu.ops import pallas_decode as pd
+from tethys_tpu.ops import pallas_gn
 from tethys_tpu.ops import pallas_transpose as ptr
 from tethys_tpu.ops.activations import gelu as jax_gelu
 from tethys_tpu.ops.attention import decode_attention as jax_decode_attention
@@ -29,6 +30,7 @@ from tethys_tpu_torch.ops import (
     decode,
     dropout,
     flash_attention,
+    group_norm,
     transpose,
 )
 from tethys_tpu_torch.ops.activations import gelu
@@ -155,6 +157,47 @@ def test_plain_flash_bwd_matches_pallas(monkeypatch, tq, tk, kv_len):
                                    atol=1e-5)
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
                                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,t,c,groups,mean", [
+    (3, 96, 32, 4, 50.0),      # the JAX test's shape; a far-off mean
+    (2, 100, 24, 3, 7.0),      # T with no multiple-of-8 divisor
+    (1, 250, 16, 16, 0.0),     # one channel a group, a 5 s clip's T
+])
+def test_group_moments_match_pallas(monkeypatch, b, t, c, groups, mean):
+    """The plain moments against pallas_gn.group_moments in interpret mode
+    (mean 1e-6, var 1e-4 relative); where the Pallas kernel takes no
+    shape (its stats_chunk finds no divisor and it returns None) against
+    two-pass jnp moments, as tests/test_ops.py's reference."""
+    monkeypatch.setattr(pallas_gn, "_INTERPRET", True)
+    x = (mean + np.random.default_rng(5).standard_normal((b, t, c))).astype(
+        np.float32)
+    got_mean, got_var = group_norm.group_moments(_t(x), groups)
+    want = pallas_gn.group_moments(jnp.asarray(x), groups)
+    if want is None:
+        assert pallas_gn.stats_chunk(t) == 0
+        xg = jnp.asarray(x).reshape(b, t, groups, c // groups)
+        mean_g = xg.mean(axis=(1, 3))
+        want = (mean_g, jnp.square(xg - mean_g[:, None, :, None]).mean(
+            axis=(1, 3)))
+    np.testing.assert_allclose(got_mean.numpy(), np.asarray(want[0]),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_var.numpy(), np.asarray(want[1]),
+                               rtol=1e-4, atol=0)
+    assert got_mean.dtype == got_var.dtype == torch.float32
+    bf = group_norm.group_moments(_t(x).bfloat16(), groups)
+    ref = group_norm.plain_group_moments(_t(x).bfloat16().float(), groups)
+    assert all(torch.equal(a, r) for a, r in zip(bf, ref))
+
+
+def test_group_moments_chunking_fills_the_card():
+    """The kernel's chunk: a multiple of 16 rows, and at wav2vec2-base b32
+    (T 6400 ... 100) enough blocks for a wave of 132 SMs where T allows."""
+    for t in (6400, 3200, 1600, 800, 400, 200, 100, 250, 1):
+        chunk = group_norm.stats_chunk(32, t, 512)
+        assert chunk % 16 == 0 and chunk >= 16
+        blocks = 32 * 4 * -(-t // chunk)
+        assert blocks >= min(132 * 16, 32 * 4 * -(-t // 16)) // 2
 
 
 def test_split_heads_gradient_is_a_merge():
@@ -348,7 +391,8 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     assert all(n == 0 for n in kernel_lib.launch_counts().values())
     assert [k.name for k in kernel_lib.KERNELS] == [
         "log_mel", "split_heads", "merge_heads", "flash_fwd",
-        "flash_fwd_dropout", "flash_bwd", "dropout", "decode_self"]
+        "flash_fwd_dropout", "flash_bwd", "dropout", "decode_self",
+        "gn_stats"]
     for k in kernel_lib.KERNELS:
         assert (PKG.parent / k.source).is_file()
         assert (PKG.parent / k.replaces.split(":")[0]).is_file()

@@ -208,8 +208,8 @@ def test_train_trajectory_matches_jax(tiny):
 def test_dropout_live_only_in_train_mode():
     """Eval ignores dropout; train draws it from the generator alone:
     the same generator seed gives the same loss, another seed another."""
-    model, _ = create_whisper_model(seed=1, param_dtype=torch.float32,
-                                    **TINY)
+    model, _ = create_whisper_model(seed=1, device="cpu",
+                                    param_dtype=torch.float32, **TINY)
     f, l = (torch.from_numpy(a) for a in _batch())
 
     def loss(train, seed):
@@ -228,7 +228,8 @@ def test_dropout_live_only_in_train_mode():
 
 
 def test_master_weights_stay_f32_under_bf16_compute():
-    model, config = create_whisper_model(seed=2, param_dtype=torch.float32,
+    model, config = create_whisper_model(seed=2, device="cpu",
+                                         param_dtype=torch.float32,
                                          compute_dtype="bfloat16", **TINY)
     model.train()
     f, l = (torch.from_numpy(a) for a in _batch())
@@ -240,7 +241,8 @@ def test_master_weights_stay_f32_under_bf16_compute():
         assert p.dtype == torch.float32, name
         assert p.grad.dtype == torch.float32, name
         assert torch.isfinite(p.grad).all(), name
-    serving, _ = create_whisper_model(seed=2, compute_dtype="bfloat16", **TINY)
+    serving, _ = create_whisper_model(seed=2, device="cpu",
+                                      compute_dtype="bfloat16", **TINY)
     assert {p.dtype for p in serving.parameters()} == {torch.bfloat16}
 
 
@@ -323,8 +325,32 @@ def test_job_identity_and_multi_process_refusal(monkeypatch):
 
 
 def test_hardened_step_waits_for_wav2vec2():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        dp.make_train_step(lambda m, b, g: None, None, hardened=True)
+    """The hardened step is ported with Wav2Vec2 (this test once pinned its
+    refusal): a NaN loss is scrubbed to 0 and takes a zero gradient, and
+    gradients are clipped to a global norm of 1 before the optimizer."""
+    model = torch.nn.Linear(3, 1, bias=False)
+    with torch.no_grad():
+        model.weight.fill_(1.0)
+    seen = []
+
+    class Record(torch.optim.Optimizer):
+        def __init__(self, params):
+            super().__init__(params, {})
+
+        def step(self, closure=None):
+            seen.append(model.weight.grad.clone())
+
+    step = dp.make_train_step(
+        lambda m, b, g: ((m(b) ** 2).sum() * b.sum() / b.sum(), {}),
+        Record(model.parameters()), hardened=True)
+    state = dp.TrainState(model, None)
+    _, loss = step(state, torch.full((1, 3), 10.0), None)
+    assert loss.item() == 900.0
+    torch.testing.assert_close(seen[-1].norm(), torch.tensor(1.0))
+    _, loss = step(state, torch.full((1, 3), float("nan")), None)
+    assert loss.item() == 0.0 and torch.isnan(seen[-1]).all()
+    _, loss = step(state, torch.zeros(1, 3), None)
+    assert loss.item() == 0.0
 
 
 def test_dataclass_configs_agree():

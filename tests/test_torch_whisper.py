@@ -150,4 +150,4 @@ def test_cpu_slice_launches_no_kernel(tiny):
     assert kernel_lib.launch_counts() == {
         "log_mel": 0, "split_heads": 0, "merge_heads": 0, "flash_fwd": 0,
         "flash_fwd_dropout": 0, "flash_bwd": 0, "dropout": 0,
-        "decode_self": 0}
+        "decode_self": 0, "gn_stats": 0}

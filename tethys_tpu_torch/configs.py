@@ -1,15 +1,17 @@
-"""Whisper configuration with the reference's size presets.
+"""Whisper and Wav2Vec2 configurations with the reference's size presets.
 
 Field for field the same as ``tethys_tpu.configs.WhisperConfig`` (the
-reference's nonstandard "small" default: d_model 768 with 4 + 4 layers),
-with ``dtype`` resolving ``compute_dtype`` to a torch dtype.  The model
-computes in that dtype; training holds f32 master weights and serving its
-weights in that dtype (models/whisper.py).
+reference's nonstandard "small" default: d_model 768 with 4 + 4 layers) and
+``tethys_tpu.configs.Wav2Vec2Config`` (tiny/small/base), with ``dtype``
+resolving ``compute_dtype`` to a torch dtype.  The model computes in that
+dtype; training holds f32 master weights and serving its weights in that
+dtype (models/whisper.py, models/wav2vec2.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -100,3 +102,133 @@ class WhisperConfig:
         kwargs = dict(presets[model_type])
         kwargs.update(overrides)
         return cls(**kwargs)
+
+
+@dataclasses.dataclass
+class Wav2Vec2Config:
+    """Wav2Vec2 hyperparameters (see tethys_tpu.configs.Wav2Vec2Config,
+    reference speech_jobs/wav2vec2_dist.py:24-128)."""
+
+    model_size: str = "small"
+
+    hidden_size: int = 512
+    num_hidden_layers: int = 6
+    num_attention_heads: int = 8
+    intermediate_size: int = 2048
+    conv_dim: Tuple[int, ...] = (256, 256, 256, 256, 256)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2)
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 2)
+    num_conv_pos_embeddings: int = 64
+    num_conv_pos_embedding_groups: int = 8
+
+    # Feature extractor.
+    feat_extract_norm: str = "group"
+    feat_extract_activation: str = "gelu"
+    conv_bias: bool = False
+
+    # Common.
+    hidden_act: str = "gelu"
+    hidden_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    layer_norm_eps: float = 1e-5
+
+    # Quantizer.
+    num_codevectors_per_group: int = 160
+    num_codevector_groups: int = 2
+    codevector_dim: int = 128
+    proj_codevector_dim: int = 128
+
+    # Quirk #13: the reference's codevectors variable is untracked by Keras,
+    # so it is never updated and never enters the global-norm clip: the
+    # codebook stays frozen at its random init.  False trains it.
+    freeze_codevectors: bool = True
+
+    contrastive_logits_temperature: float = 0.1
+    num_negatives: int = 100
+    diversity_loss_weight: float = 0.1
+    ctc_loss_reduction: str = "sum"
+    ctc_zero_infinity: bool = False
+
+    # Masking utilities exist in the reference but no training path calls
+    # them (reference wav2vec2_dist.py:1073-1119).
+    mask_time_prob: float = 0.05
+    mask_time_length: int = 10
+    mask_feature_prob: float = 0.0
+    mask_feature_length: int = 10
+
+    vocab_size: int = 32
+    do_stable_layer_norm: bool = True
+    use_weighted_layer_sum: bool = False
+
+    classifier_proj_size: int = 128
+    num_labels: int = 10
+
+    tdnn_dim: Tuple[int, ...] = (256, 256, 256, 256, 768)
+    xvector_output_dim: int = 256
+    tdnn_kernel: Tuple[int, ...] = (5, 3, 3, 1, 1)
+    tdnn_dilation: Tuple[int, ...] = (1, 2, 3, 1, 1)
+
+    # Accelerator additions.
+    compute_dtype: str = "float32"
+    # The JAX package's [L, ...]-stacked nn.scan layout of the encoder
+    # layers: a compile-time layout that computes nothing new.
+    scan_layers: bool = False
+
+    def __post_init__(self):
+        if self.scan_layers:
+            raise NotImplementedError(
+                "scan_layers=True (the stacked nn.scan layer layout) is not "
+                "ported yet (ROADMAP.md, queue 1 item 7)")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return resolve_dtype(self.compute_dtype)
+
+    @classmethod
+    def from_size(cls, model_size: str = "small",
+                  **overrides) -> "Wav2Vec2Config":
+        presets = {
+            "small": dict(
+                hidden_size=512, num_hidden_layers=6, num_attention_heads=8,
+                intermediate_size=2048,
+                conv_dim=(256,) * 5, conv_stride=(5, 2, 2, 2, 2),
+                conv_kernel=(10, 3, 3, 3, 2),
+                num_conv_pos_embeddings=64, num_conv_pos_embedding_groups=8,
+                num_codevectors_per_group=160, codevector_dim=128,
+                proj_codevector_dim=128, classifier_proj_size=128,
+                tdnn_dim=(256, 256, 256, 256, 768), xvector_output_dim=256,
+            ),
+            "tiny": dict(
+                hidden_size=256, num_hidden_layers=4, num_attention_heads=4,
+                intermediate_size=1024,
+                conv_dim=(128,) * 4, conv_stride=(5, 2, 2, 2),
+                conv_kernel=(10, 3, 3, 2),
+                num_conv_pos_embeddings=32, num_conv_pos_embedding_groups=4,
+                num_codevectors_per_group=80, codevector_dim=64,
+                proj_codevector_dim=64, classifier_proj_size=64,
+                tdnn_dim=(128, 128, 128, 128, 384), xvector_output_dim=128,
+            ),
+            "base": dict(
+                hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                intermediate_size=3072,
+                conv_dim=(512,) * 7, conv_stride=(5, 2, 2, 2, 2, 2, 2),
+                conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+                num_conv_pos_embeddings=128, num_conv_pos_embedding_groups=16,
+                num_codevectors_per_group=320, codevector_dim=256,
+                proj_codevector_dim=256, classifier_proj_size=256,
+                tdnn_dim=(512, 512, 512, 512, 1500), xvector_output_dim=512,
+            ),
+        }
+        kwargs = dict(presets[model_size])
+        kwargs["model_size"] = model_size
+        kwargs.update(overrides)
+        return cls(**kwargs)
+
+    def downsampled_length(self, input_length: int) -> int:
+        """Frames after the conv stack for ``input_length`` samples: TF
+        SAME arithmetic, a ceil division per stride."""
+        length = input_length
+        for stride in self.conv_stride:
+            length = -(-length // stride)
+        return length

@@ -1,10 +1,16 @@
-"""Synthetic Whisper data with the reference's shapes (tethys_tpu/data.py).
+"""Synthetic data with the reference's shapes (tethys_tpu/data.py).
 
-50 samples of random log-mel features [80, 3000] and labels of length 100:
-BOS = 1, random ids in [3, 100), EOS = 2 at a random length in [50, 90),
-zero padding after (reference speech_jobs/whisper_dist.py:784-815).  Pure
-numpy from the same seed as the JAX package, so both give the same
-batches; the short final batch is padded cyclically to keep shapes static.
+* Whisper: 50 samples of random log-mel features [80, 3000] and labels of
+  length 100: BOS = 1, random ids in [3, 100), EOS = 2 at a random length
+  in [50, 90), zero padding after (reference
+  speech_jobs/whisper_dist.py:784-815); the short final batch is padded
+  cyclically to keep shapes static.
+* Wav2Vec2: 50 random waveforms of 32000 samples (2 s at 16 kHz; the
+  base-only jobs use 80000) with scalar 0.0 labels, batched with
+  drop_remainder (reference speech_jobs/wav2vec2_dist.py:1123-1153).
+
+Pure numpy from the same seed as the JAX package, so both give the same
+batches.
 """
 
 from __future__ import annotations
@@ -63,3 +69,15 @@ def create_whisper_dummy_dataset(
         labels[i, 1:length - 1] = rng.integers(3, 100, size=length - 2)
         labels[i, length - 1] = 2  # EOS
     return DummyBatcher((features, labels), batch_size, drop_remainder=False)
+
+
+def create_wav2vec2_dummy_dataset(
+    batch_size: int,
+    audio_length: int = 32000,
+    num_samples: int = 50,
+    seed: int = 0,
+) -> DummyBatcher:
+    rng = np.random.default_rng(seed)
+    audio = rng.standard_normal((num_samples, audio_length), dtype=np.float32)
+    labels = np.zeros((num_samples,), dtype=np.float32)
+    return DummyBatcher((audio, labels), batch_size, drop_remainder=True)

@@ -49,11 +49,14 @@ from tethys_tpu_torch.configs import WhisperConfig
 from tethys_tpu_torch.losses import seq2seq_shifted_ce
 from tethys_tpu_torch.ops.activations import gelu
 from tethys_tpu_torch.ops.attention import decode_attention, multi_head_attention
+from tethys_tpu_torch.ops.conv import same_pad
 from tethys_tpu_torch.ops.decode import decode_self_attention
 from tethys_tpu_torch.ops.dropout import module_dropout
 from tethys_tpu_torch.ops.masks import causal_additive_mask
+from tethys_tpu_torch.ops.norms import LayerNorm
 from tethys_tpu_torch.ops.posenc import sinusoidal_table
 from tethys_tpu_torch.ops.qkv import merge_project, project_split
+from tethys_tpu_torch.utils.device import require_cuda
 
 Cache = Dict[str, torch.Tensor]   # {"k": [B, H, D, T_max], "v": ...}
 Generator = Optional[torch.Generator]
@@ -62,13 +65,6 @@ Generator = Optional[torch.Generator]
 @functools.lru_cache(maxsize=8)
 def _positions(max_len: int, d_model: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(sinusoidal_table(max_len, d_model)).to(device)
-
-
-def _same_pad(length: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """TF SAME padding (left, right) of a 1-D convolution."""
-    out = -(-length // stride)
-    total = max((out - 1) * stride + kernel - length, 0)
-    return total // 2, total - total // 2
 
 
 class WhisperAttention(nn.Module):
@@ -167,16 +163,6 @@ class WhisperFeedForward(nn.Module):
         return module_dropout(x, cfg.dropout, self.training, generator)
 
 
-class LayerNorm(nn.LayerNorm):
-    """LayerNorm whose parameters are cast to the input's dtype; the
-    statistics are f32 inside torch's kernel, as in flax's dtype=bf16."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.normalized_shape,
-                            self.weight.to(x.dtype), self.bias.to(x.dtype),
-                            self.eps)
-
-
 def _layer_norm(config: WhisperConfig) -> LayerNorm:
     return LayerNorm(config.d_model, eps=config.layer_norm_eps)
 
@@ -238,7 +224,7 @@ class WhisperEncoder(nn.Module):
 
     def _conv(self, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
         dtype = self.config.dtype
-        x = F.pad(x, _same_pad(x.shape[-1], 3, conv.stride[0]))
+        x = F.pad(x, same_pad(x.shape[-1], 3, conv.stride[0]))
         return F.conv1d(x, conv.weight.to(dtype), conv.bias.to(dtype),
                         conv.stride)
 
@@ -402,11 +388,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             fill(module.bias, torch.zeros(module.bias.shape))
 
 
-def create_whisper_model(model_type: str = "small", *, device="cpu",
+def create_whisper_model(model_type: str = "small", *, device=None,
                          seed: int = 0, param_dtype=None, **overrides):
     """(model, config) with random weights from ``seed``, held on ``device``
-    in ``param_dtype`` (default ``config.dtype``, the serving choice;
-    training passes torch.float32 for master weights), in eval mode."""
+    (default: the card, through ``require_cuda``; the CPU only when the
+    caller passes ``device="cpu"``) in ``param_dtype`` (default
+    ``config.dtype``, the serving choice; training passes torch.float32 for
+    master weights), in eval mode."""
+    device = require_cuda() if device is None else torch.device(device)
     config = WhisperConfig.from_size(model_type, **overrides)
     with torch.device("meta"):
         model = WhisperForConditionalGeneration(config)

@@ -1,4 +1,4 @@
-"""The Whisper train step and its optimizer (tethys_tpu/parallel/dp.py).
+"""Train steps and their optimizers (tethys_tpu/parallel/dp.py).
 
 * ``KerasAdam``: tf.keras Adam's exact rule, written by hand.  Keras folds
   the bias corrections into the step size and adds eps to the UNCORRECTED
@@ -11,18 +11,29 @@
   ``torch.optim.Adam`` adds eps to the corrected sqrt(v_hat), which drifts
   from Keras over a trajectory, so it is not the port.  Moments live in the
   parameter dtype; the update runs as a few multi-tensor (``_foreach``)
-  passes over all parameters.
-* ``make_train_step(loss_fn, optimizer)``: one replica's step -- forward,
-  backward, optimizer -- returning the loss as a detached device tensor
-  (no host sync).  The JAX step logs the SUM of the replicas' losses, which
-  at one replica is the loss itself.  A multi-process world is refused:
-  the data-parallel runtime waits (ROADMAP.md, queue 1 item 5), as does
-  the hardened Wav2Vec2 chain.
+  passes over all parameters.  With ``clipnorm`` each gradient is first
+  clipped by its own L2 norm (Keras ``Adam(clipnorm=)``,
+  ``per_variable_clipnorm``).
+* ``whisper_optimizer``: Keras defaults, eps 1e-7.  ``wav2vec2_optimizer``:
+  ``per_variable_clipnorm(1.0)`` then Keras Adam with eps 1e-8 (reference
+  wav2vec2_dist.py:1271-1275).
+* ``make_train_step(loss_fn, optimizer, hardened=False)``: one replica's
+  step -- forward, backward, optimizer -- returning the loss as a detached
+  device tensor (no host sync).  The JAX step logs the SUM of the
+  replicas' losses, which at one replica is the loss itself.  The hardened
+  step (Wav2Vec2, reference wav2vec2_dist.py:1186-1260) scrubs a NaN loss
+  to 0, divides it by the number of replicas N, and clips the replica's
+  gradients to a global norm of 1.0 before the optimizer, whose
+  per-variable clip then clips them again: the reference's double clip
+  (quirk #8), kept.  A parameter that took no gradient (the frozen
+  codevectors) is left out of both clips and of the update, as the JAX
+  step's zero gradient leaves it.  A multi-process world is refused: the
+  data-parallel runtime waits (ROADMAP.md, queue 1 item 5).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,12 +52,37 @@ def _keras_alpha(lr: float, b1: float, b2: float, count: int) -> np.float32:
             / (one - np.float32(b1) ** c))
 
 
+def per_variable_clipnorm(grads: List[torch.Tensor],
+                          max_norm: float) -> None:
+    """Keras ``clipnorm``: each gradient scaled in place by min(1,
+    max_norm / max(|g|, 1e-12)), its own L2 norm (not the global one)."""
+    if not grads:
+        return
+    norms = torch.stack(torch._foreach_norm(grads)).float()
+    scales = (max_norm / norms.clamp_min(1e-12)).clamp_max(1.0)
+    torch._foreach_mul_(grads, list(scales.to(grads[0].dtype).unbind()))
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+    """optax ``clip_by_global_norm``: every gradient scaled in place by
+    max_norm / |g| when the global norm |g| is at least max_norm."""
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(grads)).float())
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale.to(grads[0].dtype))
+
+
 class KerasAdam(torch.optim.Optimizer):
     """tf.keras.optimizers.Adam's update rule (module doc)."""
 
     def __init__(self, params, lr: float = 1e-3, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-7):
-        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+                 b2: float = 0.999, eps: float = 1e-7,
+                 clipnorm: Optional[float] = None):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      clipnorm=clipnorm))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -65,6 +101,8 @@ class KerasAdam(torch.optim.Optimizer):
                 state["step"] += 1
             count = self.state[params[0]]["step"]
             grads = [p.grad for p in params]
+            if group["clipnorm"] is not None:
+                per_variable_clipnorm(grads, group["clipnorm"])
             ms = [self.state[p]["m"] for p in params]
             vs = [self.state[p]["v"] for p in params]
             b1, b2 = group["b1"], group["b2"]
@@ -91,6 +129,13 @@ def whisper_optimizer(params, learning_rate: float = 1e-4) -> KerasAdam:
     return KerasAdam(params, lr=learning_rate, b1=0.9, b2=0.999, eps=1e-7)
 
 
+def wav2vec2_optimizer(params, learning_rate: float = 3e-5) -> KerasAdam:
+    """Per-variable clipnorm(1.0), then Keras Adam with eps 1e-8 (reference
+    wav2vec2_dist.py:1271-1275)."""
+    return KerasAdam(params, lr=learning_rate, b1=0.9, b2=0.999, eps=1e-8,
+                     clipnorm=1.0)
+
+
 LossFn = Callable[[torch.nn.Module, Any, torch.Generator], Any]
 
 
@@ -107,12 +152,10 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
 
     loss_fn(model, batch, generator) -> (scalar loss, aux).  The model and
     the optimizer are updated in place; ``loss`` is detached and stays on
-    the device."""
-    if hardened:
-        raise NotImplementedError(
-            "the hardened step (NaN scrub, 1/N scaling, global-norm clip) is "
-            "Wav2Vec2's and is not ported yet (ROADMAP.md, queue 1 item 3)")
-    if _world_size() > 1:
+    the device.  ``hardened``: the NaN scrub, 1/N and the global-norm clip
+    (module doc); none of them waits on the device."""
+    n_replicas = _world_size()
+    if n_replicas > 1:
         raise NotImplementedError(
             "multi-process data parallelism is not ported yet (ROADMAP.md, "
             "queue 1 item 5); run one process on one GPU")
@@ -120,7 +163,13 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
     def step(state: TrainState, batch, generator: torch.Generator):
         optimizer.zero_grad(set_to_none=True)
         loss, _ = loss_fn(state.model, batch, generator)
+        if hardened:
+            loss = torch.where(torch.isnan(loss), torch.zeros_like(loss),
+                               loss) / n_replicas
         loss.backward()
+        if hardened:
+            clip_by_global_norm([p.grad for p in state.model.parameters()
+                                 if p.grad is not None], 1.0)
         optimizer.step()
         return state, loss.detach()
 

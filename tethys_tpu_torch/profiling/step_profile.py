@@ -1,0 +1,150 @@
+"""Where a Wav2Vec2 training step's device time goes, on the card.
+
+    python -m tethys_tpu_torch.profiling.step_profile --model_size base \
+        --batch_size 32 --dtype bfloat16
+
+Builds the job's step (train/jobs.make_wav2vec2_job: the hardened step,
+the config's dropout), runs warm-up steps, then:
+- times ``--steps`` steps pipelined as the loop runs them (the host fetches
+  step i-1's loss while the device runs step i), host clock, no profiler:
+  wall ms per step;
+- traces the same number of steps with ``torch.profiler`` (CPU and CUDA)
+  and adds up the device time of every kernel, by the category of the
+  operation that launched it: the kernel's own name for the port's kernels,
+  else the nearest enclosing operation (conv, GroupNorm apply, attention,
+  dense GEMMs, LayerNorm, GELU, the optimizer and its clips).
+
+Prints the top kernels and one JSON line: wall and device ms per step, the
+device's idle share (1 - device / wall) and ms per category.  ``--out``
+also writes the JSON there.  Needs a CUDA device (no CPU fallback).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import time
+
+import torch
+
+# (category, substrings of a kernel's or an enclosing operation's name),
+# tried from the innermost operation outwards.
+KERNEL_CATEGORIES = (
+    ("gn_stats kernel", ("gn_partials_kernel", "gn_combine_kernel")),
+    ("dropout kernel", ("dropout_kernel",)),
+)
+OP_CATEGORIES = (
+    ("optimizer + clips", ("Optimizer.step", "_foreach_")),
+    ("GroupNorm apply (plain torch)", ("GroupNormFunction",)),
+    ("conv (cuDNN)", ("convolution",)),
+    ("attention (bmm, softmax)", ("bmm", "softmax", "Bmm", "Softmax")),
+    ("dense GEMMs", ("addmm", "aten::mm", "MmBackward", "aten::linear")),
+    ("LayerNorm", ("layer_norm", "LayerNorm")),
+    ("GELU", ("gelu", "Gelu")),
+)
+
+
+def categorise(kernel_name: str, op_names) -> str:
+    for category, keys in KERNEL_CATEGORIES:
+        if any(k in kernel_name for k in keys):
+            return category
+    for name in op_names:
+        for category, keys in OP_CATEGORIES:
+            if any(k in name for k in keys):
+                return category
+    return "other (casts, copies, elementwise, loss)"
+
+
+def kernel_times(prof) -> list:
+    """[(kernel name, microseconds, [launching op, its parents ...])]."""
+    out = []
+    for evt in prof.events():
+        if not evt.kernels:
+            continue
+        chain, parent = [evt.name], evt.cpu_parent
+        while parent is not None:
+            chain.append(parent.name)
+            parent = parent.cpu_parent
+        out.extend((k.name, k.duration, chain) for k in evt.kernels)
+    return out
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model_size", default="base",
+                        choices=["tiny", "small", "base"])
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--audio_length", type=int, default=32000)
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--warmup", type=int, default=3)
+    parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args(argv)
+
+    from tethys_tpu_torch.parallel.dp import step_generator
+    from tethys_tpu_torch.train.jobs import make_wav2vec2_job
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    device = require_cuda()
+    job = make_wav2vec2_job(
+        "pretraining", args.model_size, args.batch_size,
+        compute_dtype=args.dtype, audio_length=args.audio_length,
+        device=device, seed=0)
+    batches = iter(job.dataset)
+    state, count = job.state, 0
+
+    def run(n):
+        nonlocal state, count
+        pending = None
+        for _ in range(n):
+            batch = job.prepare_batch(next(batches))
+            state, loss = job.step_fn(state, batch, step_generator(0, count))
+            count += 1
+            if pending is not None:
+                pending.item()
+            pending = loss
+        pending.item()
+
+    run(args.warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(args.steps)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        run(args.steps)
+        torch.cuda.synchronize()
+    kernels = kernel_times(prof)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernels")
+    by_category = collections.Counter()
+    by_kernel = collections.Counter()
+    for name, us, chain in kernels:
+        by_category[categorise(name, chain)] += us / 1e3 / args.steps
+        by_kernel[name] += us / 1e3 / args.steps
+    device_ms = sum(by_category.values())
+    for name, ms in by_kernel.most_common(25):
+        print(f"  {ms:9.4f} ms/step  {ms / device_ms:6.1%}  {name[:110]}")
+    result = {
+        "model": f"wav2vec2-{args.model_size}", "batch": args.batch_size,
+        "audio_length": args.audio_length, "dtype": args.dtype,
+        "steps": args.steps, "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms,
+        "idle_share": 1.0 - device_ms / wall_ms,
+        "ms_per_step_by_category": dict(by_category.most_common()),
+        "gpu": torch.cuda.get_device_name(0),
+    }
+    print(json.dumps(result), flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(result, fh, indent=1)
+    return result
+
+
+if __name__ == "__main__":
+    main()

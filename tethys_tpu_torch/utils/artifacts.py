@@ -3,7 +3,8 @@
 The scheduler's TFJob shell writes the run name into
 ``<workspace>/model.txt`` and creates ``<result>/<name>/``; a job writes
 ``<task_type>_<task_index>_jct.txt`` (JCT as '%.2f') there (reference
-speech_jobs/whisper_dist.py:1008-1021).
+speech_jobs/whisper_dist.py:1008-1021), or ``single_jct.txt`` from the
+single-device job (whisper_single.py).
 Paths are env-overridable: TETHYS_WORKSPACE (default /workspace) and
 TETHYS_RESULT (default /result).
 """
@@ -32,17 +33,20 @@ def read_model_name() -> Optional[str]:
         return None
 
 
-def write_jct(jct_seconds: float, task_type: str, task_index: int
+def write_jct(jct_seconds: float, task_type: Optional[str],
+              task_index: Optional[int], single: bool = False
               ) -> Optional[str]:
-    """Write the JCT file; returns its path or None (errors are printed and
-    swallowed, as the reference's try/except, so a missing result volume
-    never kills a job)."""
+    """Write the JCT file, ``single_jct.txt`` for the single-device jobs;
+    returns its path or None (errors are printed and swallowed, as the
+    reference's try/except, so a missing result volume never kills a
+    job)."""
     try:
         name = read_model_name()
         if name is None:
             return None
-        path = os.path.join(result_dir(), name,
-                            f"{task_type}_{task_index}_jct.txt")
+        filename = ("single_jct.txt" if single
+                    else f"{task_type}_{task_index}_jct.txt")
+        path = os.path.join(result_dir(), name, filename)
         with open(path, "w") as f:
             f.write("%.2f" % float(jct_seconds))
         return path

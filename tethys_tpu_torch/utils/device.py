@@ -1,8 +1,9 @@
 """Device helpers for the port.
 
-The serving path runs on the card.  It never falls back to the CPU on its
-own: a caller who wants the CPU (the tests, the reference run of
-``chip_smoke.py``) says so by putting the model and inputs there.
+Every path runs on the card.  None falls back to the CPU on its own: a
+caller who wants the CPU (the tests, the reference runs of
+``chip_smoke.py``, ``--device cpu``) says so by putting the model and
+inputs there.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ def require_cuda() -> torch.device:
     """The first CUDA device, or RuntimeError when there is none."""
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device: the port's serving path runs on an NVIDIA GPU "
+            "no CUDA device: the port runs on an NVIDIA GPU unless the caller "
+            "asks for the CPU "
             "(torch.cuda.is_available() is False)")
     return torch.device("cuda", 0)
 
@@ -38,3 +40,15 @@ def cpu_or_raise(name: str, tensor: torch.Tensor) -> None:
         raise ValueError(
             f"{name}: no kernel for device {tensor.device} (CUDA tensors "
             "launch the kernel, CPU tensors take the plain version)")
+
+
+def host_to_device(tensor: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``.  To the card it goes through pinned
+    memory as a non-blocking copy, so the host does not wait for the work
+    already queued on the device (a copy from pageable memory would)."""
+    device = torch.device(device)
+    if tensor.device == device:
+        return tensor
+    if device.type == "cuda" and tensor.device.type == "cpu":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)

@@ -108,8 +108,14 @@ DECODE_SELF = Kernel(
     "tethys_tpu_torch/csrc/decode_self.cu",
     "tethys_tpu/ops/pallas_decode.py:77")
 
+GN_STATS = Kernel(
+    "gn_stats", "tethys_gn_stats",
+    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tethys_tpu_torch/csrc/gn_stats.cu",
+    "tethys_tpu/ops/pallas_gn.py:50")
+
 KERNELS = (LOG_MEL, SPLIT_HEADS, MERGE_HEADS, FLASH_FWD, FLASH_FWD_DROPOUT,
-           FLASH_BWD, DROPOUT, DECODE_SELF)
+           FLASH_BWD, DROPOUT, DECODE_SELF, GN_STATS)
 
 
 def launch_counts() -> dict:
