@@ -41,8 +41,21 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    losses, the last 3 below the first on average, no ``Error at step``
    line, the checkpoint and the JCT file written;
 10. launch counts: set to 0 before each path (serving: phases 4-5,
-   training: phases 6-7, wav2vec2: phases 8-9) and read after it; every
-   kernel of a path must have launched during it.
+   training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13)
+   and read after it; every kernel of a path must have launched during it;
+11. int8 long-audio serving: whisper-base in f32 with kv_quant="int8" and
+   TETHYS_FUSED_QKV=1 (this phase only) transcribes 70 s of seeded audio
+   (3 windows in a batch of 4) on the card and on the CPU; features,
+   encoder outputs, int8 caches and scales, and per-window tokens are
+   compared (a token may differ only at a near-tie of the CPU's logits);
+12. whisper-large-v3 in bf16 (random weights, 128 mels) with int8 caches
+   and the default projections transcribes 100 s of seeded audio (4
+   windows, 64 steps): frontend, encode and generate ms, decode tokens/s,
+   rtf_e2e, peak memory;
+13. the serving bench's twin (python -m tethys_tpu_torch.scripts.
+   bench_generate) at whisper-base b16 bf16, 128 steps: --kv_quant int8,
+   none, and int8 with TETHYS_FUSED_QKV=1, then --host_chunk 32
+   --force_eos, which must stop after one chunk.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -50,17 +63,18 @@ kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 MODEL = "base"
@@ -90,7 +104,13 @@ PATH_KERNELS = {
     "training": ("split_heads", "merge_heads", "flash_fwd",
                  "flash_fwd_dropout", "flash_bwd", "dropout"),
     "wav2vec2": ("gn_stats", "dropout"),
+    "long_audio": ("log_mel", "split_heads", "flash_fwd", "decode_self",
+                   "q8_cross", "proj_split", "merge_proj"),
 }
+LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
+LONG_F32_STEPS = 32
+LONG_V3_SECONDS = 100       # 4 windows
+LONG_V3_STEPS = 64
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s and FLOP/s by
 # the type of the operands.
 HBM_BYTES_PER_S = 3.35e12
@@ -101,19 +121,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def event_ms(fn, reps: int = TIMING_REPS) -> float:
+def event_ms(fn, reps: int = TIMING_REPS, cold: bool = False) -> float:
     """Median over reps of one call's device time, by CUDA events.  Each
     call is queued behind a ~0.5 ms device spin, so the host has enqueued
     the whole call before the device reaches it and the events time the
-    device work, not the host's launch overhead."""
+    device work, not the host's launch overhead.  ``cold``: a 64 MiB write
+    before each call evicts the inputs from the 50 MB L2, as the other
+    layers' work does on the path."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold else None
     for _ in range(3):
         fn()
     times = []
@@ -121,6 +136,8 @@ def event_ms(fn, reps: int = TIMING_REPS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(1_000_000)
+        if flush is not None:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -277,6 +294,7 @@ def check_kernels(results: dict) -> None:
            4 * q.numel() * 2 + 2 * 128 * 16 * 8 * 64 * 2,
            4 * 16 * 8 * 128 * 64, "bf16")
     check_training_kernels(record, randn)
+    check_int8_kernels(record, randn)
 
 
 def check_training_kernels(record, randn) -> None:
@@ -391,6 +409,181 @@ def check_training_kernels(record, randn) -> None:
            "bf16", event_ms(lambda: torch.autograd.grad(
                o_lib, leaves, do, retain_graph=True)))
     del leaves, o_lib
+
+
+def check_int8_kernels(record, randn) -> None:
+    """Phase 3, the long-audio path's kernels at its shapes: q8_cross at
+    whisper-base b16 (B 16, H 8) and whisper-large-v3 with 4 windows (B 4,
+    H 20), D 64, Tk 1500, also at kv_len < Tk; proj_split (3 matrices) and
+    merge_proj at the base encoder [16, 1500, 512] and a decode step
+    [16, 1, 512]; the gradients of ProjectSplit and MergeProject; and the
+    flash backward at Tk = 2560, where the TPU's several-KV-block kernels
+    would run."""
+    from tethys_tpu_torch.ops import decode, flash_attention, qkv
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def q8_inputs(b, h, dtype):
+        # Quantized once: the kernel and the plain version read the same
+        # int8 caches and scales.
+        q = randn(b, h, 1, 64, dtype=dtype, scale=0.125)
+        k8, sk = decode.quantize_kv_cols(randn(b, h, 64, 1500))
+        v8, sv = decode.quantize_kv_cols(randn(b, h, 64, 1500))
+        return q, k8, sk, v8, sv
+
+    # f32: two f32 sums in other orders; bf16: the output is bf16 below 4,
+    # where one bf16 step is at most 0.016.
+    errs = []
+    for dtype, tol in ((f32, 1e-5), (bf16, 2e-2)):
+        for b, h in ((16, 8), (4, 20)):
+            for kv_len in (None, 1000):
+                args = q8_inputs(b, h, dtype)
+                errs.append(check(
+                    f"q8_cross {dtype} B {b} H {h} kv_len {kv_len}",
+                    max_err(decode.q8_cross_cuda(*args, kv_len),
+                            decode.plain_q8_cross_attention(*args, kv_len)),
+                    tol))
+    args = q8_inputs(16, 8, bf16)
+    bh, t = 16 * 8, 1500
+    # No single PyTorch call computes attention over int8 caches.  Timed
+    # cold: the 26.1 MB of caches fit in L2, but on the path the other five
+    # layers' caches pass through it between two calls for one layer.
+    record("q8_cross", errs,
+           event_ms(lambda: decode.q8_cross_cuda(*args), cold=True),
+           event_ms(lambda: decode.plain_q8_cross_attention(*args), cold=True),
+           2 * bh * 64 * t + 2 * bh * t * 4 + 2 * bh * 64 * 2,
+           4 * bh * t * 64, "bf16")
+
+    def proj_inputs(t, dtype, n=3):
+        x = randn(16, t, 512, dtype=dtype)
+        ws = [randn(512, 512, dtype=dtype, scale=512 ** -0.5) for _ in range(n)]
+        bs = [randn(512, dtype=dtype, scale=0.1) for _ in range(n)]
+        return x, ws, bs, (0.125,) + (1.0,) * (n - 1)
+
+    # f32: sums of 512 products in other orders; bf16: outputs below 8 may
+    # differ by one bf16 step (0.0625) where the f32 sums round differently.
+    errs = []
+    for dtype, tol in ((f32, 1e-4), (bf16, 6.25e-2)):
+        for t in (1500, 1):
+            x, ws, bs, scales = proj_inputs(t, dtype)
+            got = qkv.project_split_cuda(x, ws, bs, scales, 8)
+            want = qkv.plain_project_split_fused(x, ws, bs, scales, 8)
+            errs.append(check(f"proj_split {dtype} [16, {t}, 512] x 3",
+                              max(max_err(a, b) for a, b in zip(got, want)),
+                              tol))
+    x, ws, bs, scales = proj_inputs(1500, bf16)
+
+    def linear_split():
+        return [F.linear(x, w, b).view(16, 1500, 8, 64).permute(0, 2, 1, 3)
+                .contiguous() for w, b in zip(ws, bs)]
+
+    m = 16 * 1500
+    record("proj_split", errs,
+           event_ms(lambda: qkv.project_split_cuda(x, ws, bs, scales, 8)),
+           event_ms(lambda: qkv.plain_project_split_fused(x, ws, bs, scales, 8)),
+           2 * (m * 512 + 3 * 512 * 512 + 3 * 512 + 3 * m * 512),
+           3 * 2 * m * 512 * 512, "bf16", event_ms(linear_split))
+    x1, ws1, bs1, _ = proj_inputs(1, bf16)
+    log("  proj_split bf16 decode step [16, 1, 512] x 3: kernel "
+        f"{event_ms(lambda: qkv.project_split_cuda(x1, ws1, bs1, scales, 8)):.4f}"
+        " ms, bound {:.4f} ms".format(bound(2 * 3 * 512 * 512, 0, "bf16")[0]))
+
+    errs = []
+    for dtype, tol in ((f32, 1e-4), (bf16, 6.25e-2)):
+        for t in (1500, 1):
+            attn = randn(16, 8, t, 64, dtype=dtype)
+            w = randn(512, 512, dtype=dtype, scale=512 ** -0.5)
+            b = randn(512, dtype=dtype, scale=0.1)
+            errs.append(check(f"merge_proj {dtype} [16, 8, {t}, 64]",
+                              max_err(qkv.merge_project_cuda(attn, w, b),
+                                      qkv.plain_merge_project_fused(attn, w, b)),
+                              tol))
+    attn = randn(16, 8, 1500, 64, dtype=bf16)
+    w = randn(512, 512, dtype=bf16, scale=512 ** -0.5)
+    b = randn(512, dtype=bf16, scale=0.1)
+    record("merge_proj", errs,
+           event_ms(lambda: qkv.merge_project_cuda(attn, w, b)),
+           event_ms(lambda: qkv.plain_merge_project_fused(attn, w, b)),
+           2 * (2 * attn.numel() + w.numel() + b.numel()),
+           2 * m * 512 * 512, "bf16",
+           event_ms(lambda: F.linear(attn.permute(0, 2, 1, 3).reshape(
+               16, 1500, 512), w, b)))
+    check_fused_grads(randn)
+    check_flash_bwd_long(randn)
+
+
+def check_fused_grads(randn) -> None:
+    """Phase 3: the autograd Functions of the fused projections on the card
+    (kernel forward; merge/split kernels and matmuls backward) against
+    autograd through their plain versions, f32 at [4, 1500, 512], f32
+    master weights: every gradient within 1e-4 of its largest magnitude
+    (f32 sums of up to 6000 terms in other orders)."""
+    from tethys_tpu_torch.ops import qkv
+
+    x = randn(4, 1500, 512)
+    ws = [randn(512, 512, scale=512 ** -0.5) for _ in range(3)]
+    bs = [randn(512, scale=0.1) for _ in range(3)]
+    cots = [randn(4, 8, 1500, 64) for _ in range(3)]
+    scales = (0.125, 1.0, 1.0)
+    dy = randn(4, 1500, 512)
+
+    def grads(fused: bool):
+        leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+        if fused:
+            outs = qkv.ProjectSplit.apply(leaves[0], 8, scales, *leaves[1:])
+        else:
+            outs = qkv.plain_project_split_fused(
+                leaves[0], leaves[1:4], leaves[4:], scales, 8)
+        sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+        attn = outs[0].detach().clone().requires_grad_()
+        w, b = ws[0].clone().requires_grad_(), bs[0].clone().requires_grad_()
+        if fused:
+            y = qkv.MergeProject.apply(attn, w, b)
+        else:
+            y = qkv.plain_merge_project_fused(attn, w, b)
+        (y * dy).sum().backward()
+        return [t.grad for t in (*leaves, attn, w, b)]
+
+    names = ["x", "wq", "wk", "wv", "bq", "bk", "bv", "attn", "w_out", "b_out"]
+    worst = 0.0
+    for name, got, want in zip(names, grads(True), grads(False)):
+        rel = max_err(got, want) / want.abs().max().item()
+        require(rel <= 1e-4, f"fused gradient of {name}: {rel:.3e} > 1e-4")
+        worst = max(worst, rel)
+    log(f"  fused projection gradients f32 [4, 1500, 512]: {len(names)} "
+        f"tensors, worst {worst:.3e} of their largest magnitude (limit 1e-4)")
+
+
+def check_flash_bwd_long(randn) -> None:
+    """Phase 3: flash_bwd.cu at Tk = 2560 (B*H 16, D 64, rates 0 and 0.1),
+    the length at which the TPU kernel switches to its several-KV-block
+    kernels (_bwd_dq_kernel, _bwd_dkv_kernel); tolerances as at 1500."""
+    from tethys_tpu_torch.ops import flash_attention
+
+    t, seed = 2560, 4321
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        for r in (0.0, DROPOUT_RATE):
+            q = randn(16, t, 64, dtype=dtype, scale=64 ** -0.5)
+            k, v, do = (randn(16, t, 64, dtype=dtype) for _ in range(3))
+            o, lse = flash_attention.plain_flash_fwd(q, k, v, t, r, seed)
+            got = flash_attention.flash_bwd_cuda(q, k, v, o, lse, do, t, r, seed)
+            want = flash_attention.plain_flash_bwd(q, k, v, o, lse, do, t, r,
+                                                   seed)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                check(f"flash_bwd {name} {dtype} {t}x{t} rate {r}",
+                      max_err(a, b), tol)
+    q = randn(16, t, 64, dtype=torch.bfloat16, scale=64 ** -0.5)
+    k, v, do = (randn(16, t, 64, dtype=torch.bfloat16) for _ in range(3))
+    o, lse = flash_attention.flash_fwd_cuda(q, k, v, t)
+    ms = event_ms(lambda: flash_attention.flash_bwd_cuda(q, k, v, o, lse, do, t))
+    # dq recomputes S and dP and forms dS K (3 products); dk, dv recompute
+    # S and dP and form P^T dO and dS^T Q (4 products).
+    io = 2 * 16 * t * 64
+    dq_bound = bound(4 * io + 16 * t * 4 + io, 6 * 16 * t * t * 64, "bf16")
+    dkv_bound = bound(4 * io + 16 * t * 4 + 2 * io, 8 * 16 * t * t * 64, "bf16")
+    log(f"  flash_bwd bf16 B*H 16, {t}x{t}, rate 0: kernel {ms:.4f} ms; "
+        f"bound of the TPU's dq kernel {dq_bound[0]:.4f} ms ({dq_bound[1]}), "
+        f"of its dk/dv kernel {dkv_bound[0]:.4f} ms ({dkv_bound[1]})")
 
 
 def sdpa(q, k, v, rate: float = 0.0):
@@ -844,6 +1037,194 @@ def run_w2v_bf16(gpu: str) -> dict:
     return stats
 
 
+@contextlib.contextmanager
+def fused_qkv(on: bool):
+    """TETHYS_FUSED_QKV=1 inside the block when ``on``; restored after."""
+    before = os.environ.get("TETHYS_FUSED_QKV")
+    if on:
+        os.environ["TETHYS_FUSED_QKV"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("TETHYS_FUSED_QKV", None)
+        else:
+            os.environ["TETHYS_FUSED_QKV"] = before
+
+
+def long_wave(seconds: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(SAMPLE_RATE * seconds).astype(np.float32)
+
+
+def step_logits(model, features, tokens, step: int) -> torch.Tensor:
+    """The logits [B, vocab] of decode step ``step`` (0-based), fed the
+    tokens of a greedy run."""
+    from tethys_tpu_torch.models.whisper import init_kv_caches
+
+    with torch.inference_mode():
+        kvs = model.precompute_cross_kv(model.encode(features))
+        caches = init_kv_caches(model.config, features.shape[0],
+                                tokens.shape[1] - 1, features.device)
+        for i in range(step + 1):
+            logits = model.decode_step(tokens[:, i:i + 1], caches, i, kvs)
+    return logits[:, -1].float()
+
+
+def run_long_audio_f32() -> None:
+    """Phase 11: int8 long-audio serving with the fused projections, f32,
+    card against CPU."""
+    with fused_qkv(True):
+        long_audio_f32()
+
+
+def long_audio_f32() -> None:
+    from tethys_tpu_torch.audio.frontend import prepare_streaming_features
+    from tethys_tpu_torch.inference import transcribe_long_audio
+    from tethys_tpu_torch.models.whisper import (
+        create_whisper_model,
+        greedy_generate,
+    )
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    model, cfg = create_whisper_model(MODEL, device=dev, seed=SEED,
+                                      kv_quant="int8")
+    cpu_model = copy.deepcopy(model).cpu()
+    wave = long_wave(LONG_F32_SECONDS, SEED + 2)
+    t0 = time.perf_counter()
+    ids_gpu = transcribe_long_audio(model, wave, max_length=LONG_F32_STEPS)
+    torch.cuda.synchronize()
+    log(f"  f32 card: {LONG_F32_SECONDS} s in {len(ids_gpu)} windows served "
+        f"in {time.perf_counter() - t0:.2f} s (first call)")
+    t0 = time.perf_counter()
+    ids_cpu = transcribe_long_audio(cpu_model, wave, max_length=LONG_F32_STEPS)
+    log(f"  f32 cpu: served in {time.perf_counter() - t0:.2f} s")
+    require(len(ids_gpu) == len(ids_cpu) == 3,
+            f"windows: card {len(ids_gpu)}, cpu {len(ids_cpu)}")
+
+    with torch.inference_mode():
+        wav = torch.from_numpy(wave)
+        feats_gpu = prepare_streaming_features(wav.to(dev))
+        feats_cpu = prepare_streaming_features(wav)
+        require(feats_gpu.shape == (3, 80, 3000),
+                f"features shape {tuple(feats_gpu.shape)}")
+        check("long-audio features card vs cpu",
+              max_err(feats_gpu.cpu(), feats_cpu), 1e-3)
+        enc_gpu = model.encode(feats_gpu)
+        enc_cpu = cpu_model.encode(feats_cpu)
+        check("long-audio encoder output card vs cpu",
+              max_err(enc_gpu.cpu(), enc_cpu), 2e-3)
+        kv_gpu = model.precompute_cross_kv(enc_gpu)
+        kv_cpu = cpu_model.precompute_cross_kv(enc_cpu)
+    # The int8 caches may differ by 1 where a value lies at a rounding
+    # boundary after the encoder's small card/CPU gap; scales within 1e-5.
+    differ, total, worst_scale = 0, 0, 0.0
+    for layer_gpu, layer_cpu in zip(kv_gpu, kv_cpu):
+        require(len(layer_gpu) == 4, "the cross caches are not int8")
+        for i in (0, 2):
+            a, b = layer_gpu[i].cpu().int(), layer_cpu[i].int()
+            require(layer_gpu[i].dtype == torch.int8,
+                    f"cache dtype {layer_gpu[i].dtype}")
+            gap = (a - b).abs()
+            require(int(gap.max()) <= 1, f"int8 caches differ by {int(gap.max())}")
+            differ += int((gap > 0).sum())
+            total += gap.numel()
+        for i in (1, 3):
+            a, b = layer_gpu[i].cpu(), layer_cpu[i]
+            worst_scale = max(worst_scale, ((a - b).abs() / b).max().item())
+    log(f"  int8 caches: {differ} of {total} values ({differ / total:.3e}) "
+        f"differ by 1 between card and cpu")
+    check("int8 scales card vs cpu (relative)", worst_scale, 1e-5)
+
+    for w, (a, b) in enumerate(zip(ids_gpu, ids_cpu)):
+        require(((0 <= a) & (a < cfg.vocab_size)).all(),
+                "token ids outside the vocabulary")
+        if len(a) == len(b) and (a == b).all():
+            continue
+        # Tokens may part only at a near-tie of the CPU's logits.
+        j = next(i for i in range(min(len(a), len(b)) + 1)
+                 if i == len(a) or i == len(b) or a[i] != b[i])
+        feats = torch.cat([feats_cpu, feats_cpu.new_zeros((1, 80, 3000))])
+        tokens, _ = greedy_generate(cpu_model, feats, max_length=LONG_F32_STEPS)
+        top = step_logits(cpu_model, feats, tokens, j - 1)[w].topk(2)
+        gap = ((top.values[0] - top.values[1]) / top.values[0].abs()).item()
+        log(f"  window {w}: tokens part at index {j}; the cpu's top-2 logit "
+            f"gap there is {gap:.3e} of its largest logit")
+        require(gap < 1e-3, f"window {w}: tokens differ off a near-tie")
+    log(f"  f32 int8 long audio (fused projections): per-window tokens "
+        f"{[len(ids) for ids in ids_gpu]} long, card and cpu agree")
+
+
+def run_long_audio_large_v3(gpu: str) -> dict:
+    """Phase 12: whisper-large-v3 bf16, int8 caches, default projections."""
+    from tethys_tpu_torch.audio.frontend import prepare_streaming_features
+    from tethys_tpu_torch.inference import transcribe_long_audio
+    from tethys_tpu_torch.models.whisper import (
+        create_whisper_model,
+        greedy_generate,
+    )
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    model, cfg = create_whisper_model("large-v3", device=dev, seed=SEED,
+                                      compute_dtype="bfloat16", kv_quant="int8")
+    wave = long_wave(LONG_V3_SECONDS, SEED + 3)
+    wav = torch.from_numpy(wave).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ids = transcribe_long_audio(model, wave, max_length=LONG_V3_STEPS)
+        require(len(ids) == 4, f"{len(ids)} windows")
+        for w, row in enumerate(ids):
+            require(((0 <= row) & (row < cfg.vocab_size)).all(),
+                    f"window {w}: token ids outside the vocabulary")
+        feats = prepare_streaming_features(wav, n_mels=cfg.n_mels)
+        require(feats.shape == (4, 128, 3000), f"features {tuple(feats.shape)}")
+        frontend_ms = wall_ms(
+            lambda: prepare_streaming_features(wav, n_mels=cfg.n_mels), 3)
+        encode_ms = wall_ms(lambda: model.encode(feats), 3)
+        generate_ms = wall_ms(
+            lambda: greedy_generate(model, feats, max_length=LONG_V3_STEPS), 3)
+        e2e_ms = wall_ms(lambda: transcribe_long_audio(
+            model, wave, max_length=LONG_V3_STEPS), 3)
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = generate_ms - encode_ms
+    stats = {
+        "model": "large-v3", "windows": len(ids),
+        "window_tokens": [len(row) for row in ids],
+        "decode_steps": LONG_V3_STEPS, "frontend_ms": frontend_ms,
+        "encode_ms": encode_ms, "generate_ms": generate_ms, "e2e_ms": e2e_ms,
+        "decode_tokens_per_s": LONG_V3_STEPS * 4 / (decode_ms / 1e3),
+        "rtf_e2e": LONG_V3_SECONDS / (e2e_ms / 1e3),
+        "peak_mem_gib": peak / 2 ** 30, "gpu": gpu,
+    }
+    log(f"  bf16 whisper-large-v3 int8, {LONG_V3_SECONDS} s in 4 windows on "
+        f"{gpu}: frontend {frontend_ms:.2f} ms, encode {encode_ms:.2f} ms, "
+        f"generate {generate_ms:.2f} ms ({LONG_V3_STEPS} steps), decode "
+        f"{stats['decode_tokens_per_s']:.1f} tokens/s, rtf_e2e "
+        f"{stats['rtf_e2e']:.2f}, peak {stats['peak_mem_gib']:.2f} GiB")
+    log("  large-v3 " + json.dumps(stats))
+    return stats
+
+
+def run_bench_twin() -> None:
+    """Phase 13: the serving bench's twin at whisper-base b16 bf16."""
+    from tethys_tpu_torch.scripts import bench_generate
+
+    base = ["--batch_size", str(BENCH_BATCH), "--length", str(BENCH_STEPS),
+            "--model", MODEL, "--dtype", "bfloat16", "--iters", "5",
+            "--seed", str(SEED)]
+    for kv_quant, fused in (("int8", False), ("none", False), ("int8", True)):
+        log(f"  bench_generate --kv_quant {kv_quant}"
+            + (" with TETHYS_FUSED_QKV=1" if fused else ""))
+        with fused_qkv(fused):
+            bench_generate.main(base + ["--kv_quant", kv_quant])
+    log("  bench_generate --host_chunk 32 --force_eos")
+    result = bench_generate.main(base + ["--host_chunk", "32", "--force_eos"])
+    require(result["chunks_run"] == 1,
+            f"--force_eos ran {result['chunks_run']} chunks, not 1")
+
+
 def drive_path(name: str, phases) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -868,10 +1249,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
-    gpu = gpu_name_and_power()
-    log(gpu)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tethys_tpu_torch.utils import kernel_lib
+    from tethys_tpu_torch.utils.device import card_name_and_power
+
+    gpu = card_name_and_power()
+    log(gpu)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -901,7 +1284,15 @@ def main() -> int:
     w2v = drive_path("wav2vec2", (
         ("[8] wav2vec2-base f32 pretraining, card against cpu", run_w2v_f32),
         ("[9] wav2vec2-base bf16 pretraining job", run_w2v_bf16, gpu)))
-    counts = {k: serving[k] + training[k] + w2v[k] for k in serving}
+    long_audio = drive_path("long_audio", (
+        ("[11] whisper-base f32 int8 long-audio serving, card against cpu",
+         run_long_audio_f32),
+        ("[12] whisper-large-v3 bf16 int8 long-audio serving",
+         run_long_audio_large_v3, gpu),
+        ("[13] the serving bench's twin, whisper-base b16 bf16",
+         run_bench_twin)))
+    counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
+              for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")

@@ -15,6 +15,7 @@ from tethys_tpu_torch.convert import params_from_flax, torch_name
 from tethys_tpu_torch.models.whisper import (
     WhisperForConditionalGeneration,
     create_whisper_model,
+    greedy_generate,
 )
 
 torch.set_num_threads(2)
@@ -37,12 +38,27 @@ def test_dtype_resolves_to_torch(name, dtype):
     assert WhisperConfig(compute_dtype=name).dtype == dtype
 
 
-def test_kv_quant_int8_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WhisperForConditionalGeneration(WhisperConfig(
-            d_model=16, encoder_attention_heads=2, decoder_attention_heads=2,
-            encoder_layers=1, decoder_layers=1, d_ff=32, vocab_size=10,
-            kv_quant="int8"))
+def test_kv_quant_int8_builds_and_decodes():
+    """kv_quant="int8" builds, holds its cross caches as int8 with f32
+    per-column scales, and decodes; any other value than "none" or "int8"
+    raises."""
+    kw = dict(d_model=16, encoder_attention_heads=2, decoder_attention_heads=2,
+              encoder_layers=1, decoder_layers=1, d_ff=32, vocab_size=10,
+              n_mels=8, n_ctx=8, max_target_positions=6,
+              decoder_start_token_id=9)
+    model, cfg = create_whisper_model(device="cpu", kv_quant="int8", **kw)
+    feats = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 8, 16), dtype=np.float32))
+    with torch.inference_mode():
+        (k8, sk, v8, sv), = model.precompute_cross_kv(model.encode(feats))
+    assert k8.dtype == v8.dtype == torch.int8 and k8.shape == (2, 2, 8, 8)
+    assert sk.dtype == sv.dtype == torch.float32 and sk.shape == (2, 2, 1, 8)
+    tokens, length = greedy_generate(model, feats, max_length=5)
+    assert tokens.shape == (2, 6) and (tokens[:, 0] == 9).all()
+    assert ((tokens >= 0) & (tokens < cfg.vocab_size)).all()
+    assert 1 <= int(length) <= 6
+    with pytest.raises(ValueError, match="kv_quant"):
+        WhisperForConditionalGeneration(WhisperConfig(**kw, kv_quant="int4"))
 
 
 def test_converter_names_and_shapes():

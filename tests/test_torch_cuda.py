@@ -7,7 +7,9 @@ dims 16-128, ragged sequence edges, misaligned and odd-width head splits
 and merges, dropout on odd lengths and misaligned views, the flash
 backward with and without dropout, caches that need more than 48 KB of
 shared memory, the GroupNorm statistics at ragged T and C and far-off
-means, the wrappers' refusals, and tiny Whisper and Wav2Vec2 training steps
+means, the int8 cross-attention at odd Tk and kv_len, the fused
+projections at ragged tiles with their gradients, the wrappers' refusals,
+tiny Whisper and Wav2Vec2 training steps and tiny int8 long-audio serving
 on the card against the CPU.  On a machine with the card and the CUDA toolkit:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -29,6 +31,7 @@ from tethys_tpu_torch.ops import (
     flash_attention,
     group_norm,
     norms,
+    qkv,
     transpose,
 )
 from tethys_tpu_torch.parallel import dp
@@ -410,3 +413,135 @@ def test_tiny_wav2vec2_steps_card_against_cpu(cuda):
     assert counts["gn_stats"] == 3 * 3 and counts["dropout"] > 0
     torch.testing.assert_close(torch.tensor(runs[0]), torch.tensor(runs[1]),
                                rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,d,t,kv_len", [
+    (2, 3, 64, 1500, None), (1, 4, 16, 1501, 700), (3, 2, 80, 13, 5),
+    (1, 2, 128, 15000, 14999), (2, 5, 64, 8, 1)])
+def test_q8_cross_matches_plain(cuda, dtype, tol, b, h, d, t, kv_len):
+    """char4 loads (Tk % 4 == 0) and single bytes (Tk 1501, 13), ragged
+    kv_len, scores that need more than 48 KB of shared memory (Tk 15000).
+    The kernel and the plain version read the same int8 caches and scales:
+    f32 to 1e-5, bf16 (outputs below 4) to 2e-2."""
+    q = _randn(cuda, b, h, 1, d, dtype=dtype, scale=d ** -0.5, seed=20)
+    k8, sk = decode.quantize_kv_cols(_randn(cuda, b, h, d, t, seed=21))
+    v8, sv = decode.quantize_kv_cols(_randn(cuda, b, h, d, t, seed=22))
+    before = kernel_lib.Q8_CROSS.launches
+    got = decode.decode_cross_attention_q8(q, k8, sk, v8, sv, kv_len)
+    assert kernel_lib.Q8_CROSS.launches == before + 1
+    want = decode.plain_q8_cross_attention(q, k8, sk, v8, sv, kv_len)
+    assert got.dtype == dtype and got.shape == (b, h, 1, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_q8_cross_refuses_what_it_does_not_take(cuda):
+    q = _randn(cuda, 1, 2, 1, 8)
+    k8, sk = decode.quantize_kv_cols(_randn(cuda, 1, 2, 8, 10))
+    with pytest.raises(ValueError, match="kv_len"):
+        decode.decode_cross_attention_q8(q, k8, sk, k8, sk, kv_len=11)
+    with pytest.raises(ValueError, match="int8"):
+        decode.decode_cross_attention_q8(q, k8.float(), sk, k8, sk)
+    with pytest.raises(ValueError, match="shapes"):
+        decode.decode_cross_attention_q8(_randn(cuda, 1, 2, 2, 8), k8, sk, k8,
+                                         sk)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 6.25e-2)])
+@pytest.mark.parametrize("b,t,e_in,e_out,heads,n", [
+    (2, 1500, 512, 512, 8, 3), (3, 1, 1280, 1280, 20, 1), (1, 77, 96, 80, 5, 2),
+    (2, 130, 70, 48, 3, 3), (16, 1, 512, 512, 8, 2)])
+def test_proj_split_matches_plain(cuda, dtype, tol, b, t, e_in, e_out, heads,
+                                  n):
+    """Ragged M, N and K tiles, T 1 and 1500, one to three matrices.  f32:
+    sums in other orders; bf16: outputs below 4 one bf16 step apart where
+    the f32 sums round differently (0.0625 below 8)."""
+    x = _randn(cuda, b, t, e_in, dtype=dtype, seed=23)
+    ws = [_randn(cuda, e_out, e_in, scale=e_in ** -0.5, seed=24 + i)
+          for i in range(n)]
+    bs = [_randn(cuda, e_out, scale=0.1, seed=30 + i) for i in range(n)]
+    scales = [0.125] + [1.0] * (n - 1)
+    before = kernel_lib.PROJ_SPLIT.launches
+    got = qkv.project_split_cuda(x, ws, bs, scales, heads)
+    assert kernel_lib.PROJ_SPLIT.launches == before + 1
+    want = qkv.plain_project_split_fused(x, ws, bs, scales, heads)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (b, heads, t, e_out // heads)
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 6.25e-2)])
+@pytest.mark.parametrize("b,heads,t,d,e_out", [
+    (2, 8, 1500, 64, 512), (4, 20, 1, 64, 1280), (1, 3, 77, 10, 50)])
+def test_merge_proj_matches_plain(cuda, dtype, tol, b, heads, t, d, e_out):
+    attn = _randn(cuda, b, heads, t, d, dtype=dtype, seed=40)
+    w = _randn(cuda, e_out, heads * d, scale=(heads * d) ** -0.5, seed=41)
+    bias = _randn(cuda, e_out, scale=0.1, seed=42)
+    before = kernel_lib.MERGE_PROJ.launches
+    got = qkv.merge_project_cuda(attn, w, bias)
+    assert kernel_lib.MERGE_PROJ.launches == before + 1
+    want = qkv.plain_merge_project_fused(attn, w, bias)
+    assert got.dtype == dtype and got.shape == (b, t, e_out)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_fused_projections_on_card_have_a_grad_fn(cuda, monkeypatch):
+    """With TETHYS_FUSED_QKV=1 a CUDA projection launches the kernels and
+    records a grad_fn; its gradients equal autograd through the plain
+    versions (f32, 1e-4 of each gradient's largest magnitude); a shape the
+    kernel cannot take raises."""
+    monkeypatch.setenv("TETHYS_FUSED_QKV", "1")
+    x = _randn(cuda, 2, 30, 64, seed=50).requires_grad_()
+    w = [_randn(cuda, 64, 64, scale=0.125, seed=51 + i).requires_grad_()
+         for i in range(3)]
+    bias = [_randn(cuda, 64, scale=0.1, seed=55 + i).requires_grad_()
+            for i in range(3)]
+    before = (kernel_lib.PROJ_SPLIT.launches, kernel_lib.MERGE_PROJ.launches)
+    outs = qkv.project_split(x, list(zip(w, bias, (0.125, 1.0, 1.0))), 4)
+    y = qkv.merge_project(outs[0] + outs[1] + outs[2], w[0], bias[0])
+    assert (kernel_lib.PROJ_SPLIT.launches, kernel_lib.MERGE_PROJ.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert y.grad_fn is not None
+    y.square().sum().backward()
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *w, *bias)]
+    ref = qkv.plain_project_split_fused(leaves[0], leaves[1:4], leaves[4:],
+                                        (0.125, 1.0, 1.0), 4)
+    qkv.plain_merge_project_fused(ref[0] + ref[1] + ref[2], leaves[1],
+                                  leaves[4]).square().sum().backward()
+    for got, want in zip((x, *w, *bias), leaves):
+        err = (got.grad - want.grad).abs().max() / want.grad.abs().max()
+        assert err <= 1e-4
+    with pytest.raises(ValueError, match="not divisible"):
+        qkv.project_split(x, [(w[0][:60], bias[0][:60], 1.0)], 8)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiny_int8_long_audio_card_against_cpu(cuda, monkeypatch, fused):
+    """f32 int8 long-audio serving on a tiny model, with and without the
+    fused projections: per-window tokens identical on card and CPU, and the
+    int8 kernel launched at every decode step of every layer."""
+    from tethys_tpu_torch.inference import transcribe_long_audio
+
+    if fused:
+        monkeypatch.setenv("TETHYS_FUSED_QKV", "1")
+    overrides = dict(TINY, n_mels=80, n_ctx=100, kv_quant="int8")
+    wave = _randn(torch.device("cpu"), int(4.5 * 16000), seed=60).numpy()
+    model, _ = create_whisper_model(device=cuda, seed=5, **overrides)
+    kernel_lib.reset_launch_counts()
+    ids_card = transcribe_long_audio(model, wave, max_length=8)
+    counts = kernel_lib.launch_counts()
+    cpu_model, _ = create_whisper_model(device="cpu", seed=5, **overrides)
+    ids_cpu = transcribe_long_audio(cpu_model, wave, max_length=8)
+    assert len(ids_card) == len(ids_cpu) == 3
+    for a, b in zip(ids_card, ids_cpu):
+        assert (a == b).all()
+    assert counts["q8_cross"] == 8 * TINY["decoder_layers"]
+    assert counts["log_mel"] == 1
+    if fused:
+        assert counts["proj_split"] > 0 and counts["merge_proj"] > 0
+        assert counts["split_heads"] == 0
+    else:
+        assert counts["proj_split"] == counts["merge_proj"] == 0

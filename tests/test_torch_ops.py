@@ -388,11 +388,13 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     flash_attention.flash_attention(q3g[None], q3g[None], q3g[None],
                                     dropout_rate=0.1, seed=1).sum().backward()
     dropout.fused_dropout(x, 0.1, 1)
+    k8, sk = decode.quantize_kv_cols(torch.randn(1, 2, 4, 3))
+    decode.decode_cross_attention_q8(q, k8, sk, k8, sk)
     assert all(n == 0 for n in kernel_lib.launch_counts().values())
     assert [k.name for k in kernel_lib.KERNELS] == [
         "log_mel", "split_heads", "merge_heads", "flash_fwd",
         "flash_fwd_dropout", "flash_bwd", "dropout", "decode_self",
-        "gn_stats"]
+        "gn_stats", "q8_cross", "proj_split", "merge_proj"]
     for k in kernel_lib.KERNELS:
         assert (PKG.parent / k.source).is_file()
         assert (PKG.parent / k.replaces.split(":")[0]).is_file()

@@ -23,7 +23,11 @@ from tethys_tpu.models.whisper import (
 )
 from tethys_tpu_torch.configs import WhisperConfig
 from tethys_tpu_torch.convert import params_from_flax
-from tethys_tpu_torch.inference import transcribe_audio, transcribe_batch
+from tethys_tpu_torch.inference import (
+    transcribe_audio,
+    transcribe_batch,
+    transcribe_long_audio,
+)
 from tethys_tpu_torch.models.whisper import (
     WhisperForConditionalGeneration,
     greedy_generate,
@@ -140,14 +144,18 @@ def test_transcribe_audio_matches_jax(tiny):
     np.testing.assert_array_equal(both[1], got)
 
 
-def test_cpu_slice_launches_no_kernel(tiny):
-    """CPU tensors take every kernel's plain version: the whole slice leaves
-    every launch counter at 0."""
+def test_cpu_slice_launches_no_kernel(tiny, monkeypatch):
+    """CPU tensors take every kernel's plain version: the whole slice, and
+    the int8 long-audio slice with the fused projections, leave every
+    launch counter at 0."""
     port = tiny[4]
     kernel_lib.reset_launch_counts()
     wave = np.random.default_rng(8).standard_normal(4000).astype(np.float32)
     transcribe_audio(port, wave, max_length=4)
+    monkeypatch.setenv("TETHYS_FUSED_QKV", "1")
+    transcribe_long_audio(_port(tiny[1], kv_quant="int8"), wave, max_length=4)
     assert kernel_lib.launch_counts() == {
         "log_mel": 0, "split_heads": 0, "merge_heads": 0, "flash_fwd": 0,
         "flash_fwd_dropout": 0, "flash_bwd": 0, "dropout": 0,
-        "decode_self": 0, "gn_stats": 0}
+        "decode_self": 0, "gn_stats": 0, "q8_cross": 0, "proj_split": 0,
+        "merge_proj": 0}

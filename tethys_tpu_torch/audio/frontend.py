@@ -5,8 +5,9 @@ pad_end=False, power spectrum, HTK mel matrix with the DC bin zeroed,
 log(mel + 1e-6).  The window and mel matrix are numpy, computed once.
 ``extract_fbank_features`` is the plain rfft frontend;
 ``log_mel_features`` takes the fused log-mel kernel (audio/logmel.py),
-which on a CPU tensor runs its plain version.  ``stream_log_mel`` is not
-ported yet (ROADMAP.md).
+which on a CPU tensor runs its plain version.  ``stream_log_mel`` cuts
+audio of any length into exact-seam 30 s windows and runs them through
+that kernel as one batch.
 """
 
 from __future__ import annotations
@@ -107,3 +108,41 @@ def prepare_input_features(waveform: torch.Tensor, n_frames: int = 3000,
     else:
         feats = feats[..., :n_frames]
     return feats.contiguous()
+
+
+def stream_log_mel(waveform: torch.Tensor, sample_rate: int = 16000,
+                   n_mels: int = 80, n_fft: int = 400, hop_length: int = 160,
+                   window_seconds: float = 30.0) -> torch.Tensor:
+    """Waveform [T] of any length -> [n_windows, frames_per_window, n_mels]
+    log-mel windows (the JAX ``stream_log_mel``).
+
+    Seams are exact: window k covers the whole-signal frames
+    [k * F, (k + 1) * F) (F = 3000 for 30 s), and each window's slice of
+    the signal carries the n_fft - hop_length = 240 samples of lookahead
+    that its last frames read, so every frame equals the frame one STFT of
+    the whole zero-padded signal gives.  The tail is zero-padded to a full
+    window.  All windows go through the log-mel kernel as one batch."""
+    if waveform.dim() != 1:
+        raise ValueError(f"stream_log_mel takes one [T] waveform, got "
+                         f"{tuple(waveform.shape)}")
+    window_samples = int(round(window_seconds * sample_rate))
+    lookahead = n_fft - hop_length
+    t = waveform.shape[0]
+    n_windows = max(1, -(-t // window_samples))
+    padded = torch.nn.functional.pad(
+        waveform.float(), (0, n_windows * window_samples + lookahead - t))
+    # Overlapping slices of the padded signal as one strided view (no
+    # index tensor); the frames are copied out of it once, in the kernel's
+    # wrapper.
+    windows = padded.unfold(0, window_samples + lookahead, window_samples)
+    return log_mel_features(windows, sample_rate, n_mels, n_fft, hop_length)
+
+
+def prepare_streaming_features(waveform: torch.Tensor, n_mels: int = 80,
+                               sample_rate: int = 16000,
+                               window_seconds: float = 30.0) -> torch.Tensor:
+    """Waveform [T] of any length -> encoder input [n_windows, n_mels,
+    frames_per_window]: ``stream_log_mel`` in the encoder's layout."""
+    feats = stream_log_mel(waveform, sample_rate=sample_rate, n_mels=n_mels,
+                           window_seconds=window_seconds)
+    return feats.transpose(-1, -2).contiguous()

@@ -62,4 +62,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Max (is_max) or sum of v over a block of kWarps full warps, returned to
+// every thread.  s_red holds kWarps floats; the block must reach the call
+// together.
+template <int kWarps>
+__device__ float block_reduce(float v, float* s_red, bool is_max) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = is_max ? warp_max(v) : warp_sum(v);
+  if (lane == 0) s_red[warp] = v;
+  __syncthreads();
+  float r = s_red[0];
+  for (int w = 1; w < kWarps; ++w) r = is_max ? fmaxf(r, s_red[w]) : r + s_red[w];
+  __syncthreads();  // s_red may be reused by the next reduction
+  return r;
+}
+
 }  // namespace tethys

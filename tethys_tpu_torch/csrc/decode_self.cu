@@ -29,18 +29,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-__device__ float block_reduce(float v, float* s_red, bool is_max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = is_max ? tethys::warp_max(v) : tethys::warp_sum(v);
-  if (lane == 0) s_red[warp] = v;
-  __syncthreads();
-  float r = s_red[0];
-  for (int w = 1; w < kWarps; ++w)
-    r = is_max ? fmaxf(r, s_red[w]) : r + s_red[w];
-  __syncthreads();  // s_red may be reused by the next reduction
-  return r;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_self_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
@@ -81,7 +69,7 @@ __global__ void __launch_bounds__(kThreads)
     s_p[t] = acc;
     local_max = fmaxf(local_max, acc);
   }
-  const float m = block_reduce(local_max, s_red, true);
+  const float m = tethys::block_reduce<kWarps>(local_max, s_red, true);
 
   float local_sum = 0.f;
   for (int t = tid; t <= idx; t += kThreads) {
@@ -89,7 +77,7 @@ __global__ void __launch_bounds__(kThreads)
     s_p[t] = p;
     local_sum += p;
   }
-  const float l = block_reduce(local_sum, s_red, false);
+  const float l = tethys::block_reduce<kWarps>(local_sum, s_red, false);
 
   for (int t = tid; t <= idx; t += kThreads)
     s_p[t] = tethys::round_to<T>(s_p[t] / l);

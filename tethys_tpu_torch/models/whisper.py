@@ -30,10 +30,14 @@ residuals.  ``forward(input_features, labels=...)`` right-shifts the labels
 behind ``decoder_start_token_id`` and returns the shifted CE loss.
 
 Serving: ``greedy_generate`` encodes, projects every decoder layer's
-cross-attention K/V once (transposed, [B, H, D, T_enc]), then runs a
-Python loop of exactly ``max_length`` single-token decode steps.  Each
-step appends to the [B, H, D, T_max] self-attention caches IN PLACE through
-the decode kernel (ops/decode.py).  The loop makes no host sync.
+cross-attention K/V once (transposed, [B, H, D, T_enc]; with
+``kv_quant="int8"`` quantized per column to int8 with f32 scales), then
+runs a Python loop of exactly ``max_length`` single-token decode steps.
+Each step appends to the [B, H, D, T_max] self-attention caches IN PLACE
+through the decode kernel (ops/decode.py) and attends to the cross caches
+(plain, or the int8 kernel).  The loop makes no host sync, unless
+``early_stop_chunk`` asks for one read of the done flag every C steps
+(also ``make_chunked_greedy``).
 """
 
 from __future__ import annotations
@@ -50,7 +54,11 @@ from tethys_tpu_torch.losses import seq2seq_shifted_ce
 from tethys_tpu_torch.ops.activations import gelu
 from tethys_tpu_torch.ops.attention import decode_attention, multi_head_attention
 from tethys_tpu_torch.ops.conv import same_pad
-from tethys_tpu_torch.ops.decode import decode_self_attention
+from tethys_tpu_torch.ops.decode import (
+    decode_cross_attention_q8,
+    decode_self_attention,
+    quantize_kv_cols,
+)
 from tethys_tpu_torch.ops.dropout import module_dropout
 from tethys_tpu_torch.ops.masks import causal_additive_mask
 from tethys_tpu_torch.ops.norms import LayerNorm
@@ -82,9 +90,10 @@ class WhisperAttention(nn.Module):
         self.out_proj = nn.Linear(d, d)
 
     def _proj(self, name: str, scale: float = 1.0):
+        """(weight, bias, scale) as stored; project_split and merge_project
+        cast them to the compute dtype where they use them."""
         layer = getattr(self, name)
-        dtype = self.config.dtype
-        return layer.weight.to(dtype), layer.bias.to(dtype), scale
+        return layer.weight, layer.bias, scale
 
     def _out(self, attn: torch.Tensor) -> torch.Tensor:
         weight, bias, _ = self._proj("out_proj")
@@ -116,11 +125,16 @@ class WhisperAttention(nn.Module):
 
     def project_kv(self, kv_source: torch.Tensor):
         """Cross-attention K/V of the encoder output, projected once per
-        generate and stored transposed: ([B, H, D, Tk], [B, H, D, Tk])."""
+        generate and stored transposed: ([B, H, D, Tk], [B, H, D, Tk]), or
+        under ``kv_quant="int8"`` (k8, sk, v8, sv): int8 [B, H, D, Tk] and
+        f32 per-column scales [B, H, 1, Tk]."""
         k, v = project_split(kv_source,
                              [self._proj("k_proj"), self._proj("v_proj")],
                              self.num_heads)
-        return (k.transpose(2, 3).contiguous(), v.transpose(2, 3).contiguous())
+        k_t, v_t = k.transpose(2, 3).contiguous(), v.transpose(2, 3).contiguous()
+        if self.config.kv_quant == "int8":
+            return (*quantize_kv_cols(k_t), *quantize_kv_cols(v_t))
+        return k_t, v_t
 
     def decode_self(self, hidden_states: torch.Tensor, cache: Cache,
                     index: int) -> torch.Tensor:
@@ -134,12 +148,18 @@ class WhisperAttention(nn.Module):
         return self._out(attn)
 
     def decode_cross(self, hidden_states: torch.Tensor,
-                     cross_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-        """One-token cross-attention against the precomputed caches."""
+                     cross_kv: Tuple[torch.Tensor, ...],
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One-token cross-attention against the precomputed caches: a
+        (k, v) pair, or the int8 (k8, sk, v8, sv), which takes no bias."""
         (q,) = project_split(
             hidden_states, [self._proj("q_proj", self.head_dim ** -0.5)],
             self.num_heads)
-        return self._out(decode_attention(q, *cross_kv))
+        if len(cross_kv) == 4:
+            if bias is not None:
+                raise ValueError("int8 cross-KV decode carries no attention bias")
+            return self._out(decode_cross_attention_q8(q, *cross_kv))
+        return self._out(decode_attention(q, *cross_kv, bias=bias))
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -304,9 +324,9 @@ class WhisperModel(nn.Module):
 class WhisperForConditionalGeneration(nn.Module):
     def __init__(self, config: WhisperConfig):
         super().__init__()
-        if config.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={config.kv_quant!r} is not ported yet (ROADMAP.md)")
+        if config.kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be 'none' or 'int8', got "
+                             f"{config.kv_quant!r}")
         self.config = config
         self.model = WhisperModel(config)
         self.lm_head = nn.Linear(config.d_model, config.vocab_size, bias=False)
@@ -349,7 +369,8 @@ class WhisperForConditionalGeneration(nn.Module):
         return self.model.encoder(input_features)
 
     def precompute_cross_kv(self, encoder_hidden_states: torch.Tensor):
-        """Per decoder layer, the transposed cross-attention (K, V)."""
+        """Per decoder layer, the transposed cross-attention (K, V), or
+        (k8, sk, v8, sv) under ``kv_quant="int8"``."""
         return self.model.decoder.precompute_cross_kv(encoder_hidden_states)
 
     def decode_step(self, token: torch.Tensor, caches, index: int, cross_kvs):
@@ -416,21 +437,14 @@ def init_kv_caches(config: WhisperConfig, batch: int, max_length: int,
         for _ in range(config.decoder_layers))
 
 
-@torch.inference_mode()
-def greedy_generate(model: WhisperForConditionalGeneration,
-                    input_features: torch.Tensor,
-                    max_length: Optional[int] = None):
-    """Greedy decoding with the KV cache; returns (tokens [B, max_length+1]
-    int32, length int32 0-d).
-
-    Same observable semantics as the JAX ``greedy_generate`` (its
-    fixed-length scan with a done mask): start from
-    decoder_start_token_id, take the argmax (first maximal index) each
-    step, and once every sequence emitted EOS at the same step, write pad
-    and freeze the length.  Exactly ``max_length`` steps run; nothing in
-    the loop waits on the device."""
+def _greedy_loop(model: WhisperForConditionalGeneration,
+                 input_features: torch.Tensor, max_length: int,
+                 chunk: Optional[int]):
+    """The decode loop of ``greedy_generate`` and ``make_chunked_greedy``:
+    (tokens, length, chunks run).  With ``chunk`` set, the host reads the
+    done flag after every ``chunk`` steps (the loop's only sync) and stops
+    once every sequence has emitted EOS."""
     cfg = model.config
-    max_length = max_length or cfg.max_target_positions
     batch = input_features.shape[0]
     device = input_features.device
 
@@ -444,6 +458,7 @@ def greedy_generate(model: WhisperForConditionalGeneration,
     done = torch.zeros((), dtype=torch.bool, device=device)
     n = torch.zeros((), dtype=torch.int32, device=device)
     pad = torch.tensor(cfg.pad_token_id, dtype=torch.int32, device=device)
+    chunks_run = 0
     for i in range(max_length):
         logits = model.decode_step(tokens[:, i:i + 1], caches, i, cross_kvs)
         next_tokens = logits[:, -1, :].argmax(dim=-1).to(torch.int32)
@@ -451,4 +466,63 @@ def greedy_generate(model: WhisperForConditionalGeneration,
         tokens[:, i + 1] = next_tokens
         n = torch.where(done, n, torch.full_like(n, i + 1))
         done = done | (next_tokens == cfg.eos_token_id).all()
-    return tokens, n + 1
+        if chunk is not None and (i + 1) % chunk == 0:
+            chunks_run += 1
+            if bool(done):
+                break
+    return tokens, n + 1, chunks_run
+
+
+def _check_chunk(chunk: int, max_length: int) -> None:
+    # Whole chunks run to their end, so a chunk that does not divide
+    # max_length would run past it.
+    if max_length % chunk != 0:
+        raise ValueError(f"early_stop_chunk={chunk} must divide "
+                         f"max_length={max_length}")
+
+
+@torch.inference_mode()
+def greedy_generate(model: WhisperForConditionalGeneration,
+                    input_features: torch.Tensor,
+                    max_length: Optional[int] = None,
+                    temperature: float = 1.0,
+                    top_k: Optional[int] = None,
+                    early_stop_chunk: Optional[int] = None):
+    """Greedy decoding with the KV cache; returns (tokens [B, max_length+1]
+    int32, length int32 0-d).
+
+    Same observable semantics as the JAX ``greedy_generate`` (its
+    fixed-length scan with a done mask): start from
+    decoder_start_token_id, take the argmax (first maximal index) each
+    step, and once every sequence emitted EOS at the same step, write pad
+    and freeze the length.  ``temperature`` and ``top_k`` never change an
+    argmax and are ignored, as in JAX.  Without ``early_stop_chunk`` exactly
+    ``max_length`` steps run and nothing in the loop waits on the device;
+    with it (C must divide max_length) the loop stops at the end of the
+    first C-step chunk after a global EOS, with the same tokens."""
+    del temperature, top_k
+    max_length = max_length or model.config.max_target_positions
+    if early_stop_chunk is not None:
+        _check_chunk(early_stop_chunk, max_length)
+    tokens, length, _ = _greedy_loop(model, input_features, max_length,
+                                     early_stop_chunk)
+    return tokens, length
+
+
+def make_chunked_greedy(model: WhisperForConditionalGeneration,
+                        max_length: int, chunk: int):
+    """``generate(input_features) -> (tokens, length)``: greedy decoding
+    that reads the done flag once every ``chunk`` steps and stops after the
+    first chunk that ends with every sequence done (the JAX host-chunked
+    form).  Tokens equal ``greedy_generate``'s.  After each call
+    ``generate.chunks_run`` holds the number of chunks that ran."""
+    _check_chunk(chunk, max_length)
+
+    @torch.inference_mode()
+    def generate(input_features):
+        tokens, length, generate.chunks_run = _greedy_loop(
+            model, input_features, max_length, chunk)
+        return tokens, length
+
+    generate.chunks_run = 0
+    return generate

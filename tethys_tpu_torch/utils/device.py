@@ -8,6 +8,8 @@ inputs there.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -19,6 +21,15 @@ def require_cuda() -> torch.device:
             "asks for the CPU "
             "(torch.cuda.is_available() is False)")
     return torch.device("cuda", 0)
+
+
+def card_name_and_power() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them (the first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
 
 
 def check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:

@@ -114,8 +114,26 @@ GN_STATS = Kernel(
     "tethys_tpu_torch/csrc/gn_stats.cu",
     "tethys_tpu/ops/pallas_gn.py:50")
 
+Q8_CROSS = Kernel(
+    "q8_cross", "tethys_q8_cross",
+    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "tethys_tpu_torch/csrc/q8_cross.cu",
+    "tethys_tpu/ops/pallas_decode.py:195")
+PROJ_SPLIT = Kernel(
+    "proj_split", "tethys_proj_split",
+    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _I,
+     _I, _I, _P),
+    "tethys_tpu_torch/csrc/qkv_proj.cu",
+    "tethys_tpu/ops/pallas_qkv.py:117")
+MERGE_PROJ = Kernel(
+    "merge_proj", "tethys_merge_proj",
+    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tethys_tpu_torch/csrc/qkv_proj.cu",
+    "tethys_tpu/ops/pallas_qkv.py:236")
+
 KERNELS = (LOG_MEL, SPLIT_HEADS, MERGE_HEADS, FLASH_FWD, FLASH_FWD_DROPOUT,
-           FLASH_BWD, DROPOUT, DECODE_SELF, GN_STATS)
+           FLASH_BWD, DROPOUT, DECODE_SELF, GN_STATS, Q8_CROSS, PROJ_SPLIT,
+           MERGE_PROJ)
 
 
 def launch_counts() -> dict:
