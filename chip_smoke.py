@@ -41,7 +41,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    losses, the last 3 below the first on average, no ``Error at step``
    line, the checkpoint and the JCT file written;
 10. launch counts: set to 0 before each path (serving: phases 4-5,
-   training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13)
+   training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13,
+   flash bench: phase 14)
    and read after it; every kernel of a path must have launched during it;
 11. int8 long-audio serving: whisper-base in f32 with kv_quant="int8" and
    TETHYS_FUSED_QKV=1 (this phase only) transcribes 70 s of seeded audio
@@ -55,7 +56,12 @@ Phases, each of which raises on failure (the exit code is then nonzero):
 13. the serving bench's twin (python -m tethys_tpu_torch.scripts.
    bench_generate) at whisper-base b16 bf16, 128 steps: --kv_quant int8,
    none, and int8 with TETHYS_FUSED_QKV=1, then --host_chunk 32
-   --force_eos, which must stop after one chunk.
+   --force_eos, which must stop after one chunk;
+14. the flash-kernel bench's twin (python -m tethys_tpu_torch.scripts.
+   bench_flash) at its defaults (B*H 128, keys padded to 1536, kv_len 1500,
+   rate 0.1, bf16, 50 launches each way), then at B*H 16 and Tk 2560 (the
+   TPU's several-KV-block backward) at rates 0.1 and 0: ms per call of the
+   forward and the backward; the backward must launch at Tk 2560.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -106,6 +112,7 @@ PATH_KERNELS = {
     "wav2vec2": ("gn_stats", "dropout"),
     "long_audio": ("log_mel", "split_heads", "flash_fwd", "decode_self",
                    "q8_cross", "proj_split", "merge_proj"),
+    "flash_bench": ("flash_fwd", "flash_fwd_dropout", "flash_bwd"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -115,6 +122,11 @@ LONG_V3_STEPS = 64
 # the type of the operands.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# The bf16 flash outputs' largest difference from the plain version, over
+# the plain version's largest magnitude: bf16 rounding on either side is at
+# most one step, 2^-7 of the largest value; a 10% scale error reads 0.1 and
+# another dropout mask more (phase 3 shows the limit sees both).
+BF16_REL_LIMIT = 0.025
 
 
 def log(msg: str) -> None:
@@ -181,6 +193,29 @@ def check(name: str, err: float, tol: float) -> float:
     log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:g})")
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+    return err
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want|."""
+    return max_err(got, want) / want.float().abs().max().item()
+
+
+def check_rel(name: str, got, want, limit: float = BF16_REL_LIMIT) -> float:
+    """A bf16 output against its plain version, relative to the plain
+    version's largest magnitude, beside the absolute check."""
+    rel = rel_err(got, want)
+    log(f"  {name}: max_abs_err / max|ref| {rel:.3e} (limit {limit:g})")
+    if not rel <= limit:
+        raise AssertionError(f"{name}: relative error {rel} > {limit}")
+    return rel
+
+
+def check_flash(name: str, got, want, tol: float, dtype) -> float:
+    """The absolute check, and in bf16 the relative one too."""
+    err = check(name, max_err(got, want), tol)
+    if dtype == torch.bfloat16:
+        check_rel(name, got, want)
     return err
 
 
@@ -252,8 +287,8 @@ def check_kernels(results: dict) -> None:
             v = randn(32, tk, 64, dtype=dtype)
             o, lse = flash_attention.flash_fwd_cuda(q, k, v, kv_len)
             o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, kv_len)
-            errs.append(check(f"flash o {dtype} Tk={tk} kv_len={kv_len}",
-                              max_err(o, o_ref), tol_o))
+            errs.append(check_flash(f"flash o {dtype} Tk={tk} kv_len={kv_len}",
+                                    o, o_ref, tol_o, dtype))
             errs.append(check(f"flash lse {dtype} Tk={tk} kv_len={kv_len}",
                               max_err(lse, lse_ref), 1e-4))
     q = randn(32, 1500, 64, dtype=torch.bfloat16, scale=0.3)
@@ -351,8 +386,8 @@ def check_training_kernels(record, randn) -> None:
             o, lse = flash_attention.flash_fwd_cuda(q, k, v, 1500, rate, seed)
             o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, 1500,
                                                              rate, seed)
-            errs.append(check(f"flash_fwd_dropout o {dtype} {tq}x1500",
-                              max_err(o, o_ref), tol_o))
+            errs.append(check_flash(f"flash_fwd_dropout o {dtype} {tq}x1500",
+                                    o, o_ref, tol_o, dtype))
             errs.append(check(f"flash_fwd_dropout lse {dtype} {tq}x1500",
                               max_err(lse, lse_ref), 1e-4))
     q, k, v = qkv(1500, 1500, bf16)
@@ -366,8 +401,9 @@ def check_training_kernels(record, randn) -> None:
 
     # flash backward against plain_flash_bwd (f32: two summation orders,
     # 1e-4; bf16: dq, dk, dv are bf16 and below 2 in magnitude, where one
-    # bf16 step is at most 0.016, so 3e-2), and in f32 against torch
-    # autograd through the plain forward with the same seed (1e-4).
+    # bf16 step is at most 0.016, so 3e-2, and BF16_REL_LIMIT), and in f32
+    # against torch autograd through the plain forward with the same seed
+    # (1e-4).
     errs = []
     for dtype, tol in ((f32, 1e-4), (bf16, 3e-2)):
         for tq in (1500, 100):
@@ -380,9 +416,12 @@ def check_training_kernels(record, randn) -> None:
                 want = flash_attention.plain_flash_bwd(q, k, v, o, lse, do,
                                                        1500, r, seed)
                 for name, a, b in zip(("dq", "dk", "dv"), got, want):
-                    errs.append(check(
+                    errs.append(check_flash(
                         f"flash_bwd {name} {dtype} {tq}x1500 rate {r}",
-                        max_err(a, b), tol))
+                        a, b, tol, dtype))
+                if dtype == bf16 and r and tq == 1500:
+                    check_rel_sees_faults(flash_attention, q, k, v, o, lse, do,
+                                          r, seed, want)
                 if dtype != f32:
                     continue
                 leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -554,34 +593,89 @@ def check_fused_grads(randn) -> None:
         f"tensors, worst {worst:.3e} of their largest magnitude (limit 1e-4)")
 
 
+def check_rel_sees_faults(flash_attention, q, k, v, o, lse, do, r, seed,
+                          want) -> None:
+    """Phase 3: the relative limit fails what a broken bf16 backward would
+    give: dq, dk, dv without their 1/(1-r) factor, and the gradients of
+    another dropout mask (seed + 1), each against the plain gradients."""
+    other = flash_attention.plain_flash_bwd(q, k, v, o, lse, do, k.shape[1],
+                                            r, seed + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), want, other):
+        for fault, wrong in (("without 1/(1-r)", a * (1 - r)),
+                             ("with another mask", b)):
+            rel = rel_err(wrong, a)
+            log(f"  flash_bwd {name} {fault}: max_abs_err / max|ref| "
+                f"{rel:.3e} (must exceed {BF16_REL_LIMIT:g})")
+            require(rel > BF16_REL_LIMIT,
+                    f"the relative limit does not see {name} {fault}")
+
+
 def check_flash_bwd_long(randn) -> None:
-    """Phase 3: flash_bwd.cu at Tk = 2560 (B*H 16, D 64, rates 0 and 0.1),
-    the length at which the TPU kernel switches to its several-KV-block
-    kernels (_bwd_dq_kernel, _bwd_dkv_kernel); tolerances as at 1500."""
+    """Phase 3: both flash kernels at Tq = Tk = 2560 (B*H 16, D 64, rates 0
+    and 0.1), the length at which the TPU's backward switches to its
+    several-KV-block kernels (_bwd_dq_kernel, _bwd_dkv_kernel), which phase
+    14 drives; and both at the flash bench's default shape (B*H 128, Tq
+    1536, keys padded to 1536 with kv_len 1500, rate 0.1).  Tolerances as
+    at 1500."""
     from tethys_tpu_torch.ops import flash_attention
 
     t, seed = 2560, 4321
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+    for dtype, tol_o, tol in ((torch.float32, 1e-4, 1e-4),
+                              (torch.bfloat16, 2e-2, 3e-2)):
         for r in (0.0, DROPOUT_RATE):
             q = randn(16, t, 64, dtype=dtype, scale=64 ** -0.5)
             k, v, do = (randn(16, t, 64, dtype=dtype) for _ in range(3))
             o, lse = flash_attention.plain_flash_fwd(q, k, v, t, r, seed)
+            o_card, lse_card = flash_attention.flash_fwd_cuda(q, k, v, t, r,
+                                                              seed)
+            check_flash(f"flash_fwd o {dtype} {t}x{t} rate {r}", o_card, o,
+                        tol_o, dtype)
+            check(f"flash_fwd lse {dtype} {t}x{t} rate {r}",
+                  max_err(lse_card, lse), 1e-4)
+            del o_card, lse_card
             got = flash_attention.flash_bwd_cuda(q, k, v, o, lse, do, t, r, seed)
             want = flash_attention.plain_flash_bwd(q, k, v, o, lse, do, t, r,
                                                    seed)
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
-                check(f"flash_bwd {name} {dtype} {t}x{t} rate {r}",
-                      max_err(a, b), tol)
+                check_flash(f"flash_bwd {name} {dtype} {t}x{t} rate {r}", a, b,
+                            tol, dtype)
+    q = randn(128, 1536, 64, dtype=torch.bfloat16, scale=0.3)
+    k = randn(128, 1536, 64, dtype=torch.bfloat16, scale=0.3)
+    v, do = (randn(128, 1536, 64, dtype=torch.bfloat16) for _ in range(2))
+    o, lse = flash_attention.flash_fwd_cuda(q, k, v, 1500, DROPOUT_RATE, seed)
+    o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, 1500,
+                                                     DROPOUT_RATE, seed)
+    check_flash("flash_fwd_dropout o bf16 1536x1536 kv_len 1500", o, o_ref,
+                2e-2, torch.bfloat16)
+    check("flash_fwd_dropout lse bf16 1536x1536 kv_len 1500",
+          max_err(lse, lse_ref), 1e-4)
+    got = flash_attention.flash_bwd_cuda(q, k, v, o_ref, lse_ref, do, 1500,
+                                         DROPOUT_RATE, seed)
+    want = flash_attention.plain_flash_bwd(q, k, v, o_ref, lse_ref, do, 1500,
+                                           DROPOUT_RATE, seed)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        check_flash(f"flash_bwd {name} bf16 1536x1536 kv_len 1500 rate 0.1",
+                    a, b, 3e-2, torch.bfloat16)
+    del q, k, v, do, o, lse, o_ref, lse_ref, got, want
+
     q = randn(16, t, 64, dtype=torch.bfloat16, scale=64 ** -0.5)
     k, v, do = (randn(16, t, 64, dtype=torch.bfloat16) for _ in range(3))
     o, lse = flash_attention.flash_fwd_cuda(q, k, v, t)
     ms = event_ms(lambda: flash_attention.flash_bwd_cuda(q, k, v, o, lse, do, t))
+    plain_ms = event_ms(lambda: flash_attention.plain_flash_bwd(
+        q, k, v, o, lse, do, t))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_lib = sdpa(*leaves)
+    library_ms = event_ms(lambda: torch.autograd.grad(o_lib, leaves, do,
+                                                      retain_graph=True))
+    del leaves, o_lib
     # dq recomputes S and dP and forms dS K (3 products); dk, dv recompute
     # S and dP and form P^T dO and dS^T Q (4 products).
     io = 2 * 16 * t * 64
     dq_bound = bound(4 * io + 16 * t * 4 + io, 6 * 16 * t * t * 64, "bf16")
     dkv_bound = bound(4 * io + 16 * t * 4 + 2 * io, 8 * 16 * t * t * 64, "bf16")
-    log(f"  flash_bwd bf16 B*H 16, {t}x{t}, rate 0: kernel {ms:.4f} ms; "
+    log(f"  flash_bwd bf16 B*H 16, {t}x{t}, rate 0: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (SDPA backward); "
         f"bound of the TPU's dq kernel {dq_bound[0]:.4f} ms ({dq_bound[1]}), "
         f"of its dk/dv kernel {dkv_bound[0]:.4f} ms ({dkv_bound[1]})")
 
@@ -1225,6 +1319,29 @@ def run_bench_twin() -> None:
             f"--force_eos ran {result['chunks_run']} chunks, not 1")
 
 
+def run_flash_bench() -> None:
+    """Phase 14: the flash bench's twin at its defaults, then at Tk 2560."""
+    from tethys_tpu_torch.scripts import bench_flash
+    from tethys_tpu_torch.utils import kernel_lib
+
+    runs = [[]] + [["--bh", "16", "--t", "2560", "--kv_len", "2560",
+                    "--rate", str(rate)] for rate in (DROPOUT_RATE, 0.0)]
+    kernels = ("flash_fwd", "flash_fwd_dropout", "flash_bwd")
+    for argv in runs:
+        log("  bench_flash " + (" ".join(argv) or "(defaults)"))
+        before = kernel_lib.launch_counts()
+        result = bench_flash.main(argv)
+        after = kernel_lib.launch_counts()
+        launches = {k: after[k] - before[k] for k in kernels}
+        require(all(np.isfinite(result[k]) and result[k] > 0
+                    for k in ("flash_fwd_ms", "flash_bwd_ms")),
+                f"bench_flash times {result}")
+        require(launches["flash_bwd"] > 0,
+                f"flash_bwd did not launch at Tk {result['t']}")
+        log("  flash_bench " + json.dumps(result) + " launches "
+            + json.dumps(launches))
+
+
 def drive_path(name: str, phases) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -1291,8 +1408,11 @@ def main() -> int:
          run_long_audio_large_v3, gpu),
         ("[13] the serving bench's twin, whisper-base b16 bf16",
          run_bench_twin)))
+    flash_bench = drive_path("flash_bench", (
+        ("[14] the flash-kernel bench's twin, bf16, Tk 1536 and 2560",
+         run_flash_bench),))
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
-              for k in serving}
+              + flash_bench[k] for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")

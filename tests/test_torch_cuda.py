@@ -3,7 +3,8 @@
 Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips
 where torch.cuda.is_available() is false (as on a CPU-only machine).
 These cover the kernels' branches off the main path's shapes: head
-dims 16-128, ragged sequence edges, misaligned and odd-width head splits
+dims 16-128, ragged sequence edges (Tq 1500 against keys padded to 1536,
+Tk 2560), misaligned flash inputs, misaligned and odd-width head splits
 and merges, dropout on odd lengths and misaligned views, the flash
 backward with and without dropout, caches that need more than 48 KB of
 shared memory, the GroupNorm statistics at ragged T and C and far-off
@@ -60,6 +61,21 @@ def _randn(dev, *shape, dtype=torch.float32, scale=1.0, seed=0):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
+# bf16 flash outputs, beside their absolute tolerances: the largest
+# difference from the plain version over its largest magnitude.  Rounding
+# either side to bf16 moves a value by at most 2^-7 of the largest; a 10%
+# scale error (a lost 1/(1-r)) or another dropout mask reads 0.1 or more.
+BF16_REL_LIMIT = 0.025
+
+
+def _assert_rel(got, want, name=""):
+    if got.dtype != torch.bfloat16:
+        return
+    rel = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    assert rel <= BF16_REL_LIMIT, f"{name}: relative error {rel}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,h,d", [(37, 3, 16), (1, 8, 64), (5, 4, 6),
                                    (9, 2, 5), (11, 5, 3)])
@@ -85,7 +101,9 @@ def test_split_heads_misaligned_input(cuda):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [16, 64, 80, 128])
 @pytest.mark.parametrize("tq,tk,kv_len", [(1, 100, 100), (65, 130, 100),
-                                          (200, 77, 77), (128, 128, 1)])
+                                          (200, 77, 77), (128, 128, 1),
+                                          (1500, 1536, 1500),
+                                          (2560, 2560, 2560)])
 def test_flash_fwd_matches_plain(cuda, dtype, tol, d, tq, tk, kv_len):
     q = _randn(cuda, 3, tq, d, dtype=dtype, scale=d ** -0.5, seed=1)
     k = _randn(cuda, 3, tk, d, dtype=dtype, seed=2)
@@ -94,6 +112,7 @@ def test_flash_fwd_matches_plain(cuda, dtype, tol, d, tq, tk, kv_len):
     o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, kv_len)
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    _assert_rel(o, o_ref, "o")
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -211,7 +230,9 @@ def test_dropout_backward_is_the_same_mask(cuda):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [16, 64, 80, 128])
 @pytest.mark.parametrize("tq,tk,kv_len", [(1, 100, 100), (65, 130, 100),
-                                          (200, 77, 77), (100, 1500, 1500)])
+                                          (200, 77, 77), (100, 1500, 1500),
+                                          (1500, 1536, 1500),
+                                          (2560, 2560, 2560)])
 def test_flash_fwd_dropout_matches_plain(cuda, dtype, tol, d, tq, tk, kv_len):
     q = _randn(cuda, 3, tq, d, dtype=dtype, scale=d ** -0.5, seed=1)
     k = _randn(cuda, 3, tk, d, dtype=dtype, seed=2)
@@ -222,6 +243,7 @@ def test_flash_fwd_dropout_matches_plain(cuda, dtype, tol, d, tq, tk, kv_len):
     o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, kv_len, 0.1, 99)
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    _assert_rel(o, o_ref, "o")
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -229,7 +251,9 @@ def test_flash_fwd_dropout_matches_plain(cuda, dtype, tol, d, tq, tk, kv_len):
                                              (torch.bfloat16, 3e-2, 1e-2)])
 @pytest.mark.parametrize("d", [16, 64, 80, 128])
 @pytest.mark.parametrize("tq,tk,kv_len", [(1, 100, 100), (65, 130, 100),
-                                          (200, 77, 77), (100, 300, 300)])
+                                          (200, 77, 77), (100, 300, 300),
+                                          (1500, 1536, 1500),
+                                          (2560, 2560, 2560)])
 def test_flash_bwd_matches_plain(cuda, rate, dtype, atol, rtol, d, tq, tk,
                                  kv_len):
     """f32: two summation orders.  bf16: the outputs are bf16, and at D 128
@@ -251,7 +275,44 @@ def test_flash_bwd_matches_plain(cuda, rate, dtype, atol, rtol, d, tq, tk,
         assert a.dtype == dtype and a.shape == b.shape, name
         torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
                                    atol=atol, msg=name)
+        _assert_rel(a, b, name)
     assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,tol_o,atol,rtol", [
+    (torch.float32, 1e-5, 1e-4, 0.0), (torch.bfloat16, 2e-2, 3e-2, 1e-2)])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+def test_flash_kernels_misaligned_base(cuda, rate, dtype, tol_o, atol, rtol,
+                                       d):
+    """Contiguous views one element into their storage, so no base is
+    16-byte aligned: the bf16 kernels take their 2-byte loads (and scalar
+    dq atomics) inside the same kernel; tolerances as above."""
+    tq, tk, kv_len = 130, 200, 190
+
+    def view(shape, seed, scale=1.0):
+        n = shape[0] * shape[1] * shape[2]
+        base = _randn(cuda, 1 + n, dtype=dtype, scale=scale, seed=seed)
+        x = base[1:].view(*shape)
+        assert x.data_ptr() % 16 != 0
+        return x
+
+    q = view((3, tq, d), 1, d ** -0.5)
+    k, v = view((3, tk, d), 2), view((3, tk, d), 3)
+    do = view((3, tq, d), 4)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, kv_len, rate, 5)
+    o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, kv_len, rate, 5)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol_o)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    _assert_rel(o, o_ref, "o")
+    got = flash_attention.flash_attention_bwd(q, k, v, o_ref, lse_ref, do,
+                                              kv_len, rate, 5)
+    want = flash_attention.plain_flash_bwd(q, k, v, o_ref, lse_ref, do,
+                                           kv_len, rate, 5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+        _assert_rel(a, b, name)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

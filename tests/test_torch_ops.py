@@ -129,14 +129,23 @@ def test_flash_dropout_not_ported():
 
 
 @pytest.mark.parametrize("tq,tk,kv_len", [(200, 200, 200), (100, 640, 640),
-                                          (100, 640, 600)])
+                                          (100, 640, 600), (128, 2560, 2560),
+                                          (128, 2560, 2500)])
 def test_plain_flash_bwd_matches_pallas(monkeypatch, tq, tk, kv_len):
     """dq, dk, dv of the plain backward (and of the FlashAttention Function
     on CPU tensors) against jax.grad of the Pallas flash attention in
-    interpret mode at rate 0: self (1, 2, 200, 64) and cross 100 x 640,
-    with and without masked keys; rtol 1e-4, atol 1e-5 as
-    tests/test_pallas_attention.py."""
+    interpret mode at rate 0: self (1, 2, 200, 64), cross 100 x 640, and
+    128 x 2560, where the keys span two 1280-key blocks and JAX takes its
+    several-block pair _bwd_dq_kernel and _bwd_dkv_kernel in place of the
+    fused _bwd_dkv_dq_kernel; with and without masked keys; rtol 1e-4,
+    atol 1e-5 as tests/test_pallas_attention.py."""
     monkeypatch.setattr(pa, "_INTERPRET", True)
+    traced = {}
+    for name in ("_bwd_dkv_dq_kernel", "_bwd_dq_kernel", "_bwd_dkv_kernel"):
+        def counting(*refs, _kernel=getattr(pa, name), _name=name, **kw):
+            traced[_name] = traced.get(_name, 0) + 1
+            return _kernel(*refs, **kw)
+        monkeypatch.setattr(pa, name, counting)
     rng = np.random.default_rng(12)
     q = rng.standard_normal((1, 2, tq, 64)).astype(np.float32) * 0.3
     k = rng.standard_normal((1, 2, tk, 64)).astype(np.float32) * 0.3
@@ -157,6 +166,14 @@ def test_plain_flash_bwd_matches_pallas(monkeypatch, tq, tk, kv_len):
                                    atol=1e-5)
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
                                    rtol=1e-4, atol=1e-5)
+    several = pa._block_sizes(tq, tk)[1] < tk
+    assert several == (tk > pa.MAX_BLOCK_K)
+    # (the fused kernel's body calls _bwd_dkv_kernel too)
+    if several:
+        assert pa._block_sizes(tq, tk) == (128, 1280)
+        assert set(traced) == {"_bwd_dq_kernel", "_bwd_dkv_kernel"}
+    else:
+        assert set(traced) == {"_bwd_dkv_dq_kernel", "_bwd_dkv_kernel"}
 
 
 @pytest.mark.parametrize("b,t,c,groups,mean", [
@@ -423,6 +440,7 @@ def test_port_imports_no_jax():
     nor does chip_smoke.py."""
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     assert len(files) > 10
+    assert PKG / "scripts" / "bench_flash.py" in files
     for path in files:
         bad = set(_imported_roots(path)) & {"jax", "jaxlib", "flax",
                                             "tethys_tpu"}

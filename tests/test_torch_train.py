@@ -285,6 +285,46 @@ def test_job_writes_log_lines_jct_and_checkpoints(tmp_path, capsys):
     assert all(n == 0 for n in kernel_lib.launch_counts().values())
 
 
+def test_whisper_job_builds_the_step_train_whisper_runs():
+    """make_whisper_job (which the profiler drives too) gives the model in
+    train mode, the batch as tensors on the job's device, and the step that
+    train_whisper runs."""
+    job = jobs.make_whisper_job(batch_size_per_replica=2,
+                                data_seq_len=SEQ_LEN, config_overrides=TINY,
+                                device="cpu", seed=0)
+    features, labels = next(iter(job.dataset))
+    batch = job.prepare_batch((features, labels))
+    assert [t.dtype for t in batch] == [torch.float32, torch.int32]
+    assert all(t.device.type == "cpu" for t in batch)
+    assert np.array_equal(batch[0].numpy(), features)
+    assert np.array_equal(batch[1].numpy(), labels)
+    assert job.config.d_model == TINY["d_model"] and job.state.model.training
+    state, loss = job.step_fn(job.state, batch, dp.step_generator(0, 0))
+    assert np.isfinite(loss.item())
+
+
+def test_step_profile_categories_and_card_only(monkeypatch):
+    """The profiler files the flash kernels under their own names and the
+    loss's log-softmax under the loss (not attention), and needs a card."""
+    from tethys_tpu_torch.profiling import step_profile
+
+    assert step_profile.categorise(
+        "void (anonymous namespace)::flash_bwd_mma_kernel<64, true, true>()",
+        ["FlashAttentionBackward"]) == "flash_bwd kernel"
+    assert step_profile.categorise(
+        "void (anonymous namespace)::flash_fwd_f32_kernel<64, false>()",
+        []) == "flash_fwd kernel"
+    assert step_profile.categorise(
+        "cunn_SoftMaxBackward", ["aten::_log_softmax_backward_data",
+                                 "LogSoftmaxBackward0"]) == "cross-entropy loss"
+    assert step_profile.categorise(
+        "softmax_warp_forward", ["aten::_softmax", "aten::softmax"]
+    ) == "attention (bmm, softmax)"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        step_profile.main(["--model", "whisper", "--model_size", "tiny"])
+
+
 @pytest.mark.parametrize("argv,where", [
     (["--tp", "2"], "queue 1 item 7"), (["--sp", "2"], "queue 1 item 7"),
     (["--pp", "2"], "queue 1 item 7"), (["--remat"], "queue 1 item 7"),

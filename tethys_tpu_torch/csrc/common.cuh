@@ -62,6 +62,112 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ---- bf16 tensor-core helpers (sm_80+ instructions, used on sm_90a) -------
+//
+// mma.sync m16n8k16, bf16 inputs, f32 sums.  Fragments of lane l, with
+// g = l / 4 and tg = l % 4 (PTX ISA, "Matrix Fragments for mma.m16n8k16"):
+//   A (16 x 16, row-major): a[0] = (g, 2tg..2tg+1), a[1] = (g + 8, 2tg..),
+//                           a[2] = (g, 2tg+8..),    a[3] = (g + 8, 2tg+8..)
+//   B (16 x 8):             b[0] = (k 2tg..2tg+1, n g), b[1] = (k 2tg+8.., n g)
+//   C (16 x 8, f32):        c[0..1] = (g, 2tg..2tg+1), c[2..3] = (g + 8, ..)
+// so the C fragments of two neighbouring n-tiles, packed to bf16 pairs, are
+// the A fragment of the next product over those 16 columns.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lanes 8i .. 8i + 7 give the
+// row addresses of matrix i (16-byte aligned), r[i] receives its fragment.
+// Plain: lane l gets row l / 4, columns 2 (l % 4) and + 1.  Transposed:
+// rows 2 (l % 4) and + 1 of column l / 4.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Two floats rounded to bf16 (nearest even) in one register, lo first.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Asynchronous copies into shared memory (cp.async).  ok = false copies
+// nothing and zero-fills the destination; src must still be a valid
+// address.  16 bytes needs both addresses 16-byte aligned, 4 bytes 4.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most kPending of this thread's committed groups are in
+// flight; a __syncthreads() after it makes every thread's copies visible.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Rows row0 .. row0 + kRows - 1 of a row-major [n_rows, D] bf16 matrix into
+// dst [kRows][DMAX + 8] in shared memory, zeros at rows >= n_rows and
+// columns >= D (D <= DMAX).  kVec: 16-byte cp.async copies, which the
+// caller commits and waits for (D % 8 == 0 and src 16-byte aligned); else
+// 2-byte loads and stores, done when the call returns.
+template <int kRows, int DMAX, bool kVec, int kThreads>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               int row0, int n_rows, int D) {
+  constexpr int kLd = DMAX + 8;
+  if constexpr (kVec) {
+    constexpr int kChunks = DMAX / 8;
+    static_assert(kRows * kChunks % kThreads == 0, "whole copies a thread");
+#pragma unroll
+    for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+      const int i = threadIdx.x + it * kThreads;
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool ok = row0 + r < n_rows && c < D;
+      cp_async16(dst + r * kLd + c,
+                 ok ? src + (long long)(row0 + r) * D + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * DMAX; i += kThreads) {
+      const int r = i / DMAX, c = i % DMAX;
+      dst[r * kLd + c] = (row0 + r < n_rows && c < D)
+                             ? src[(long long)(row0 + r) * D + c]
+                             : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
 // Max (is_max) or sum of v over a block of kWarps full warps, returned to
 // every thread.  s_red holds kWarps floats; the block must reach the call
 // together.

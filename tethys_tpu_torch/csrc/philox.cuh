@@ -47,19 +47,31 @@ __device__ __forceinline__ uint32_t philox_lane(const uint4& r, int lane) {
   return lane == 0 ? r.x : lane == 1 ? r.y : lane == 2 ? r.z : r.w;
 }
 
-// Keep bits of the 16 consecutive elements n0 .. n0 + 15 (bit e for
-// element n0 + e): four Philox calls when n0 % 4 == 0, else five.
-__device__ __forceinline__ uint32_t keep_bits16(uint64_t n0, uint32_t seed,
-                                                uint32_t threshold) {
+// Keep bits of the kN <= 32 consecutive elements n0 .. n0 + kN - 1 (bit e
+// for element n0 + e): kN / 4 Philox calls when n0 % 4 == 0, else one more.
+template <int kN>
+__device__ __forceinline__ uint32_t keep_bits(uint64_t n0, uint32_t seed,
+                                              uint32_t threshold) {
+  static_assert(kN % 4 == 0 && kN <= 32, "whole Philox outputs, one word");
   uint32_t bits = 0;
-  const uint64_t last = (n0 + 15) >> 2;
+  if ((n0 & 3) == 0) {  // whole counters: lane i of call c is bit 4c + i
+#pragma unroll
+    for (int c = 0; c < kN / 4; ++c) {
+      const uint4 r = philox4x32_10((n0 >> 2) + c, seed);
+      bits |= ((uint32_t)(r.x >= threshold) | (uint32_t)(r.y >= threshold) << 1 |
+               (uint32_t)(r.z >= threshold) << 2 | (uint32_t)(r.w >= threshold) << 3)
+              << (4 * c);
+    }
+    return bits;
+  }
+  const uint64_t last = (n0 + kN - 1) >> 2;
 #pragma unroll 1
   for (uint64_t c = n0 >> 2; c <= last; ++c) {
     const uint4 r = philox4x32_10(c, seed);
 #pragma unroll
     for (int lane = 0; lane < 4; ++lane) {
       const long long e = (long long)(4 * c + lane) - (long long)n0;
-      if (e >= 0 && e < 16 && philox_lane(r, lane) >= threshold)
+      if (e >= 0 && e < kN && philox_lane(r, lane) >= threshold)
         bits |= 1u << e;
     }
   }

@@ -150,15 +150,6 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 template <int VEC, bool kGather, bool kSplit>
 __global__ void __launch_bounds__(kMmaThreads)
     proj_mma_kernel(const bf16* __restrict__ a, Mats mats, int M, int N,
@@ -206,7 +197,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+        for (int j = 0; j < 4; ++j) tethys::mma_bf16(acc[i][j], af[i], bfr[j]);
     }
     __syncthreads();
   }

@@ -8,6 +8,8 @@ On the [B*H, T, D] layout:
 * ``flash_attention_bwd`` launches csrc/flash_bwd.cu or takes
   ``plain_flash_bwd``: dq, dk, dv from q, k, v, o, lse and do, with P
   recomputed from lse and the dropout mask regenerated from the seed.
+* bf16 CUDA tensors take the kernels' tensor-core (mma.sync) versions,
+  f32 CUDA tensors their FFMA versions (exact f32 products, as the CPU).
 * ``FlashAttention`` is the autograd Function over both (the JAX
   ``_flash`` custom_vjp); it saves q, k, v, o, lse and the seed.
 

@@ -1,18 +1,24 @@
-"""Where a Wav2Vec2 training step's device time goes, on the card.
+"""Where a training step's device time goes, on the card.
 
     python -m tethys_tpu_torch.profiling.step_profile --model_size base \
         --batch_size 32 --dtype bfloat16
+    python -m tethys_tpu_torch.profiling.step_profile --model whisper \
+        --model_size base --batch_size 16 --dtype bfloat16
 
-Builds the job's step (train/jobs.make_wav2vec2_job: the hardened step,
-the config's dropout), runs warm-up steps, then:
+Builds the job's step (train/jobs.make_wav2vec2_job: the hardened step on
+2 s clips by default; make_whisper_job: the plain step on 30 s inputs; the
+config's dropout), runs warm-up steps, then:
 - times ``--steps`` steps pipelined as the loop runs them (the host fetches
   step i-1's loss while the device runs step i), host clock, no profiler:
-  wall ms per step;
+  wall ms per step, and the host's ms per step spent taking and uploading
+  the batch, queueing the step, and waiting for the previous loss (near 0
+  when the host, not the device, sets the pace);
 - traces the same number of steps with ``torch.profiler`` (CPU and CUDA)
   and adds up the device time of every kernel, by the category of the
   operation that launched it: the kernel's own name for the port's kernels,
   else the nearest enclosing operation (conv, GroupNorm apply, attention,
-  dense GEMMs, LayerNorm, GELU, the optimizer and its clips).
+  dense GEMMs, LayerNorm, GELU, the optimizer and its clips).  It also
+  counts the kernel launches a step makes.
 
 Prints the top kernels and one JSON line: wall and device ms per step, the
 device's idle share (1 - device / wall) and ms per category.  ``--out``
@@ -33,11 +39,16 @@ import torch
 KERNEL_CATEGORIES = (
     ("gn_stats kernel", ("gn_partials_kernel", "gn_combine_kernel")),
     ("dropout kernel", ("dropout_kernel",)),
+    ("flash_bwd kernel", ("flash_bwd_",)),
+    ("flash_fwd kernel", ("flash_fwd_",)),
+    ("split/merge heads kernels", ("split_heads_kernel", "merge_heads_kernel")),
 )
 OP_CATEGORIES = (
     ("optimizer + clips", ("Optimizer.step", "_foreach_")),
     ("GroupNorm apply (plain torch)", ("GroupNormFunction",)),
     ("conv (cuDNN)", ("convolution",)),
+    ("cross-entropy loss", ("log_softmax", "LogSoftmax", "nll_loss",
+                            "NllLoss")),
     ("attention (bmm, softmax)", ("bmm", "softmax", "Bmm", "Softmax")),
     ("dense GEMMs", ("addmm", "aten::mm", "MmBackward", "aten::linear")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
@@ -72,10 +83,13 @@ def kernel_times(prof) -> list:
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model_size", default="base",
-                        choices=["tiny", "small", "base"])
-    parser.add_argument("--batch_size", type=int, default=32)
-    parser.add_argument("--audio_length", type=int, default=32000)
+    parser.add_argument("--model", default="wav2vec2",
+                        choices=["wav2vec2", "whisper"])
+    parser.add_argument("--model_size", default="base")
+    parser.add_argument("--batch_size", type=int, default=None,
+                        help="default 32 (wav2vec2), 16 (whisper)")
+    parser.add_argument("--audio_length", type=int, default=32000,
+                        help="wav2vec2 samples a clip (whisper: 30 s)")
     parser.add_argument("--dtype", default="bfloat16",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--warmup", type=int, default=3)
@@ -84,35 +98,50 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     from tethys_tpu_torch.parallel.dp import step_generator
-    from tethys_tpu_torch.train.jobs import make_wav2vec2_job
+    from tethys_tpu_torch.train.jobs import make_wav2vec2_job, make_whisper_job
     from tethys_tpu_torch.utils.device import require_cuda
 
     device = require_cuda()
-    job = make_wav2vec2_job(
-        "pretraining", args.model_size, args.batch_size,
-        compute_dtype=args.dtype, audio_length=args.audio_length,
-        device=device, seed=0)
+    if args.model == "whisper":
+        batch_size = args.batch_size or 16
+        job = make_whisper_job(args.model_size, batch_size,
+                               compute_dtype=args.dtype, device=device, seed=0)
+    else:
+        batch_size = args.batch_size or 32
+        job = make_wav2vec2_job(
+            "pretraining", args.model_size, batch_size,
+            compute_dtype=args.dtype, audio_length=args.audio_length,
+            device=device, seed=0)
     batches = iter(job.dataset)
     state, count = job.state, 0
+    host = collections.Counter()  # seconds of host time by stage
 
     def run(n):
         nonlocal state, count
         pending = None
         for _ in range(n):
+            t0 = time.perf_counter()
             batch = job.prepare_batch(next(batches))
+            t1 = time.perf_counter()
             state, loss = job.step_fn(state, batch, step_generator(0, count))
+            t2 = time.perf_counter()
             count += 1
             if pending is not None:
                 pending.item()
+            host["batch"] += t1 - t0
+            host["queue_step"] += t2 - t1
+            host["wait_previous_loss"] += time.perf_counter() - t2
             pending = loss
         pending.item()
 
     run(args.warmup)
     torch.cuda.synchronize()
+    host.clear()
     t0 = time.perf_counter()
     run(args.steps)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    host_ms = {k: v * 1e3 / args.steps for k, v in host.items()}
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -122,6 +151,9 @@ def main(argv=None) -> dict:
     kernels = kernel_times(prof)
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
+    launches = sum(1 for evt in prof.events()
+                   if evt.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                   "cudaLaunchKernelExC", "cuLaunchKernelEx"))
     by_category = collections.Counter()
     by_kernel = collections.Counter()
     for name, us, chain in kernels:
@@ -131,10 +163,13 @@ def main(argv=None) -> dict:
     for name, ms in by_kernel.most_common(25):
         print(f"  {ms:9.4f} ms/step  {ms / device_ms:6.1%}  {name[:110]}")
     result = {
-        "model": f"wav2vec2-{args.model_size}", "batch": args.batch_size,
-        "audio_length": args.audio_length, "dtype": args.dtype,
-        "steps": args.steps, "wall_ms_per_step": wall_ms,
+        "model": f"{args.model}-{args.model_size}", "batch": batch_size,
+        **({"audio_length": args.audio_length}
+           if args.model == "wav2vec2" else {}),
+        "dtype": args.dtype, "steps": args.steps, "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
+        "launches_per_step": launches / args.steps,
+        "host_ms_per_step": host_ms,
         "idle_share": 1.0 - device_ms / wall_ms,
         "ms_per_step_by_category": dict(by_category.most_common()),
         "gpu": torch.cuda.get_device_name(0),

@@ -3,23 +3,23 @@
 ``train_whisper`` and ``train_wav2vec2``: the model with f32 master
 weights, its optimizer, the synthetic dataset, the one-replica train step
 and the loop, on one device (a CUDA device unless the caller names
-another); ``make_wav2vec2_job`` builds the Wav2Vec2 step alone (the
-profiler drives it too).  ``finalize_job``: the JCT print, the JCT file
-and the final weights save.  Only the data-parallel branch on one process
+another); ``make_whisper_job`` and ``make_wav2vec2_job`` build the step
+alone (the profiler drives them too).  ``finalize_job``: the JCT print,
+the JCT file and the final weights save.  Only the data-parallel branch on one process
 exists; TP/SP/PP, remat, gradient accumulation, bf16 master weights and
 resume are refused by the CLIs (jobs/) and wait in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
 from tethys_tpu_torch import data as data_lib
 from tethys_tpu_torch import losses
 from tethys_tpu_torch.checkpoint import CheckpointManager, save_final_weights
-from tethys_tpu_torch.configs import Wav2Vec2Config
+from tethys_tpu_torch.configs import Wav2Vec2Config, WhisperConfig
 from tethys_tpu_torch.models import wav2vec2 as wav2vec2_lib
 from tethys_tpu_torch.models.whisper import create_whisper_model
 from tethys_tpu_torch.parallel import dp
@@ -27,6 +27,54 @@ from tethys_tpu_torch.parallel.mesh import job_identity, multi_process_spec
 from tethys_tpu_torch.train.loop import TrainLoopResult, run_training
 from tethys_tpu_torch.utils.artifacts import write_jct
 from tethys_tpu_torch.utils.device import host_to_device, require_cuda
+
+
+class TrainJob(NamedTuple):
+    """What train_whisper and train_wav2vec2 run: the step, its state, the
+    data."""
+    step_fn: Callable
+    state: dp.TrainState
+    dataset: data_lib.DummyBatcher
+    prepare_batch: Callable
+    config: Union[WhisperConfig, Wav2Vec2Config]
+
+
+def make_whisper_job(
+    model_type: str = "small",
+    batch_size_per_replica: int = 1,
+    learning_rate: float = 1e-4,
+    compute_dtype: str = "float32",
+    seed: int = 42,
+    data_seq_len: int = 3000,
+    config_overrides: Optional[dict] = None,
+    device=None,
+) -> TrainJob:
+    """The model with f32 master weights (in train mode), the plain step
+    with ``whisper_optimizer``, the synthetic dataset."""
+    _refuse_multi_process()
+    device = require_cuda() if device is None else torch.device(device)
+    model, config = create_whisper_model(
+        model_type, device=device, seed=seed, param_dtype=torch.float32,
+        compute_dtype=compute_dtype, **(config_overrides or {}))
+    model.train()
+    optimizer = dp.whisper_optimizer(model.parameters(), learning_rate)
+
+    def loss_fn(model, batch, generator):
+        features, labels = batch
+        outputs = model(features, labels=labels, generator=generator)
+        return outputs["loss"], {}
+
+    def prepare_batch(batch):
+        features, labels = batch
+        return (torch.from_numpy(features).to(device),
+                torch.from_numpy(labels).to(device))
+
+    return TrainJob(
+        dp.make_train_step(loss_fn, optimizer, hardened=False),
+        dp.TrainState(model, optimizer),
+        data_lib.create_whisper_dummy_dataset(
+            batch_size_per_replica, n_mels=config.n_mels, seq_len=data_seq_len),
+        prepare_batch, config)
 
 
 def train_whisper(
@@ -46,44 +94,16 @@ def train_whisper(
 ):
     """End-to-end Whisper training (reference train_whisper,
     speech_jobs/whisper_dist.py:894-958).  Returns (result, model, config)."""
-    _refuse_multi_process()
-    device = require_cuda() if device is None else torch.device(device)
-    model, config = create_whisper_model(
-        model_type, device=device, seed=seed, param_dtype=torch.float32,
-        compute_dtype=compute_dtype, **(config_overrides or {}))
-    model.train()
-    optimizer = dp.whisper_optimizer(model.parameters(), learning_rate)
-    state = dp.TrainState(model, optimizer)
-
-    def loss_fn(model, batch, generator):
-        features, labels = batch
-        outputs = model(features, labels=labels, generator=generator)
-        return outputs["loss"], {}
-
-    def prepare_batch(batch):
-        features, labels = batch
-        return (torch.from_numpy(features).to(device),
-                torch.from_numpy(labels).to(device))
-
-    step_fn = dp.make_train_step(loss_fn, optimizer, hardened=False)
-    dataset = data_lib.create_whisper_dummy_dataset(
-        batch_size_per_replica, n_mels=config.n_mels, seq_len=data_seq_len)
+    job = make_whisper_job(
+        model_type, batch_size_per_replica, learning_rate, compute_dtype,
+        seed, data_seq_len, config_overrides, device)
     ckpt = CheckpointManager(checkpoint_dir) if checkpointing else None
     result = run_training(
-        step_fn, dataset, state, seed,
+        job.step_fn, job.dataset, job.state, seed,
         num_epochs=num_epochs, max_iterations=num_batches,
-        prepare_batch=prepare_batch, checkpoint_manager=ckpt,
+        prepare_batch=job.prepare_batch, checkpoint_manager=ckpt,
         checkpoint_tag=f"whisper_{model_type}", step_hooks=step_hooks)
-    return result, model, config
-
-
-class Wav2Vec2Job(NamedTuple):
-    """What train_wav2vec2 runs: the step, its state, the data."""
-    step_fn: Callable
-    state: dp.TrainState
-    dataset: data_lib.DummyBatcher
-    prepare_batch: Callable
-    config: Wav2Vec2Config
+    return result, job.state.model, job.config
 
 
 def make_wav2vec2_job(
@@ -97,7 +117,7 @@ def make_wav2vec2_job(
     real_ctc: bool = False,
     config_overrides: Optional[dict] = None,
     device=None,
-) -> Wav2Vec2Job:
+) -> TrainJob:
     """The model with f32 master weights (in train mode), the hardened step
     with ``wav2vec2_optimizer``, the synthetic dataset.  Each step draws its
     contrastive negatives, then its dropout seeds, from the step's CPU
@@ -128,7 +148,7 @@ def make_wav2vec2_job(
         return tuple(host_to_device(torch.from_numpy(a), device)
                      for a in batch)
 
-    return Wav2Vec2Job(
+    return TrainJob(
         dp.make_train_step(loss_fn, optimizer, hardened=True),
         dp.TrainState(model, optimizer),
         data_lib.create_wav2vec2_dummy_dataset(batch_size_per_replica,

@@ -97,7 +97,10 @@ FLASH_BWD = Kernel(
     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U,
      _F, _F, _P),
     "tethys_tpu_torch/csrc/flash_bwd.cu",
-    "tethys_tpu/ops/pallas_attention.py:380")
+    # One kernel for every Tk: the TPU's fused kernel (Tk <= 2048) and the
+    # pair it takes above that.
+    "tethys_tpu/ops/pallas_attention.py:380 _bwd_dkv_dq_kernel, "
+    ":259 _bwd_dq_kernel, :308 _bwd_dkv_kernel")
 DROPOUT = Kernel(
     "dropout", "tethys_dropout", (_P, _P, _L, _U, _U, _F, _I, _P),
     "tethys_tpu_torch/csrc/dropout.cu",
