@@ -13,6 +13,9 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    times (median of 30), its bound (the larger of the bytes it must move
    over 3.35 TB/s and its operations over the card's peak for their type)
    and, where one PyTorch call computes the same function, that call's time;
+   the fused projections also at a decode step, each with the route of
+   csrc/qkv_proj.cu it must take (wgmma at the encoder's shapes, weight
+   streaming at a decode step, FFMA in f32);
 4. serving: whisper-base in f32 (random weights from seed 0) serves 2
    requests of 30 s seeded audio on the card; the same model and inputs
    run on the CPU, where every kernel's plain version runs; greedy tokens
@@ -49,14 +52,17 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    (3 windows in a batch of 4) on the card and on the CPU; features,
    encoder outputs, int8 caches and scales, and per-window tokens are
    compared (a token may differ only at a near-tie of the CPU's logits);
+   the projections' route counts start at 0 and f32 must take FFMA;
 12. whisper-large-v3 in bf16 (random weights, 128 mels) with int8 caches
    and the default projections transcribes 100 s of seeded audio (4
    windows, 64 steps): frontend, encode and generate ms, decode tokens/s,
    rtf_e2e, peak memory;
 13. the serving bench's twin (python -m tethys_tpu_torch.scripts.
    bench_generate) at whisper-base b16 bf16, 128 steps: --kv_quant int8,
-   none, and int8 with TETHYS_FUSED_QKV=1, then --host_chunk 32
-   --force_eos, which must stop after one chunk;
+   none, and int8 with TETHYS_FUSED_QKV=1 (whose encode ms is logged
+   beside the unfused int8 run's, and which must launch both the wgmma and
+   the weight-streaming route), then --host_chunk 32 --force_eos, which
+   must stop after one chunk;
 14. the flash-kernel bench's twin (python -m tethys_tpu_torch.scripts.
    bench_flash) at its defaults (B*H 128, keys padded to 1536, kv_len 1500,
    rate 0.1, bf16, 50 launches each way), then at B*H 16 and Tk 2560 (the
@@ -499,16 +505,31 @@ def check_int8_kernels(record, randn) -> None:
         bs = [randn(512, dtype=dtype, scale=0.1) for _ in range(n)]
         return x, ws, bs, (0.125,) + (1.0,) * (n - 1)
 
+    def routed(fn, want: str, name: str):
+        """fn()'s result; requires that it launched the route ``want``."""
+        before = dict(qkv.ROUTE_LAUNCHES)
+        out = fn()
+        took = [r for r in qkv.ROUTES if qkv.ROUTE_LAUNCHES[r] > before[r]]
+        log(f"  {name}: route {took}")
+        require(took == [want], f"{name} took {took}, not {want}")
+        return out
+
+    def route_for(dtype, t):
+        return ("ffma" if dtype == f32 else "wgmma" if t > 1 else "stream")
+
     # f32: sums of 512 products in other orders; bf16: outputs below 8 may
     # differ by one bf16 step (0.0625) where the f32 sums round differently.
+    # bf16 takes the wgmma route at the encoder's [16, 1500, 512] and the
+    # weight-streaming route at a decode step [16, 1, 512]; f32 FFMA.
     errs = []
     for dtype, tol in ((f32, 1e-4), (bf16, 6.25e-2)):
         for t in (1500, 1):
             x, ws, bs, scales = proj_inputs(t, dtype)
-            got = qkv.project_split_cuda(x, ws, bs, scales, 8)
+            name = f"proj_split {dtype} [16, {t}, 512] x 3"
+            got = routed(lambda: qkv.project_split_cuda(x, ws, bs, scales, 8),
+                         route_for(dtype, t), name)
             want = qkv.plain_project_split_fused(x, ws, bs, scales, 8)
-            errs.append(check(f"proj_split {dtype} [16, {t}, 512] x 3",
-                              max(max_err(a, b) for a, b in zip(got, want)),
+            errs.append(check(name, max(max_err(a, b) for a, b in zip(got, want)),
                               tol))
     x, ws, bs, scales = proj_inputs(1500, bf16)
 
@@ -522,10 +543,17 @@ def check_int8_kernels(record, randn) -> None:
            event_ms(lambda: qkv.plain_project_split_fused(x, ws, bs, scales, 8)),
            2 * (m * 512 + 3 * 512 * 512 + 3 * 512 + 3 * m * 512),
            3 * 2 * m * 512 * 512, "bf16", event_ms(linear_split))
+    # The decode step: the split of [16, 1, 512] is a view, so the library
+    # call is three F.linear.
     x1, ws1, bs1, _ = proj_inputs(1, bf16)
-    log("  proj_split bf16 decode step [16, 1, 512] x 3: kernel "
-        f"{event_ms(lambda: qkv.project_split_cuda(x1, ws1, bs1, scales, 8)):.4f}"
-        " ms, bound {:.4f} ms".format(bound(2 * 3 * 512 * 512, 0, "bf16")[0]))
+    decode_row("proj_split", "[16, 1, 512] x 3",
+               event_ms(lambda: qkv.project_split_cuda(x1, ws1, bs1, scales, 8)),
+               event_ms(lambda: qkv.plain_project_split_fused(x1, ws1, bs1,
+                                                              scales, 8)),
+               bound(2 * (16 * 512 + 3 * 512 * 512 + 3 * 512 + 3 * 16 * 512),
+                     3 * 2 * 16 * 512 * 512, "bf16"),
+               event_ms(lambda: [F.linear(x1, w, b).view(16, 1, 8, 64)
+                                 .transpose(1, 2) for w, b in zip(ws1, bs1)]))
 
     errs = []
     for dtype, tol in ((f32, 1e-4), (bf16, 6.25e-2)):
@@ -533,10 +561,11 @@ def check_int8_kernels(record, randn) -> None:
             attn = randn(16, 8, t, 64, dtype=dtype)
             w = randn(512, 512, dtype=dtype, scale=512 ** -0.5)
             b = randn(512, dtype=dtype, scale=0.1)
-            errs.append(check(f"merge_proj {dtype} [16, 8, {t}, 64]",
-                              max_err(qkv.merge_project_cuda(attn, w, b),
-                                      qkv.plain_merge_project_fused(attn, w, b)),
-                              tol))
+            name = f"merge_proj {dtype} [16, 8, {t}, 64]"
+            got = routed(lambda: qkv.merge_project_cuda(attn, w, b),
+                         route_for(dtype, t), name)
+            errs.append(check(name, max_err(got, qkv.plain_merge_project_fused(
+                attn, w, b)), tol))
     attn = randn(16, 8, 1500, 64, dtype=bf16)
     w = randn(512, 512, dtype=bf16, scale=512 ** -0.5)
     b = randn(512, dtype=bf16, scale=0.1)
@@ -547,8 +576,26 @@ def check_int8_kernels(record, randn) -> None:
            2 * m * 512 * 512, "bf16",
            event_ms(lambda: F.linear(attn.permute(0, 2, 1, 3).reshape(
                16, 1500, 512), w, b)))
+    attn1 = randn(16, 8, 1, 64, dtype=bf16)
+    decode_row("merge_proj", "[16, 8, 1, 64] x [512, 512]",
+               event_ms(lambda: qkv.merge_project_cuda(attn1, w, b)),
+               event_ms(lambda: qkv.plain_merge_project_fused(attn1, w, b)),
+               bound(2 * (2 * attn1.numel() + w.numel() + b.numel()),
+                     2 * 16 * 512 * 512, "bf16"),
+               event_ms(lambda: F.linear(attn1.permute(0, 2, 1, 3).reshape(
+                   16, 1, 512), w, b)))
     check_fused_grads(randn)
     check_flash_bwd_long(randn)
+
+
+def decode_row(name: str, shape: str, ms: float, plain_ms: float, bound_ms,
+               library_ms: float) -> None:
+    """Phase 3: a projection kernel's time at a decode step, beside its
+    bound, its plain version and its library call (logged; the kernel
+    table's entry stays the encoder shape)."""
+    log(f"  {name} bf16 decode step {shape}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms[0]:.4f} ms ({bound_ms[1]}), "
+        f"library {library_ms:.4f} ms")
 
 
 def check_fused_grads(randn) -> None:
@@ -1167,9 +1214,15 @@ def step_logits(model, features, tokens, step: int) -> torch.Tensor:
 
 def run_long_audio_f32() -> None:
     """Phase 11: int8 long-audio serving with the fused projections, f32,
-    card against CPU."""
+    card against CPU.  The projections' route counts start at 0 here; f32
+    must take the FFMA kernel."""
+    from tethys_tpu_torch.ops import qkv
+
+    qkv.ROUTE_LAUNCHES.update(dict.fromkeys(qkv.ROUTES, 0))
     with fused_qkv(True):
         long_audio_f32()
+    log(f"  projection routes after phase 11: {qkv.ROUTE_LAUNCHES}")
+    require(qkv.ROUTE_LAUNCHES["ffma"] > 0, "f32 never took the FFMA route")
 
 
 def long_audio_f32() -> None:
@@ -1303,16 +1356,26 @@ def run_long_audio_large_v3(gpu: str) -> dict:
 
 def run_bench_twin() -> None:
     """Phase 13: the serving bench's twin at whisper-base b16 bf16."""
+    from tethys_tpu_torch.ops import qkv
     from tethys_tpu_torch.scripts import bench_generate
 
     base = ["--batch_size", str(BENCH_BATCH), "--length", str(BENCH_STEPS),
             "--model", MODEL, "--dtype", "bfloat16", "--iters", "5",
             "--seed", str(SEED)]
+    encode_ms = {}
     for kv_quant, fused in (("int8", False), ("none", False), ("int8", True)):
         log(f"  bench_generate --kv_quant {kv_quant}"
             + (" with TETHYS_FUSED_QKV=1" if fused else ""))
         with fused_qkv(fused):
-            bench_generate.main(base + ["--kv_quant", kv_quant])
+            result = bench_generate.main(base + ["--kv_quant", kv_quant])
+        encode_ms[(kv_quant, fused)] = result["encode_ms"]
+    log(f"  int8 encode: fused projections {encode_ms[('int8', True)]:.3f} "
+        f"ms, F.linear + split_heads {encode_ms[('int8', False)]:.3f} ms")
+    # The bf16 fused run takes both Hopper routes: wgmma in the encoder and
+    # the cross-KV precompute, weight streaming at every decode step.
+    log(f"  projection routes after phases 11-13: {qkv.ROUTE_LAUNCHES}")
+    require(qkv.ROUTE_LAUNCHES["wgmma"] > 0 and qkv.ROUTE_LAUNCHES["stream"] > 0,
+            f"a bf16 route never launched: {qkv.ROUTE_LAUNCHES}")
     log("  bench_generate --host_chunk 32 --force_eos")
     result = bench_generate.main(base + ["--host_chunk", "32", "--force_eos"])
     require(result["chunks_run"] == 1,

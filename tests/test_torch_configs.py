@@ -32,6 +32,17 @@ def test_presets_match_jax_field_for_field(size):
         f.name for f in dataclasses.fields(JaxConfig)]
 
 
+def test_remat_layers_is_refused_until_ported():
+    """remat_layers=True raises, naming its ROADMAP item; remat_policy is
+    kept as a field (as in the JAX config) and the default builds."""
+    with pytest.raises(ValueError, match="queue 1 item 7"):
+        WhisperConfig(remat_layers=True)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        WhisperConfig.from_size("base", remat_layers=True)
+    cfg = WhisperConfig.from_size("base", remat_policy="nothing")
+    assert (cfg.remat_layers, cfg.remat_policy) == (False, "nothing")
+
+
 @pytest.mark.parametrize("name,dtype", [("float32", torch.float32),
                                         ("bfloat16", torch.bfloat16)])
 def test_dtype_resolves_to_torch(name, dtype):

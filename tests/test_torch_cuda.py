@@ -9,7 +9,9 @@ and merges, dropout on odd lengths and misaligned views, the flash
 backward with and without dropout, caches that need more than 48 KB of
 shared memory, the GroupNorm statistics at ragged T and C and far-off
 means, the int8 cross-attention at odd Tk and kv_len, the fused
-projections at ragged tiles with their gradients, the wrappers' refusals,
+projections at ragged tiles on each of their routes (wgmma, weight
+streaming, mma.sync, FFMA) and the boundaries between them, with their
+gradients, the wrappers' refusals,
 tiny Whisper and Wav2Vec2 training steps and tiny int8 long-audio serving
 on the card against the CPU.  On a machine with the card and the CUDA toolkit:
 
@@ -509,24 +511,42 @@ def test_q8_cross_refuses_what_it_does_not_take(cuda):
                                          sk)
 
 
+def _route(dtype, route):
+    """f32 always takes the exact FFMA kernel; bf16 the route given."""
+    return "ffma" if dtype == torch.float32 else route
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 6.25e-2)])
-@pytest.mark.parametrize("b,t,e_in,e_out,heads,n", [
-    (2, 1500, 512, 512, 8, 3), (3, 1, 1280, 1280, 20, 1), (1, 77, 96, 80, 5, 2),
-    (2, 130, 70, 48, 3, 3), (16, 1, 512, 512, 8, 2)])
+@pytest.mark.parametrize("b,t,e_in,e_out,heads,n,route", [
+    (2, 1500, 512, 512, 8, 3, "wgmma"), (3, 1, 1280, 1280, 20, 1, "stream"),
+    (1, 77, 96, 80, 5, 2, "mma"), (2, 130, 70, 48, 3, 3, "mma"),
+    (16, 1, 512, 512, 8, 2, "stream"),
+    # M tiles that used to cross a batch boundary mid-way.
+    (3, 77, 512, 512, 8, 3, "wgmma"), (3, 130, 512, 512, 8, 3, "wgmma"),
+    (3, 1500, 512, 512, 8, 3, "wgmma"),
+    # M = 64 and 65, the boundary between the two Hopper routes.
+    (4, 16, 512, 512, 8, 3, "stream"), (64, 1, 512, 512, 8, 3, "stream"),
+    (5, 13, 512, 512, 8, 2, "wgmma"), (65, 1, 512, 512, 8, 1, "wgmma"),
+    # whisper-large-v3's widths.
+    (2, 1500, 1280, 1280, 20, 3, "wgmma"), (4, 1, 1280, 1280, 20, 3, "stream")])
 def test_proj_split_matches_plain(cuda, dtype, tol, b, t, e_in, e_out, heads,
-                                  n):
-    """Ragged M, N and K tiles, T 1 and 1500, one to three matrices.  f32:
-    sums in other orders; bf16: outputs below 4 one bf16 step apart where
-    the f32 sums round differently (0.0625 below 8)."""
+                                  n, route):
+    """Ragged M, N and K tiles, T 1 to 1500, one to three matrices, on the
+    route proj_route picks.  f32: sums in other orders; bf16: outputs below
+    4 one bf16 step apart where the f32 sums round differently (0.0625
+    below 8)."""
     x = _randn(cuda, b, t, e_in, dtype=dtype, seed=23)
     ws = [_randn(cuda, e_out, e_in, scale=e_in ** -0.5, seed=24 + i)
           for i in range(n)]
     bs = [_randn(cuda, e_out, scale=0.1, seed=30 + i) for i in range(n)]
     scales = [0.125] + [1.0] * (n - 1)
     before = kernel_lib.PROJ_SPLIT.launches
+    routes = dict(qkv.ROUTE_LAUNCHES)
     got = qkv.project_split_cuda(x, ws, bs, scales, heads)
     assert kernel_lib.PROJ_SPLIT.launches == before + 1
+    route = _route(dtype, route)
+    assert qkv.ROUTE_LAUNCHES[route] == routes[route] + 1
     want = qkv.plain_project_split_fused(x, ws, bs, scales, heads)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == (b, heads, t, e_out // heads)
@@ -535,18 +555,56 @@ def test_proj_split_matches_plain(cuda, dtype, tol, b, t, e_in, e_out, heads,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 6.25e-2)])
-@pytest.mark.parametrize("b,heads,t,d,e_out", [
-    (2, 8, 1500, 64, 512), (4, 20, 1, 64, 1280), (1, 3, 77, 10, 50)])
-def test_merge_proj_matches_plain(cuda, dtype, tol, b, heads, t, d, e_out):
+@pytest.mark.parametrize("b,heads,t,d,e_out,route", [
+    (2, 8, 1500, 64, 512, "wgmma"), (4, 20, 1, 64, 1280, "stream"),
+    (1, 3, 77, 10, 50, "mma"), (16, 8, 1, 64, 512, "stream"),
+    (3, 8, 77, 64, 512, "wgmma"), (3, 8, 130, 64, 512, "wgmma"),
+    (3, 8, 1500, 64, 512, "wgmma"),
+    (64, 8, 1, 64, 512, "stream"), (65, 8, 1, 64, 512, "wgmma"),
+    (2, 20, 1500, 64, 1280, "wgmma")])
+def test_merge_proj_matches_plain(cuda, dtype, tol, b, heads, t, d, e_out,
+                                  route):
     attn = _randn(cuda, b, heads, t, d, dtype=dtype, seed=40)
     w = _randn(cuda, e_out, heads * d, scale=(heads * d) ** -0.5, seed=41)
     bias = _randn(cuda, e_out, scale=0.1, seed=42)
     before = kernel_lib.MERGE_PROJ.launches
+    routes = dict(qkv.ROUTE_LAUNCHES)
     got = qkv.merge_project_cuda(attn, w, bias)
     assert kernel_lib.MERGE_PROJ.launches == before + 1
+    route = _route(dtype, route)
+    assert qkv.ROUTE_LAUNCHES[route] == routes[route] + 1
     want = qkv.plain_merge_project_fused(attn, w, bias)
     assert got.dtype == dtype and got.shape == (b, t, e_out)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("t", [1, 300])
+def test_proj_kernels_misaligned_views_take_mma(cuda, t):
+    """bf16 operands 2 bytes off a 16-byte boundary (views into a larger
+    buffer) take the mma.sync kernel, whatever M, and match the plain
+    versions."""
+    def view(n, *shape, seed):
+        flat = _randn(cuda, n + 1, dtype=torch.bfloat16, seed=seed)
+        return flat[1:].view(*shape)
+
+    x = view(2 * t * 512, 2, t, 512, seed=70)
+    w = _randn(cuda, 512, 512, dtype=torch.bfloat16, scale=512 ** -0.5,
+               seed=71)
+    bias = view(512, 512, seed=72)
+    assert x.data_ptr() % 16 and bias.data_ptr() % 16
+    routes = dict(qkv.ROUTE_LAUNCHES)
+    got = qkv.project_split_cuda(x, [w], [bias], [0.125], 8)
+    want = qkv.plain_project_split_fused(x, [w], [bias], [0.125], 8)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0,
+                               atol=6.25e-2)
+    attn = view(2 * 8 * t * 64, 2, 8, t, 64, seed=73)
+    got = qkv.merge_project_cuda(attn, w, bias)
+    want = qkv.plain_merge_project_fused(attn, w, bias)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=6.25e-2)
+    assert qkv.ROUTE_LAUNCHES["mma"] == routes["mma"] + 2
+    assert qkv.ROUTE_LAUNCHES["wgmma"] == routes["wgmma"]
+    assert qkv.ROUTE_LAUNCHES["stream"] == routes["stream"]
 
 
 def test_fused_projections_on_card_have_a_grad_fn(cuda, monkeypatch):
@@ -577,6 +635,43 @@ def test_fused_projections_on_card_have_a_grad_fn(cuda, monkeypatch):
         assert err <= 1e-4
     with pytest.raises(ValueError, match="not divisible"):
         qkv.project_split(x, [(w[0][:60], bias[0][:60], 1.0)], 8)
+
+    # bf16 compute on f32 master weights at a shape of the wgmma route (M
+    # 300, two 64-wide heads): linear losses, so the gradients do not
+    # depend on the forward's rounding; bf16 against autograd through the
+    # plain versions, within BF16_REL_LIMIT of each largest magnitude.
+    xb = _randn(cuda, 2, 150, 128, dtype=torch.bfloat16, seed=60)
+    wb = [_randn(cuda, 128, 128, scale=128 ** -0.5, seed=61 + i)
+          for i in range(3)]
+    bb = [_randn(cuda, 128, scale=0.1, seed=65 + i) for i in range(3)]
+    cots = [_randn(cuda, 2, 2, 150, 64, dtype=torch.bfloat16, seed=68 + i)
+            for i in range(3)]
+    attn = _randn(cuda, 2, 2, 150, 64, dtype=torch.bfloat16, seed=72)
+    dy = _randn(cuda, 2, 150, 128, dtype=torch.bfloat16, seed=73)
+
+    def grads(fused):
+        leaves = [t.clone().requires_grad_() for t in (xb, *wb, *bb, attn)]
+        scales = (0.125, 1.0, 1.0)
+        if fused:
+            outs = qkv.project_split(
+                leaves[0], list(zip(leaves[1:4], leaves[4:7], scales)), 2)
+            y = qkv.merge_project(leaves[7], leaves[1], leaves[4])
+            assert y.grad_fn is not None and outs[0].grad_fn is not None
+        else:
+            outs = qkv.plain_project_split_fused(leaves[0], leaves[1:4],
+                                                 leaves[4:7], scales, 2)
+            y = qkv.plain_merge_project_fused(leaves[7], leaves[1], leaves[4])
+        loss = sum((o.float() * c.float()).sum() for o, c in zip(outs, cots))
+        (loss + (y.float() * dy.float()).sum()).backward()
+        return [t.grad for t in leaves]
+
+    before = qkv.ROUTE_LAUNCHES["wgmma"]
+    fused = grads(True)
+    assert qkv.ROUTE_LAUNCHES["wgmma"] == before + 2
+    for i, (got, want) in enumerate(zip(fused, grads(False))):
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        assert rel <= BF16_REL_LIMIT, f"gradient {i}: relative error {rel}"
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -180,3 +180,39 @@ def test_fused_path_refuses_shapes_it_cannot_take():
     with pytest.raises(ValueError, match="no kernel for device"):
         qkv.project_split(meta, [(torch.zeros(12, 12, device="meta"),
                                   torch.zeros(12, device="meta"), 1.0)], 4)
+
+
+@pytest.mark.parametrize("m,n,k,head_dim,dtype,aligned,route", [
+    # whisper-base b16's encoder and large-v3's 4 windows (20 heads).
+    (16 * 1500, 512, 512, 64, torch.bfloat16, True, "wgmma"),
+    (4 * 1500, 1280, 1280, 64, torch.bfloat16, True, "wgmma"),
+    # Their decode steps, [16, 1, 512] and [4, 1, 1280].
+    (16, 512, 512, 64, torch.bfloat16, True, "stream"),
+    (4, 1280, 1280, 64, torch.bfloat16, True, "stream"),
+    # The boundary between the two Hopper routes.
+    (64, 512, 512, 64, torch.bfloat16, True, "stream"),
+    (65, 512, 512, 64, torch.bfloat16, True, "wgmma"),
+    # The ragged shapes of tests/test_torch_cuda.py and misaligned views.
+    (77, 80, 96, 16, torch.bfloat16, True, "mma"),
+    (2 * 130, 48, 70, 16, torch.bfloat16, True, "mma"),
+    (77, 50, 30, 10, torch.bfloat16, True, "mma"),
+    (16 * 1500, 512, 512, 64, torch.bfloat16, False, "mma"),
+    (16, 512, 512, 64, torch.bfloat16, False, "mma"),
+    # f32 always takes the exact FFMA kernel.
+    (16 * 1500, 512, 512, 64, torch.float32, True, "ffma"),
+    (16, 512, 512, 64, torch.float32, True, "ffma"),
+    (77, 80, 96, 16, torch.float32, False, "ffma"),
+])
+def test_proj_route_by_shape(m, n, k, head_dim, dtype, aligned, route):
+    assert qkv.proj_route(m, n, k, head_dim, dtype, aligned) == route
+    assert route in qkv.ROUTES and route in qkv.ROUTE_LAUNCHES
+
+
+def test_cpu_tensors_launch_no_route():
+    """CPU tensors take the plain versions: no route counts a launch."""
+    before = dict(qkv.ROUTE_LAUNCHES)
+    x, kernels, biases, scales = _inputs(6, 2, 8, 128, 3)
+    tprojs, tx = _port_proj(x, kernels, biases, scales, torch.bfloat16)
+    outs = qkv.project_split(tx, tprojs, 2)
+    qkv.merge_project(outs[0], tprojs[0][0], tprojs[0][1])
+    assert qkv.ROUTE_LAUNCHES == before

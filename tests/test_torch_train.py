@@ -29,7 +29,7 @@ from tethys_tpu.parallel.mesh import make_data_mesh
 from tethys_tpu_torch import data
 from tethys_tpu_torch.configs import WhisperConfig
 from tethys_tpu_torch.convert import params_from_flax
-from tethys_tpu_torch.jobs import whisper_dist
+from tethys_tpu_torch.jobs import _common, whisper_dist
 from tethys_tpu_torch.losses import seq2seq_shifted_ce
 from tethys_tpu_torch.models.whisper import (
     WhisperForConditionalGeneration,
@@ -332,6 +332,8 @@ def test_step_profile_categories_and_card_only(monkeypatch):
     (["--grad_accum", "2"], "queue 1 item 7"),
     (["--resume"], "queue 1 item 4"),
     (["--master_dtype", "bfloat16"], "queue 1 item 7"),
+    (["--microbatches", "4"], "queue 1 item 7"),
+    (["--jax_profile", "/tmp/x"], "queue 1 item 6"),
 ])
 def test_cli_refuses_unported_flags(capsys, argv, where):
     with pytest.raises(SystemExit) as exc:
@@ -345,6 +347,10 @@ def test_cli_defaults_match_the_jax_job():
     args = whisper_dist.build_parser().parse_args([])
     assert (args.num_batches, args.batch_size, args.dtype,
             args.model_size) == (40, 1, "float32", "small")
+    assert (args.microbatches, args.jax_profile) == (2, None)
+    # The defaults (and the supported values spelled out) are not refused.
+    assert _common.parse(whisper_dist.build_parser(),
+                         ["--microbatches", "2"]).microbatches == 2
 
 
 def test_job_identity_and_multi_process_refusal(monkeypatch):

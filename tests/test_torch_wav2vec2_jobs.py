@@ -301,6 +301,10 @@ def test_job_clis_on_the_cpu(tiny_jobs, tmp_path, monkeypatch, capsys, cli,
     (wav2vec2_dist, ["--resume"], "queue 1 item 4"),
     (wav2vec2_single, ["--resume"], "queue 1 item 4"),
     (whisper_single, ["--resume"], "queue 1 item 4"),
+    (wav2vec2_dist, ["--jax_profile", "/tmp/x"], "queue 1 item 6"),
+    (wav2vec2_single, ["--jax_profile", "/tmp/x"], "queue 1 item 6"),
+    (whisper_single, ["--jax_profile", "/tmp/x"], "queue 1 item 6"),
+    (stable_dist, ["--jax_profile", "/tmp/x"], "queue 1 item 6"),
 ])
 def test_clis_refuse_unported_flags(capsys, cli, argv, where):
     with pytest.raises(SystemExit) as exc:
@@ -315,7 +319,7 @@ def test_cli_defaults_match_the_jax_jobs():
             | {"device": None}) == dict(
         num_batches=5, batch_size=1, dtype="float32", device=None,
         resume=False, tp=1, sp=1, remat=False, grad_accum=1,
-        model_size="small")
+        jax_profile=None, model_size="small")
     single = wav2vec2_single.build_parser().parse_args([])
     assert (single.model_type, single.learning_rate, single.num_epochs) == (
         "pretraining", 3e-5, 1)

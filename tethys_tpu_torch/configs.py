@@ -68,11 +68,19 @@ class WhisperConfig:
     # Accelerator additions (not part of the reference surface).
     compute_dtype: str = "float32"
     use_flash_attention: bool = True
+    # Per-layer rematerialization is not ported yet: True raises.
     remat_layers: bool = False
+    # The JAX config's policy for remat_layers; unused until it is ported.
     remat_policy: str = "save_flash"
     # "none" keeps the cross-attention caches in the compute dtype; "int8"
-    # is not ported yet (ROADMAP.md) and the model refuses it.
+    # keeps them as int8 with f32 per-column scales (ops/decode.py).
     kv_quant: str = "none"
+
+    def __post_init__(self):
+        if self.remat_layers:
+            raise ValueError(
+                "remat_layers=True (per-layer rematerialization) is not "
+                "ported yet (ROADMAP.md, queue 1 item 7)")
 
     @property
     def dtype(self) -> torch.dtype:

@@ -30,13 +30,20 @@ REFUSED = {
     "master_dtype": (dict(type=str, default="float32",
                           choices=["float32", "bfloat16"]), "float32",
                      "queue 1 item 7 (bf16 master weights)"),
+    "microbatches": (dict(type=int, default=2), 2,
+                     "queue 1 item 7 (pipeline microbatches)"),
+    "jax_profile": (dict(type=str, default=None, metavar="DIR"), None,
+                    "queue 1 item 6 (profiler trace)"),
 }
+# Every JAX job takes --jax_profile (its jobs/_common.py).
+EVERY_JOB = ("jax_profile",)
 
 
 def add_common_flags(parser: argparse.ArgumentParser,
                      num_batches_default: int, batch_size_default: int,
                      refused=()) -> None:
-    """The shared flags, and the JAX job's unported flags in ``refused``."""
+    """The shared flags, and the JAX job's unported flags: ``EVERY_JOB``
+    and those in ``refused``."""
     parser.add_argument(
         "--num_batches", type=int, default=num_batches_default,
         help=f"num_batches per replica, default is set {num_batches_default}")
@@ -50,7 +57,7 @@ def add_common_flags(parser: argparse.ArgumentParser,
                         choices=["cuda", "cpu"],
                         help="cuda: the kernels on one GPU; cpu: the plain "
                              "versions")
-    for flag in refused:
+    for flag in dict.fromkeys(EVERY_JOB + tuple(refused)):
         parser.add_argument(f"--{flag}", **REFUSED[flag][0])
 
 

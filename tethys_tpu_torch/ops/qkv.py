@@ -14,6 +14,12 @@ chooses them:
   on CPU tensors, in the autograd Functions ``ProjectSplit`` and
   ``MergeProject``.  All matrices of one ``project_split`` go through one
   launch at any T; a shape the kernel cannot take (E_out % H != 0) raises.
+
+On the card ``proj_route`` picks one of the file's four kernels by shape
+(its source note says what each does): ``"wgmma"`` (bf16, M = B * T > 64),
+``"stream"`` (bf16 decode steps, M <= 64), ``"mma"`` (the other bf16
+shapes) and ``"ffma"`` (f32).  Each is a hand-written kernel; a launch that
+fails raises, and ``ROUTE_LAUNCHES`` counts the launches of each.
 """
 
 from __future__ import annotations
@@ -31,6 +37,12 @@ from tethys_tpu_torch.utils.device import check_kernel_inputs, cpu_or_raise
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_MATS = 3
+# Route codes of csrc/qkv_proj.cu (enum Route), in order.
+ROUTES = ("ffma", "mma", "wgmma", "stream")
+# Launches per route, raised after each launch that succeeded.
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+STREAM_MAX_M = 64
+STREAM_MAX_K = 2048
 
 
 def fused_qkv_enabled() -> bool:
@@ -56,6 +68,25 @@ def plain_merge_project_fused(attn, weight, bias):
     return y.to(attn.dtype) + bias.to(attn.dtype)
 
 
+def proj_route(m: int, n: int, k: int, head_dim: int, dtype,
+               aligned: bool) -> str:
+    """The kernel of csrc/qkv_proj.cu for an [m, k] x [n, k]^T projection
+    with heads of ``head_dim``: f32 takes exact FFMA; bf16 takes the
+    weight-streaming kernel (m <= 64 and k <= 2048, so that its x rows and
+    W slab fit in shared memory) or else TMA + wgmma, where k, n and the
+    head dim are multiples of 64 and every operand is 16-byte aligned
+    (``aligned``), and the mma.sync kernel otherwise."""
+    if dtype == torch.float32:
+        return "ffma"
+    if not aligned or k % 64 or n % 64 or head_dim % 64:
+        return "mma"
+    return "stream" if m <= STREAM_MAX_M and k <= STREAM_MAX_K else "wgmma"
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _check_dtype(name, x):
     if x.dtype not in _DTYPES:
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
@@ -74,12 +105,15 @@ def project_split_cuda(x, weights, biases, scales, num_heads):
                         device=x.device) for _ in range(n)]
     pad = MAX_MATS - n
     ptrs = lambda ts: [u.data_ptr() for u in ts] + [None] * pad  # noqa: E731
+    route = proj_route(b * t, e_out, e_in, head_dim, x.dtype,
+                       _aligned(x, *weights, *biases))
     with torch.cuda.device(x.device):
         kernel_lib.PROJ_SPLIT(
             x.data_ptr(), *ptrs(weights), *ptrs(biases), *ptrs(outs),
             *(list(map(float, scales)) + [1.0] * pad), n, b, t, e_in, e_out,
-            head_dim, int(x.dtype == torch.bfloat16),
+            head_dim, int(x.dtype == torch.bfloat16), ROUTES.index(route),
             kernel_lib.stream_handle(x))
+    ROUTE_LAUNCHES[route] += 1
     return tuple(outs)
 
 
@@ -91,11 +125,15 @@ def merge_project_cuda(attn, weight, bias):
     b, num_heads, t, head_dim = attn.shape
     e_out = weight.shape[0]
     out = torch.empty((b, t, e_out), dtype=attn.dtype, device=attn.device)
+    route = proj_route(b * t, e_out, num_heads * head_dim, head_dim,
+                       attn.dtype, _aligned(attn, weight, bias))
     with torch.cuda.device(attn.device):
         kernel_lib.MERGE_PROJ(
             attn.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, num_heads, t, head_dim, e_out,
-            int(attn.dtype == torch.bfloat16), kernel_lib.stream_handle(attn))
+            int(attn.dtype == torch.bfloat16), ROUTES.index(route),
+            kernel_lib.stream_handle(attn))
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

@@ -125,12 +125,12 @@ Q8_CROSS = Kernel(
 PROJ_SPLIT = Kernel(
     "proj_split", "tethys_proj_split",
     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _I,
-     _I, _I, _P),
+     _I, _I, _I, _P),
     "tethys_tpu_torch/csrc/qkv_proj.cu",
     "tethys_tpu/ops/pallas_qkv.py:117")
 MERGE_PROJ = Kernel(
     "merge_proj", "tethys_merge_proj",
-    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "tethys_tpu_torch/csrc/qkv_proj.cu",
     "tethys_tpu/ops/pallas_qkv.py:236")
 
