@@ -15,7 +15,13 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    and, where one PyTorch call computes the same function, that call's time;
    the fused projections also at a decode step, each with the route of
    csrc/qkv_proj.cu it must take (wgmma at the encoder's shapes, weight
-   streaming at a decode step, FFMA in f32);
+   streaming at a decode step, FFMA in f32); the two decode-step attention
+   kernels (decode_self, q8_cross) must give the same bits from two
+   launches on the same inputs, log the thread-block cluster size each
+   shape takes, and log rows at T_max 448 (idx 447 and 63, hot and cold)
+   and at whisper-large-v3's B 4 x H 20, beside the timing floor (one
+   one-element add_ under the same method); split_heads is also timed at
+   a decode step [16, 1, 512], and dropout beside F.dropout;
 4. serving: whisper-base in f32 (random weights from seed 0) serves 2
    requests of 30 s seeded audio on the card; the same model and inputs
    run on the CPU, where every kernel's plain version runs; greedy tokens
@@ -280,6 +286,14 @@ def check_kernels(results: dict) -> None:
            2 * x.numel() * 2, 0, "bf16",
            event_ms(lambda: x.view(4, 1500, 8, 64).permute(0, 2, 1, 3)
                     .contiguous()))
+    # The shape of nearly all of its launches: a decode step.
+    x1 = randn(16, 1, 512, dtype=torch.bfloat16)
+    log_row("split_heads", "bf16 decode step [16, 1, 512]",
+            event_ms(lambda: transpose.split_heads_cuda(x1, 8)),
+            bound(2 * x1.numel() * 2, 0, "bf16"),
+            event_ms(lambda: transpose.plain_split_heads(x1, 8)),
+            event_ms(lambda: x1.view(16, 1, 8, 64).permute(0, 2, 1, 3)
+                     .contiguous()))
 
     # flash forward: B*H = 32 at T = 1500, and keys padded to 1536 with
     # kv_len = 1500.  f32: two f32 summation orders; bf16: the kernel rounds
@@ -323,17 +337,51 @@ def check_kernels(results: dict) -> None:
                               max(max_err(kb, kb2), max_err(vb, vb2)), 0.0))
             errs.append(check(f"decode out {dtype} idx={idx}",
                               max_err(out, ref), tol))
-    q = randn(16, 8, 1, 64, dtype=torch.bfloat16, scale=0.125)
-    kn, vn = randn(16, 8, 1, 64, dtype=torch.bfloat16), randn(16, 8, 1, 64, dtype=torch.bfloat16)
-    kb, vb = randn(16, 8, 64, 128, dtype=torch.bfloat16), randn(16, 8, 64, 128, dtype=torch.bfloat16)
+    def self_inputs(t_max, dtype=torch.bfloat16):
+        return (randn(16, 8, 1, 64, dtype=dtype, scale=0.125),
+                randn(16, 8, 1, 64, dtype=dtype), randn(16, 8, 1, 64, dtype=dtype),
+                randn(16, 8, 64, t_max, dtype=dtype),
+                randn(16, 8, 64, t_max, dtype=dtype))
+
+    def self_bound(idx):
+        # q, the new k and v, the output; idx cached columns of K and V read
+        # and one written.
+        return (4 * 16 * 8 * 64 * 2 + 2 * (idx + 1) * 16 * 8 * 64 * 2,
+                4 * 16 * 8 * (idx + 1) * 64, "bf16")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for t_max, idx in ((128, 127), (448, 447)):
+            check_repeatable(f"decode_self {dtype} T_max {t_max} idx {idx}",
+                             decode.decode_self_cuda, self_inputs(t_max, dtype),
+                             idx)
+    q, kn, vn, kb, vb = self_inputs(128)
+    log(f"  decode_self [16, 8, 64, 128] idx 127: cluster of "
+        f"{decode.decode_self_cluster(128, 64, 127, torch.bfloat16)}")
     record("decode_self", errs,
            event_ms(lambda: decode.decode_self_cuda(q, kn, vn, kb, vb, 127)),
            event_ms(lambda: decode.plain_decode_self_attention(
                q, kn, vn, kb, vb, 127)),
-           # q, the new k and v, the output; 127 cached columns of K and V
-           # read and one written.
-           4 * q.numel() * 2 + 2 * 128 * 16 * 8 * 64 * 2,
-           4 * 16 * 8 * 128 * 64, "bf16")
+           *self_bound(127))
+    log_row("decode_self", "bf16 [16, 8, 64, 128] idx 127, cold",
+            event_ms(lambda: decode.decode_self_cuda(q, kn, vn, kb, vb, 127),
+                     cold=True), bound(*self_bound(127)))
+    # The default max_target_positions, 448: the last step and an early one.
+    q, kn, vn, kb, vb = self_inputs(448)
+    for idx in (447, 63):
+        fn = lambda: decode.decode_self_cuda(q, kn, vn, kb, vb, idx)
+        shape = (f"bf16 [16, 8, 64, 448] idx {idx}, cluster of "
+                 f"{decode.decode_self_cluster(128, 64, idx, torch.bfloat16)}")
+        plain_ms = event_ms(lambda: decode.plain_decode_self_attention(
+            q, kn, vn, kb, vb, idx))
+        log_row("decode_self", shape + ", hot", event_ms(fn),
+                bound(*self_bound(idx)), plain_ms)
+        log_row("decode_self", shape + ", cold", event_ms(fn, cold=True),
+                bound(*self_bound(idx)))
+    # What the method reads for next to no work: the floor under the
+    # decode-step rows.
+    one = torch.zeros(1, device=dev)
+    log(f"  timing floor: one-element add_ {event_ms(lambda: one.add_(1)):.4f} ms "
+        f"hot, {event_ms(lambda: one.add_(1), cold=True):.4f} ms cold")
     check_training_kernels(record, randn)
     check_int8_kernels(record, randn)
 
@@ -373,11 +421,13 @@ def check_training_kernels(record, randn) -> None:
                 max_err(dropout.dropout_cuda(x, rate, seed),
                         dropout.plain_dropout(x, rate, seed)), 0.0))
     x = randn(16, 1500, 512, dtype=bf16)
-    # No PyTorch call draws these Philox bits: library_ms stays None.
+    # The library call: F.dropout at the same rate, the same function with
+    # PyTorch's own random bits (the port never calls it).
     record("dropout", errs,
            event_ms(lambda: dropout.dropout_cuda(x, rate, seed)),
            event_ms(lambda: dropout.plain_dropout(x, rate, seed)),
-           2 * x.numel() * 2, x.numel(), "f32")
+           2 * x.numel() * 2, x.numel(), "f32",
+           event_ms(lambda: F.dropout(x, rate, training=True)))
 
     def qkv(tq, tk, dtype):
         return (randn(128, tq, 64, dtype=dtype, scale=64 ** -0.5),
@@ -488,16 +538,32 @@ def check_int8_kernels(record, randn) -> None:
                     max_err(decode.q8_cross_cuda(*args, kv_len),
                             decode.plain_q8_cross_attention(*args, kv_len)),
                     tol))
+    for dtype in (f32, bf16):
+        for b, h in ((16, 8), (4, 20)):
+            check_repeatable(f"q8_cross {dtype} B {b} H {h}",
+                             decode.q8_cross_cuda, q8_inputs(b, h, dtype))
+
+    def q8_bound(bh, t=1500):
+        return (2 * bh * 64 * t + 2 * bh * t * 4 + 2 * bh * 64 * 2,
+                4 * bh * t * 64, "bf16")
+
+    for b, h in ((16, 8), (4, 20)):
+        log(f"  q8_cross B {b} H {h} Tk 1500: cluster of "
+            f"{decode.q8_cross_cluster(b * h, 64, 1500)}")
     args = q8_inputs(16, 8, bf16)
-    bh, t = 16 * 8, 1500
     # No single PyTorch call computes attention over int8 caches.  Timed
     # cold: the 26.1 MB of caches fit in L2, but on the path the other five
     # layers' caches pass through it between two calls for one layer.
     record("q8_cross", errs,
            event_ms(lambda: decode.q8_cross_cuda(*args), cold=True),
            event_ms(lambda: decode.plain_q8_cross_attention(*args), cold=True),
-           2 * bh * 64 * t + 2 * bh * t * 4 + 2 * bh * 64 * 2,
-           4 * bh * t * 64, "bf16")
+           *q8_bound(16 * 8))
+    # whisper-large-v3's decode step over 4 windows.
+    args = q8_inputs(4, 20, bf16)
+    log_row("q8_cross", "bf16 B 4 H 20 D 64 Tk 1500, cold",
+            event_ms(lambda: decode.q8_cross_cuda(*args), cold=True),
+            bound(*q8_bound(4 * 20)),
+            event_ms(lambda: decode.plain_q8_cross_attention(*args), cold=True))
 
     def proj_inputs(t, dtype, n=3):
         x = randn(16, t, 512, dtype=dtype)
@@ -596,6 +662,32 @@ def decode_row(name: str, shape: str, ms: float, plain_ms: float, bound_ms,
     log(f"  {name} bf16 decode step {shape}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound_ms[0]:.4f} ms ({bound_ms[1]}), "
         f"library {library_ms:.4f} ms")
+
+
+def log_row(name: str, shape: str, ms: float, bound_ms, plain_ms=None,
+            library_ms=None) -> None:
+    """Phase 3: a kernel's time at another shape than its table entry's,
+    beside its bound and, where timed, its plain version and library call
+    (logged only)."""
+    extra = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+    if library_ms is not None:
+        extra += f", library {library_ms:.4f} ms"
+    log(f"  {name} {shape}: kernel {ms:.4f} ms, bound {bound_ms[0]:.4f} ms "
+        f"({bound_ms[1]}){extra}")
+
+
+def check_repeatable(name: str, fn, tensors, *args) -> None:
+    """Two launches of fn on the same inputs give the same bits: outputs,
+    and the tensors fn updates in place (run on two clones of the inputs)."""
+    runs = []
+    for _ in range(2):
+        inputs = [t.clone() for t in tensors]
+        out = fn(*inputs, *args)
+        outs = out if isinstance(out, tuple) else (out,)
+        runs.append([o.clone() for o in outs] + inputs)
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"  {name}: two launches bitwise equal: {same}")
+    require(same, f"{name}: two launches on the same inputs differ")
 
 
 def check_fused_grads(randn) -> None:

@@ -120,9 +120,15 @@ def test_flash_fwd_matches_plain(cuda, dtype, tol, d, tq, tk, kv_len):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d,t_max,idx", [(32, 64, 0), (64, 448, 300),
-                                         (128, 13000, 12999), (64, 130, 129)])
+                                         (128, 13000, 12999), (64, 130, 129),
+                                         (64, 448, 447), (64, 448, 63),
+                                         (64, 64, 1), (16, 8, 0),
+                                         (80, 131, 130), (64, 1000, 999)])
 def test_decode_self_matches_plain(cuda, dtype, tol, d, t_max, idx):
-    """Caches bitwise equal; 13000 positions need 52 KB of shared memory."""
+    """Caches bitwise equal.  idx + 1 below the cluster's size (idx 0, 1),
+    slices that do not divide evenly (1000 positions), whisper's own
+    T_max 448, rows of an odd T_max (2-byte loads in bf16); 13000
+    positions spread over tiles of a cluster of 8."""
     q = _randn(cuda, 2, 3, 1, d, dtype=dtype, scale=d ** -0.5, seed=4)
     kn = _randn(cuda, 2, 3, 1, d, dtype=dtype, seed=5)
     vn = _randn(cuda, 2, 3, 1, d, dtype=dtype, seed=6)
@@ -134,6 +140,76 @@ def test_decode_self_matches_plain(cuda, dtype, tol, d, t_max, idx):
     assert k_ret is kb
     assert torch.equal(kb, kb2) and torch.equal(vb, vb2)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+def _decode_self_inputs(dev, b, h, d, t_max, dtype, offset=0):
+    """Inputs of decode_self; the caches are contiguous views ``offset``
+    elements into their storage."""
+    q = _randn(dev, b, h, 1, d, dtype=dtype, scale=d ** -0.5, seed=4)
+    kn = _randn(dev, b, h, 1, d, dtype=dtype, seed=5)
+    vn = _randn(dev, b, h, 1, d, dtype=dtype, seed=6)
+    n = b * h * d * t_max
+    kb = _randn(dev, offset + n, dtype=dtype, seed=7)[offset:].view(b, h, d, t_max)
+    vb = _randn(dev, offset + n, dtype=dtype, seed=8)[offset:].view(b, h, d, t_max)
+    return q, kn, vn, kb, vb
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,t_max,idx,offset", [
+    (65, 8, 448, 447, 0), (4, 20, 448, 200, 0), (16, 8, 128, 127, 0),
+    # Caches 1 element into their storage: 2-byte loads in bf16, 4-byte
+    # copies in f32.
+    (2, 3, 448, 447, 1), (2, 3, 130, 77, 1)])
+def test_decode_self_split_is_exact_and_deterministic(cuda, dtype, tol, b, h,
+                                                      t_max, idx, offset):
+    """One launch per call, caches bitwise equal to the plain version's,
+    and two launches on the same inputs give the same bits."""
+    q, kn, vn, kb, vb = _decode_self_inputs(cuda, b, h, 64, t_max, dtype,
+                                            offset)
+    assert offset == 0 or kb.data_ptr() % 16 != 0
+    kb2, vb2 = kb.clone(), vb.clone()
+    kb3, vb3 = kb.clone(), vb.clone()
+    before = kernel_lib.DECODE_SELF.launches
+    out, _, _ = decode.decode_self_attention(q, kn, vn, kb, vb, idx)
+    assert kernel_lib.DECODE_SELF.launches == before + 1
+    again, _, _ = decode.decode_self_attention(q, kn, vn, kb3, vb3, idx)
+    ref, _, _ = decode.plain_decode_self_attention(q, kn, vn, kb2, vb2, idx)
+    assert torch.equal(kb, kb2) and torch.equal(vb, vb2)
+    assert torch.equal(kb3, kb2) and torch.equal(vb3, vb2)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("idx", [0, 100, 446])
+def test_decode_self_never_reads_past_idx(cuda, dtype, idx):
+    """NaN in every cache column past idx leaves the output as it is with
+    zeros there: those columns are never read."""
+    q, kn, vn, kb, vb = _decode_self_inputs(cuda, 16, 8, 64, 448, dtype)
+    outs = []
+    for fill in (0.0, float("nan")):
+        k, v = kb.clone(), vb.clone()
+        k[..., idx + 1:] = fill
+        v[..., idx + 1:] = fill
+        outs.append(decode.decode_self_attention(q, kn, vn, k, v, idx)[0])
+    assert torch.isfinite(outs[1].float()).all()
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_decode_self_and_q8_cross_cluster_sizes(cuda):
+    """A cluster of 1 to 8 blocks; 1 while the positions fit one block's
+    least share, more once there are enough positions a head."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert decode.decode_self_cluster(128, 64, 0, bf16) == 1
+    assert decode.decode_self_cluster(128, 64, 31, f32) == 1
+    assert decode.decode_self_cluster(128, 64, 127, bf16) > 1
+    assert decode.q8_cross_cluster(128, 64, 64) == 1
+    for bh in (1, 80, 128, 4096):
+        for n in (1, 100, 1500, 15000):
+            assert 1 <= decode.q8_cross_cluster(bh, 64, n) <= 8
+            assert 1 <= decode.decode_self_cluster(bh, 64, n - 1, bf16) <= 8
+    assert decode.q8_cross_cluster(128, 64, 1500) > 1
 
 
 @pytest.mark.parametrize("n_mels,rows", [(80, 37), (128, 2998), (8, 1)])
@@ -482,10 +558,15 @@ def test_tiny_wav2vec2_steps_card_against_cpu(cuda):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,h,d,t,kv_len", [
     (2, 3, 64, 1500, None), (1, 4, 16, 1501, 700), (3, 2, 80, 13, 5),
-    (1, 2, 128, 15000, 14999), (2, 5, 64, 8, 1)])
+    (1, 2, 128, 15000, 14999), (2, 5, 64, 8, 1),
+    (2, 3, 64, 1500, 1), (2, 3, 64, 1500, 7), (2, 3, 64, 1500, 1499),
+    (2, 3, 64, 1500, 1000), (4, 20, 64, 1500, None), (65, 8, 64, 1500, 1000),
+    (2, 3, 64, 1504, 1501)])
 def test_q8_cross_matches_plain(cuda, dtype, tol, b, h, d, t, kv_len):
-    """char4 loads (Tk % 4 == 0) and single bytes (Tk 1501, 13), ragged
-    kv_len, scores that need more than 48 KB of shared memory (Tk 15000).
+    """4-byte copies (Tk % 4 == 0), 16-byte copies (Tk 1504) and single
+    bytes (Tk 1501, 13); kv_len below the cluster's size (1, 7) and slices
+    that do not divide evenly (1499, 1000); whisper-large-v3's B 4 x H 20;
+    B 65; Tk 15000 spread over tiles of a cluster of 8.
     The kernel and the plain version read the same int8 caches and scales:
     f32 to 1e-5, bf16 (outputs below 4) to 2e-2."""
     q = _randn(cuda, b, h, 1, d, dtype=dtype, scale=d ** -0.5, seed=20)
@@ -496,6 +577,33 @@ def test_q8_cross_matches_plain(cuda, dtype, tol, b, h, d, t, kv_len):
     assert kernel_lib.Q8_CROSS.launches == before + 1
     want = decode.plain_q8_cross_attention(q, k8, sk, v8, sv, kv_len)
     assert got.dtype == dtype and got.shape == (b, h, 1, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset,kv_len", [(1, 1500), (4, 1000), (0, 1500)])
+def test_q8_cross_split_is_deterministic(cuda, dtype, offset, kv_len):
+    """Caches ``offset`` bytes into their storage (1: byte loads, 4: 4-byte
+    copies): the plain version's result within the f32 1e-5 / bf16 2e-2
+    tolerances, one launch per call, the same bits from two launches."""
+    b, h, d, t = 4, 20, 64, 1500
+    q = _randn(cuda, b, h, 1, d, dtype=dtype, scale=d ** -0.5, seed=20)
+    caches = []
+    for seed in (21, 22):
+        x8, s = decode.quantize_kv_cols(_randn(cuda, b, h, d, t, seed=seed))
+        base = torch.empty(offset + x8.numel(), dtype=torch.int8, device=cuda)
+        view = base[offset:].view(b, h, d, t)
+        view.copy_(x8)
+        caches += [view, s]
+    k8, sk, v8, sv = caches
+    assert offset == 0 or k8.data_ptr() % 16 != 0
+    before = kernel_lib.Q8_CROSS.launches
+    got = decode.decode_cross_attention_q8(q, k8, sk, v8, sv, kv_len)
+    assert kernel_lib.Q8_CROSS.launches == before + 1
+    again = decode.decode_cross_attention_q8(q, k8, sk, v8, sv, kv_len)
+    assert torch.equal(got, again)
+    want = decode.plain_q8_cross_attention(q, k8, sk, v8, sv, kv_len)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 

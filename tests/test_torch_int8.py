@@ -108,6 +108,24 @@ def test_plain_q8_cross_matches_pallas_interpret(monkeypatch, kv_len, dtype, tol
         np.testing.assert_allclose(got.numpy(), xla, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("kv_len", [None, 1000])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_plain_q8_cross_matches_pallas_interpret_whisper_shape(
+        monkeypatch, kv_len, dtype, tol):
+    """The same check at whisper's own cross-attention shape: D 64 and
+    Tk 1500 (1500 encoder frames), all of them valid or the first 1000."""
+    monkeypatch.setattr(pd, "_INTERPRET", True)
+    monkeypatch.setattr(pd, "_Q8_XLA", False)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    args = _q8_args(5, 2, 4, 64, 1500, jdt)
+    eff = 1500 if kv_len is None else kv_len
+    want = np.asarray(pd._pallas_q8_cross(*args, kv_len=eff), np.float32)
+    tdt = getattr(torch, dtype)
+    got = decode.decode_cross_attention_q8(*_torch(args, tdt), kv_len=kv_len)
+    assert got.dtype == tdt and got.shape == (2, 4, 1, 64)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
 def test_q8_cross_refuses_other_devices():
     q = torch.empty(1, 2, 1, 4, device="meta")
     k8 = torch.empty(1, 2, 4, 8, dtype=torch.int8, device="meta")

@@ -317,7 +317,7 @@ def _decode_inputs(rng, b, h, d, t, idx):
 
 @pytest.mark.parametrize("b,h,d,t,idx", [
     (2, 8, 64, 128, 0), (2, 8, 64, 128, 57), (2, 8, 64, 128, 127),
-    (1, 4, 32, 64, 5),
+    (1, 4, 32, 64, 5), (2, 8, 64, 448, 447),
 ])
 def test_plain_decode_self_matches_pallas(monkeypatch, b, h, d, t, idx):
     """Caches exact (the append is a pure write), output to 1e-6."""

@@ -126,6 +126,20 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(ok ? 4 : 0));
 }
 
+// A kVec-byte copy (16 or 4; both addresses kVec-aligned) that reads only
+// the first n bytes of src (0 <= n <= kVec) and zero-fills the rest.
+template <int kVec>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, int n) {
+  static_assert(kVec == 16 || kVec == 4, "cp.async takes 16 or 4 bytes here");
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
+  if constexpr (kVec == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a),
+                 "l"(src), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -135,6 +149,20 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// cp_async_wait with a count known at run time, 0 to 7.
+__device__ __forceinline__ void cp_async_wait_dyn(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
 }
 
 // Rows row0 .. row0 + kRows - 1 of a row-major [n_rows, D] bf16 matrix into

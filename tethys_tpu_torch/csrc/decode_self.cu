@@ -1,118 +1,46 @@
-// One-token decoder self-attention with the KV-cache append, in one launch.
+// One-token decoder self-attention with the KV-cache append, in one launch,
+// the key axis split over a thread-block cluster.
 //
 // Replaces tethys_tpu/ops/pallas_decode.py::_kernel (launched by
 // _pallas_self, via decode_self_attention).  For each (batch, head) it
 //   1. writes k_new and v_new as column idx of the transposed caches
 //      [B, H, D, T_max], in place;
 //   2. computes the scores q . k[:, t] for t <= idx in f32;
-//   3. takes an f32 softmax over them and rounds the probabilities to the
+//   3. takes an f32 softmax over them and rounds p = exp(s - m) / l to the
 //      compute dtype;
-//   4. writes out[d] = sum_t p[t] v[d, t] in the compute dtype.
+//   4. writes out[d] = sum_t p[t] v[d, t], summed in f32, in the compute
+//      dtype.
 // Positions past idx are never read, which is what the TPU kernel's mask
 // (-1e9 before the softmax) amounts to.
 //
 // What bounds it on an H100: device memory, and at serving sizes launch
-// latency.  It reads 2 * D * (idx + 1) cache values per (batch, head) and
-// does one multiply-add per value read.  The design: one block of 128
-// threads per (batch, head).  Scores are computed one position per thread,
-// reading the [D, T] slab along T so that a warp reads contiguous memory;
-// the output is one warp per d, lanes striding along T, reduced by
-// shuffles.  The new column is taken from shared memory rather than read
-// back from the cache it was just written to.  idx arrives as a kernel
-// argument, so a host loop over decode steps never waits on the device.
-#include <math.h>
-
-#include "common.cuh"
+// latency.  It reads 2 * D * idx cache values per (batch, head) and writes
+// one column, one multiply-add per value: 4.2 MB at whisper-base b16 bf16
+// (B 16, H 8, D 64) at idx 127, 1.3 us at 3.35 TB/s.
+//
+// The first design (one block of 128 threads per (batch, head)) read 2-byte
+// elements in a D-long loop per thread with one load in flight, and 128
+// blocks left SMs idle: 13x its bound.  This one (csrc/split_decode.cuh)
+// splits the idx + 1 columns over a cluster of S <= 8 blocks of at least 32
+// columns each (S = 1 at small idx, 4 at idx 127 with B 16 x H 8, 8 at
+// idx 447), each block with its K and V slices in flight as 16-byte
+// cp.async copies (4-byte, or 2-byte loads, when rows of an odd max_length
+// or a misaligned base do not allow 16).  The rank that holds column idx
+// writes the new column into both caches and puts it into its tiles from
+// shared memory: the cache column it writes is never read back.  The
+// blocks meet in distributed shared memory for the max, the sum and the
+// partial outputs, in rank order, so p is rounded with the global m and l
+// as the Pallas kernel rounds it, and no atomics are used.  idx arrives as
+// a kernel argument, so a host loop over decode steps never waits on the
+// device.
+//
+// Not Triton: the exchange of m and l between blocks and the rank-order sum
+// of the partials in distributed shared memory have no Triton counterpart.
+#include "split_decode.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    decode_self_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-                       const T* __restrict__ v_new, T* k_buf, T* v_buf,
-                       T* __restrict__ out, int D, int Tmax, int idx) {
-  extern __shared__ float smem[];
-  float* s_q = smem;           // [D]
-  float* s_k = s_q + D;        // [D] the new key column
-  float* s_v = s_k + D;        // [D] the new value column
-  float* s_p = s_v + D;        // [idx + 1] scores, then probabilities
-  __shared__ float s_red[kWarps];
-
-  const int tid = threadIdx.x;
-  const long long bh = blockIdx.x;
-  T* kb = k_buf + bh * (long long)D * Tmax;
-  T* vb = v_buf + bh * (long long)D * Tmax;
-
-  for (int d = tid; d < D; d += kThreads) {
-    const T kv = k_new[bh * D + d];
-    const T vv = v_new[bh * D + d];
-    kb[(long long)d * Tmax + idx] = kv;
-    vb[(long long)d * Tmax + idx] = vv;
-    s_q[d] = tethys::to_f32<T>(q[bh * D + d]);
-    s_k[d] = tethys::to_f32<T>(kv);
-    s_v[d] = tethys::to_f32<T>(vv);
-  }
-  __syncthreads();
-
-  float local_max = -INFINITY;
-  for (int t = tid; t <= idx; t += kThreads) {
-    float acc = 0.f;
-    if (t == idx) {
-      for (int d = 0; d < D; ++d) acc = fmaf(s_q[d], s_k[d], acc);
-    } else {
-      for (int d = 0; d < D; ++d)
-        acc = fmaf(s_q[d], tethys::to_f32<T>(kb[(long long)d * Tmax + t]), acc);
-    }
-    s_p[t] = acc;
-    local_max = fmaxf(local_max, acc);
-  }
-  const float m = tethys::block_reduce<kWarps>(local_max, s_red, true);
-
-  float local_sum = 0.f;
-  for (int t = tid; t <= idx; t += kThreads) {
-    const float p = expf(s_p[t] - m);
-    s_p[t] = p;
-    local_sum += p;
-  }
-  const float l = tethys::block_reduce<kWarps>(local_sum, s_red, false);
-
-  for (int t = tid; t <= idx; t += kThreads)
-    s_p[t] = tethys::round_to<T>(s_p[t] / l);
-  __syncthreads();
-
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int d = warp; d < D; d += kWarps) {
-    float acc = 0.f;
-    for (int t = lane; t <= idx; t += 32) {
-      const float vv = (t == idx)
-                           ? s_v[d]
-                           : tethys::to_f32<T>(vb[(long long)d * Tmax + t]);
-      acc = fmaf(s_p[t], vv, acc);
-    }
-    acc = tethys::warp_sum(acc);
-    if (lane == 0) out[bh * D + d] = tethys::from_f32<T>(acc);
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k_new, const void* v_new, void* k_buf,
-           void* v_buf, void* out, int BH, int D, int Tmax, int idx,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * D + idx + 1);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_self_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  decode_self_kernel<T><<<BH, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k_new, (const T*)v_new, (T*)k_buf, (T*)v_buf,
-      (T*)out, D, Tmax, idx);
-  return (int)cudaGetLastError();
-}
+constexpr int kMinCols = 32;  // columns a rank holds at least
 
 }  // namespace
 
@@ -126,10 +54,21 @@ TETHYS_EXPORT int tethys_decode_self(const void* q, const void* k_new,
                                      void* stream) {
   if (B <= 0 || H <= 0 || D <= 0 || Tmax <= 0 || idx < 0 || idx >= Tmax)
     return (int)cudaErrorInvalidValue;
+  namespace sd = tethys::split_decode;
+  const sd::Params p = {q, k_buf, v_buf, nullptr, nullptr, k_new, v_new,
+                        out, D, Tmax, idx + 1, 0, 0, 0, 0};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k_new, v_new, k_buf, v_buf, out, B * H, D,
-                                 Tmax, idx, s);
-  return launch<float>(q, k_new, v_new, k_buf, v_buf, out, B * H, D, Tmax,
-                       idx, s);
+    return sd::launch<__nv_bfloat16, __nv_bfloat16, false>(p, B * H, kMinCols,
+                                                           s);
+  return sd::launch<float, float, false>(p, B * H, kMinCols, s);
+}
+
+// The cluster size tethys_decode_self takes for these sizes on the current
+// device.
+TETHYS_EXPORT int tethys_decode_self_cluster(int BH, int D, int idx,
+                                             int is_bf16) {
+  if (BH <= 0 || D <= 0 || idx < 0) return 0;
+  return tethys::split_decode::make_plan(BH, idx + 1, D, is_bf16 ? 2 : 4,
+                                         false, kMinCols).S;
 }

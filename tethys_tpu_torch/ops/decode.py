@@ -2,12 +2,15 @@
 
 ``decode_self_attention``: a CUDA tensor launches csrc/decode_self.cu, one
 launch that writes the new column into both caches and attends over
-positions <= index.  A CPU tensor takes ``plain_decode_self_attention``,
-the unfused composition of the JAX package's ``_xla_reference``.
+positions <= index, the positions split over a thread-block cluster
+(``decode_self_cluster`` gives its size).  A CPU tensor takes
+``plain_decode_self_attention``, the unfused composition of the JAX
+package's ``_xla_reference``.
 
 ``decode_cross_attention_q8``: one token against int8 cross-attention
 caches with f32 per-column scales (``kv_quant="int8"``).  A CUDA tensor
-launches csrc/q8_cross.cu, a CPU tensor takes
+launches csrc/q8_cross.cu (keys split over a cluster of
+``q8_cross_cluster`` blocks), a CPU tensor takes
 ``plain_q8_cross_attention``.  ``quantize_kv_cols`` builds those caches
 once per generate, in plain torch as JAX does it in XLA.
 """
@@ -58,6 +61,14 @@ def decode_self_cuda(query, k_new, v_new, k_buf, v_buf, index: int):
             index, int(query.dtype == torch.bfloat16),
             kernel_lib.stream_handle(query))
     return out, k_buf, v_buf
+
+
+def decode_self_cluster(batch_heads: int, head_dim: int, index: int,
+                        dtype) -> int:
+    """The thread-block cluster size csrc/decode_self.cu takes for these
+    sizes on the current CUDA device (1 to 8)."""
+    return kernel_lib.library().tethys_decode_self_cluster(
+        batch_heads, head_dim, index, int(dtype == torch.bfloat16))
 
 
 def decode_self_attention(query, k_new, v_new, k_buf, v_buf, index: int):
@@ -135,6 +146,13 @@ def q8_cross_cuda(query, k8, sk, v8, sv, kv_len=None):
             sv.data_ptr(), out.data_ptr(), b * h, d, t, kv_len,
             int(query.dtype == torch.bfloat16), kernel_lib.stream_handle(query))
     return out
+
+
+def q8_cross_cluster(batch_heads: int, head_dim: int, kv_len: int) -> int:
+    """The thread-block cluster size csrc/q8_cross.cu takes for these sizes
+    on the current CUDA device (1 to 8)."""
+    return kernel_lib.library().tethys_q8_cross_cluster(
+        batch_heads, head_dim, kv_len)
 
 
 def decode_cross_attention_q8(query, k8, sk, v8, sv, kv_len=None):

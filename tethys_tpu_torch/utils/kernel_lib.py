@@ -134,6 +134,13 @@ MERGE_PROJ = Kernel(
     "tethys_tpu_torch/csrc/qkv_proj.cu",
     "tethys_tpu/ops/pallas_qkv.py:236")
 
+# Functions of the library that launch nothing: the cluster size the two
+# decode-step attention kernels take for given sizes.
+_QUERIES = {
+    "tethys_q8_cross_cluster": (_I, _I, _I),
+    "tethys_decode_self_cluster": (_I, _I, _I, _I),
+}
+
 KERNELS = (LOG_MEL, SPLIT_HEADS, MERGE_HEADS, FLASH_FWD, FLASH_FWD_DROPOUT,
            FLASH_BWD, DROPOUT, DECODE_SELF, GN_STATS, Q8_CROSS, PROJ_SPLIT,
            MERGE_PROJ)
@@ -217,6 +224,9 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.tethys_error_string.argtypes = (ctypes.c_int,)
             lib.tethys_error_string.restype = ctypes.c_char_p
+            for symbol, argtypes in _QUERIES.items():
+                getattr(lib, symbol).argtypes = argtypes
+                getattr(lib, symbol).restype = ctypes.c_int
             _lib = lib
         return _lib
 
