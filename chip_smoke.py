@@ -612,14 +612,15 @@ def check_int8_kernels(record, randn) -> None:
     # The decode step: the split of [16, 1, 512] is a view, so the library
     # call is three F.linear.
     x1, ws1, bs1, _ = proj_inputs(1, bf16)
-    decode_row("proj_split", "[16, 1, 512] x 3",
-               event_ms(lambda: qkv.project_split_cuda(x1, ws1, bs1, scales, 8)),
-               event_ms(lambda: qkv.plain_project_split_fused(x1, ws1, bs1,
-                                                              scales, 8)),
-               bound(2 * (16 * 512 + 3 * 512 * 512 + 3 * 512 + 3 * 16 * 512),
-                     3 * 2 * 16 * 512 * 512, "bf16"),
-               event_ms(lambda: [F.linear(x1, w, b).view(16, 1, 8, 64)
-                                 .transpose(1, 2) for w, b in zip(ws1, bs1)]))
+    log_row("proj_split", "bf16 decode step [16, 1, 512] x 3",
+            event_ms(lambda: qkv.project_split_cuda(x1, ws1, bs1, scales, 8)),
+            bound(2 * (16 * 512 + 3 * 512 * 512 + 3 * 512 + 3 * 16 * 512),
+                  3 * 2 * 16 * 512 * 512, "bf16"),
+            plain_ms=event_ms(lambda: qkv.plain_project_split_fused(
+                x1, ws1, bs1, scales, 8)),
+            library_ms=event_ms(lambda: [F.linear(x1, w, b).view(16, 1, 8, 64)
+                                         .transpose(1, 2)
+                                         for w, b in zip(ws1, bs1)]))
 
     errs = []
     for dtype, tol in ((f32, 1e-4), (bf16, 6.25e-2)):
@@ -643,25 +644,16 @@ def check_int8_kernels(record, randn) -> None:
            event_ms(lambda: F.linear(attn.permute(0, 2, 1, 3).reshape(
                16, 1500, 512), w, b)))
     attn1 = randn(16, 8, 1, 64, dtype=bf16)
-    decode_row("merge_proj", "[16, 8, 1, 64] x [512, 512]",
-               event_ms(lambda: qkv.merge_project_cuda(attn1, w, b)),
-               event_ms(lambda: qkv.plain_merge_project_fused(attn1, w, b)),
-               bound(2 * (2 * attn1.numel() + w.numel() + b.numel()),
-                     2 * 16 * 512 * 512, "bf16"),
-               event_ms(lambda: F.linear(attn1.permute(0, 2, 1, 3).reshape(
-                   16, 1, 512), w, b)))
+    log_row("merge_proj", "bf16 decode step [16, 8, 1, 64] x [512, 512]",
+            event_ms(lambda: qkv.merge_project_cuda(attn1, w, b)),
+            bound(2 * (2 * attn1.numel() + w.numel() + b.numel()),
+                  2 * 16 * 512 * 512, "bf16"),
+            plain_ms=event_ms(lambda: qkv.plain_merge_project_fused(
+                attn1, w, b)),
+            library_ms=event_ms(lambda: F.linear(attn1.permute(0, 2, 1, 3)
+                                                 .reshape(16, 1, 512), w, b)))
     check_fused_grads(randn)
     check_flash_bwd_long(randn)
-
-
-def decode_row(name: str, shape: str, ms: float, plain_ms: float, bound_ms,
-               library_ms: float) -> None:
-    """Phase 3: a projection kernel's time at a decode step, beside its
-    bound, its plain version and its library call (logged; the kernel
-    table's entry stays the encoder shape)."""
-    log(f"  {name} bf16 decode step {shape}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms[0]:.4f} ms ({bound_ms[1]}), "
-        f"library {library_ms:.4f} ms")
 
 
 def log_row(name: str, shape: str, ms: float, bound_ms, plain_ms=None,

@@ -151,17 +151,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// cp_async_wait with a count known at run time, 0 to 7.
+// cp_async_wait with a count known at run time, 0 to 3.
 __device__ __forceinline__ void cp_async_wait_dyn(int pending) {
   switch (pending) {
     case 0: cp_async_wait<0>(); break;
     case 1: cp_async_wait<1>(); break;
     case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<7>(); break;
+    default: cp_async_wait<3>(); break;
   }
 }
 
@@ -194,6 +190,18 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
                              : __float2bfloat16_rn(0.f);
     }
   }
+}
+
+// The current device's number of SMs (host side; read once per device).
+inline int sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && cached[dev]) return cached[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < 64) cached[dev] = n;
+  return n;
 }
 
 // Max (is_max) or sum of v over a block of kWarps full warps, returned to

@@ -22,17 +22,17 @@
 // elements in a D-long loop per thread with one load in flight, and 128
 // blocks left SMs idle: 13x its bound.  This one (csrc/split_decode.cuh)
 // splits the idx + 1 columns over a cluster of S <= 8 blocks of at least 32
-// columns each (S = 1 at small idx, 4 at idx 127 with B 16 x H 8, 8 at
-// idx 447), each block with its K and V slices in flight as 16-byte
-// cp.async copies (4-byte, or 2-byte loads, when rows of an odd max_length
-// or a misaligned base do not allow 16).  The rank that holds column idx
-// writes the new column into both caches and puts it into its tiles from
-// shared memory: the cache column it writes is never read back.  The
-// blocks meet in distributed shared memory for the max, the sum and the
-// partial outputs, in rank order, so p is rounded with the global m and l
-// as the Pallas kernel rounds it, and no atomics are used.  idx arrives as
-// a kernel argument, so a host loop over decode steps never waits on the
-// device.
+// columns each (S = 1 at small idx, 4 at idx 127 with B 16 x H 8, 7 at
+// idx 447), each block issuing its whole K and V slice at once as 16-byte
+// cp.async copies (4-byte, or 2-byte loads, when the rows of an odd
+// max_length or a misaligned base do not allow 16).  The rank that holds
+// column idx writes the new column into both caches and puts it into its
+// tiles from shared memory: the cache column it writes is never read back.
+// The blocks exchange their max, their sum and their partial outputs
+// through distributed shared memory (st.async, counted by mbarriers), in
+// rank order, so p is rounded with the global m and l as the Pallas kernel
+// rounds it, and no atomics are used.  idx arrives as a kernel argument, so
+// a host loop over decode steps never waits on the device.
 //
 // Not Triton: the exchange of m and l between blocks and the rank-order sum
 // of the partials in distributed shared memory have no Triton counterpart.
@@ -46,7 +46,7 @@ constexpr int kMinCols = 32;  // columns a rank holds at least
 
 // q, k_new, v_new [B, H, 1, D]; k_buf, v_buf [B, H, D, T_max] (updated in
 // place); out [B, H, 1, D].  All f32 (is_bf16 = 0) or all bf16, contiguous.
-// 0 <= idx < T_max.
+// 0 <= idx < T_max, D <= 256.
 TETHYS_EXPORT int tethys_decode_self(const void* q, const void* k_new,
                                      const void* v_new, void* k_buf,
                                      void* v_buf, void* out, int B, int H,
@@ -56,7 +56,7 @@ TETHYS_EXPORT int tethys_decode_self(const void* q, const void* k_new,
     return (int)cudaErrorInvalidValue;
   namespace sd = tethys::split_decode;
   const sd::Params p = {q, k_buf, v_buf, nullptr, nullptr, k_new, v_new,
-                        out, D, Tmax, idx + 1, 0, 0, 0, 0};
+                        out, D, Tmax, idx + 1};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return sd::launch<__nv_bfloat16, __nv_bfloat16, false>(p, B * H, kMinCols,

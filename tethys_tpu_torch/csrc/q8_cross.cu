@@ -20,15 +20,17 @@
 // that: 128 blocks left SMs of the 132 idle, and each block had one char4 a
 // thread in flight, so the caches streamed at about 0.5 TB/s.  This one
 // (csrc/split_decode.cuh) splits the keys over a cluster of S <= 8 blocks:
-// S = 8 at B 16 x H 8 gives 1024 blocks of 192 keys, every block resident
-// at once, each with its K and V slices in flight as 4-byte cp.async copies
-// (16-byte when Tk % 16 == 0; Tk 1500 rows are 4-byte aligned only) through
-// a ring of four 4 KB tiles.  The blocks meet in distributed shared memory
-// for the max, the sum and the partial outputs, in rank order, so p is
-// rounded with the global m and l as in the Pallas kernel; the
+// S = 8 at B 16 x H 8 gives 1024 blocks of 192 keys, each of which issues
+// its whole K and V slice at once as 4-byte cp.async copies (16-byte when
+// Tk % 16 == 0; Tk 1500 rows are 4-byte aligned only).  The blocks of a
+// cluster exchange their max, their sum and their partial outputs through
+// distributed shared memory (st.async, counted by mbarriers), in rank order,
+// so p is rounded with the global m and l as in the Pallas kernel; the
 // flash-decoding combine (rescaling per-split outputs by exp(m_i - m)) would
 // round p before l is known and give other bf16 results.  Rows that are not
-// 4-byte aligned (Tk % 4 != 0, a misaligned base) take byte loads.
+// 4-byte aligned (Tk % 4 != 0, a misaligned base) take byte loads.  What
+// is left of the bound: the blocks load, then convert and multiply, in lock
+// step, and 29 KB of shared memory a block fits 7 blocks an SM.
 //
 // Not Triton: the exchange of m and l between blocks and the rank-order sum
 // of the partials in distributed shared memory have no Triton counterpart.
@@ -42,7 +44,7 @@ constexpr int kMinCols = 64;  // keys a rank holds at least
 
 // q [B, H, 1, D] and out [B, H, 1, D] f32 (is_bf16 = 0) or bf16; k8, v8
 // int8 [B, H, D, Tk]; sk, sv f32 [B, H, 1, Tk]; all contiguous, BH = B * H;
-// 1 <= kv_len <= Tk.
+// 1 <= kv_len <= Tk, D <= 256.
 TETHYS_EXPORT int tethys_q8_cross(const void* q, const void* k8,
                                   const void* sk, const void* v8,
                                   const void* sv, void* out, int BH, int D,
@@ -51,7 +53,7 @@ TETHYS_EXPORT int tethys_q8_cross(const void* q, const void* k8,
   namespace sd = tethys::split_decode;
   const sd::Params p = {q, const_cast<void*>(k8), const_cast<void*>(v8),
                         (const float*)sk, (const float*)sv, nullptr, nullptr,
-                        out, D, Tk, kv_len, 0, 0, 0, 0};
+                        out, D, Tk, kv_len};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return sd::launch<__nv_bfloat16, int8_t, true>(p, BH, kMinCols, s);

@@ -264,13 +264,6 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-int num_sms() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
-
 // ---- bf16, route "wgmma": persistent, warp-specialised, TMA + wgmma -------
 
 namespace hp = tethys::hopper;
@@ -510,7 +503,8 @@ int launch_wgmma(const void* a, const Mats& mats, int n_mats, int B, int T,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
   if (cerr != cudaSuccess) return (int)cerr;
   const long long tiles = (long long)p.m_tiles * n_mats * p.n_tiles;
-  const int grid = (int)(tiles < num_sms() ? tiles : num_sms());
+  const int sms = tethys::sm_count();
+  const int grid = (int)(tiles < sms ? tiles : sms);
   kernel<<<grid, kWgThreads, kWgSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -623,7 +617,7 @@ int launch_stream(const void* a, const Mats& mats, int n_mats, int M, int N,
                   int K, int seq, int heads, int hd, cudaStream_t stream) {
   if (M > kStMaxM || N % kStBN || K % 64) return (int)cudaErrorInvalidValue;
   const int tiles = n_mats * (N / kStBN), m_pad = (M + 15) & ~15;
-  const int sms = num_sms();
+  const int sms = tethys::sm_count();
   // Split K over a cluster until the blocks cover the SMs (or the chunk
   // fits in shared memory), keeping whole 64-deep slices a block.
   int cs = 1;

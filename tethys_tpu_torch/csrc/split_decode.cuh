@@ -44,7 +44,7 @@ namespace split_decode {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 8;     // __launch_bounds__: at most 64 registers
-constexpr int kMaxRing = 4;         // tiles of a block in flight at once
+constexpr int kMaxRing = 4;  // tiles of a block in flight (cp_async_wait_dyn)
 constexpr int kTileBytes = 16384;   // a tile's most bytes
 constexpr int kMaxTile = 512;       // a tile's most columns
 constexpr int kMaxCluster = 8;      // the portable cluster size
@@ -364,17 +364,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 }
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-inline int sm_count() {
-  static int cached[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 64 && cached[dev]) return cached[dev];
-  int n = 0;
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  if (dev < 64) cached[dev] = n;
-  return n;
-}
 
 // How a launch splits the work: S blocks a cluster, chunk columns a rank,
 // tiles of tc columns, G row groups in the score pass, ring slots, shared
