@@ -20,14 +20,21 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    launches on the same inputs, log the thread-block cluster size each
    shape takes, and log rows at T_max 448 (idx 447 and 63, hot and cold)
    and at whisper-large-v3's B 4 x H 20, beside the timing floor (one
-   one-element add_ under the same method); split_heads is also timed at
-   a decode step [16, 1, 512], and dropout beside F.dropout;
+   one-element add_ under the same method); log_mel, framed in the
+   kernel, at 4 and 16 x 30 s with 80 mels and 4 x 30 s with 128, beside
+   the same kernel given contiguous frames, the rfft path and the bound of
+   its three TF32 passes (the f32 FFMA bound in the note); split_heads at
+   [16, 1500, 512] and [4, 1500, 512] and, at a decode step [16, 1, 512],
+   the main path's call (a view, no launch) beside split_heads_cuda; and
+   dropout beside F.dropout;
 4. serving: whisper-base in f32 (random weights from seed 0) serves 2
    requests of 30 s seeded audio on the card; the same model and inputs
    run on the CPU, where every kernel's plain version runs; greedy tokens
    and length must be identical and the encoder outputs close;
 5. serving: whisper-base in bf16 at the serving bench's shape (batch 16,
-   128 decode steps): encode ms, decode tokens/s, per-token latency;
+   128 decode steps): encode ms, decode tokens/s, per-token latency; the
+   launch counts, set to 0 around 4 decode steps after encode, must show no
+   split_heads launch (the head splits at T = 1 are views);
 6. training: whisper-base in f32 with every dropout rate 0 takes 2 Keras
    Adam steps on batches of 2 from the synthetic dataset, on the card and
    on the CPU; losses, first-step gradients and the parameters after step
@@ -51,7 +58,7 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    line, the checkpoint and the JCT file written;
 10. launch counts: set to 0 before each path (serving: phases 4-5,
    training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13,
-   flash bench: phase 14)
+   flash bench: phase 14, frontend: phase 15)
    and read after it; every kernel of a path must have launched during it;
 11. int8 long-audio serving: whisper-base in f32 with kv_quant="int8" and
    TETHYS_FUSED_QKV=1 (this phase only) transcribes 70 s of seeded audio
@@ -73,7 +80,10 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    bench_flash) at its defaults (B*H 128, keys padded to 1536, kv_len 1500,
    rate 0.1, bf16, 50 launches each way), then at B*H 16 and Tk 2560 (the
    TPU's several-KV-block backward) at rates 0.1 and 0: ms per call of the
-   forward and the backward; the backward must launch at Tk 2560.
+   forward and the backward; the backward must launch at Tk 2560;
+15. the frontend bench's twin (python -m tethys_tpu_torch.scripts.
+   bench_frontend) at its defaults (16 x 30 s, 20 calls): the fused
+   log-mel, framing included, must be faster than the rfft path.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -125,6 +135,7 @@ PATH_KERNELS = {
     "long_audio": ("log_mel", "split_heads", "flash_fwd", "decode_self",
                    "q8_cross", "proj_split", "merge_proj"),
     "flash_bench": ("flash_fwd", "flash_fwd_dropout", "flash_bwd"),
+    "frontend": ("log_mel",),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -133,7 +144,7 @@ LONG_V3_STEPS = 64
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s and FLOP/s by
 # the type of the operands.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 # The bf16 flash outputs' largest difference from the plain version, over
 # the plain version's largest magnitude: bf16 rounding on either side is at
 # most one step, 2^-7 of the largest value; a 10% scale error reads 0.1 and
@@ -233,9 +244,7 @@ def check_flash(name: str, got, want, tol: float, dtype) -> float:
 
 def check_kernels(results: dict) -> None:
     """Phase 3: every kernel against its plain version, on the card."""
-    from tethys_tpu_torch.audio import logmel
-    from tethys_tpu_torch.audio.frontend import frame_signal
-    from tethys_tpu_torch.ops import decode, flash_attention, transpose
+    from tethys_tpu_torch.ops import decode, flash_attention
     from tethys_tpu_torch.utils.device import require_cuda
 
     dev = require_cuda()
@@ -254,46 +263,8 @@ def check_kernels(results: dict) -> None:
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), library {library}")
 
-    # log-mel: 4 requests of 30 s -> 2998 frames each, 80 mels (f32 only).
-    wave = randn(4, SAMPLE_RATE * 30)
-    frames = frame_signal(wave, 400, 160).contiguous()
-    mats = logmel._device_matrices(400, 80, SAMPLE_RATE, dev)
-    got = logmel.log_mel_cuda(frames, *mats)
-    want = logmel.plain_log_mel(frames, *mats)
-    require(got.shape == (4, 2998, 80), f"log_mel shape {tuple(got.shape)}")
-    errs = [check("log_mel f32 [4, 2998, 400] -> 80", max_err(got, want),
-                  1e-3)]
-    rows, bins = frames.shape[0] * frames.shape[1], mats[0].shape[1]
-    record("log_mel", errs, event_ms(lambda: logmel.log_mel_cuda(frames, *mats)),
-           event_ms(lambda: logmel.plain_log_mel(frames, *mats)),
-           4 * (frames.numel() + sum(m.numel() for m in mats) + rows * 80),
-           2 * rows * 400 * bins * 2 + 3 * rows * bins + 2 * rows * bins * 80,
-           "f32")
-
-    # split_heads: [4, T, 8*64] for the encoder (T=1500) and a decode step.
-    errs = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for t in (1500, 1):
-            x = randn(4, t, 512, dtype=dtype)
-            got = transpose.split_heads_cuda(x, 8)
-            errs.append(check(f"split_heads {dtype} T={t}",
-                              max_err(got, transpose.plain_split_heads(x, 8)),
-                              0.0))
-    x = randn(4, 1500, 512, dtype=torch.bfloat16)
-    record("split_heads", errs,
-           event_ms(lambda: transpose.split_heads_cuda(x, 8)),
-           event_ms(lambda: transpose.plain_split_heads(x, 8)),
-           2 * x.numel() * 2, 0, "bf16",
-           event_ms(lambda: x.view(4, 1500, 8, 64).permute(0, 2, 1, 3)
-                    .contiguous()))
-    # The shape of nearly all of its launches: a decode step.
-    x1 = randn(16, 1, 512, dtype=torch.bfloat16)
-    log_row("split_heads", "bf16 decode step [16, 1, 512]",
-            event_ms(lambda: transpose.split_heads_cuda(x1, 8)),
-            bound(2 * x1.numel() * 2, 0, "bf16"),
-            event_ms(lambda: transpose.plain_split_heads(x1, 8)),
-            event_ms(lambda: x1.view(16, 1, 8, 64).permute(0, 2, 1, 3)
-                     .contiguous()))
+    check_log_mel(record, randn)
+    check_split_heads(record, randn)
 
     # flash forward: B*H = 32 at T = 1500, and keys padded to 1536 with
     # kv_len = 1500.  f32: two f32 summation orders; bf16: the kernel rounds
@@ -384,6 +355,129 @@ def check_kernels(results: dict) -> None:
         f"hot, {event_ms(lambda: one.add_(1), cold=True):.4f} ms cold")
     check_training_kernels(record, randn)
     check_int8_kernels(record, randn)
+
+
+def log_mel_work(rows: int, n_mels: int, samples: int):
+    """(bytes, multiply-adds as the kernel forms them, multiply-adds of the
+    400-tap products) of the log-mel over ``rows`` frames, 201 bins, from
+    ``samples`` audio samples.  Bytes: the waveform, the kernel's constant
+    operands and the output, each once.  The kernel folds the taps by the
+    window's symmetry (201, not 400)."""
+    from tethys_tpu_torch.audio import logmel
+
+    consts = logmel._kernel_operands(400, n_mels, SAMPLE_RATE,
+                                     torch.device("cuda", 0))
+    bytes_moved = 4 * (samples + rows * n_mels) + sum(
+        c.numel() * c.element_size() for c in consts)
+    return (bytes_moved, rows * 201 * (2 * 201 + n_mels),
+            rows * 201 * (2 * 400 + n_mels))
+
+
+def check_log_mel(record, randn) -> None:
+    """Phase 3, the log-mel kernel, framed in the kernel, at 4 and 16
+    requests of 30 s (2998 frames each) with 80 mels and at 4 with
+    whisper-large-v3's 128 mels, against plain_log_mel (exact f32 products
+    on the contiguous frames) at atol 1e-3.  Each row logs the kernel given
+    contiguous frames (the same kernel at hop = n_fft, the copy included),
+    the rfft path (audio/frontend.extract_fbank_features), the bound of
+    three TF32 passes of the products (the kernel's work) and, in the note,
+    the bound of the same products in f32 FFMA."""
+    from tethys_tpu_torch.audio import frontend, logmel
+
+    for batch, n_mels in ((4, 80), (16, 80), (4, 128)):
+        wave = randn(batch, SAMPLE_RATE * 30)
+        frames = frontend.frame_signal(wave, 400, 160).contiguous()
+        mats = logmel._device_matrices(400, n_mels, SAMPLE_RATE, wave.device)
+
+        def framed():
+            return logmel.log_mel_cuda(wave, n_mels)
+
+        def given():
+            return logmel.log_mel_cuda(frames.view(-1), n_mels,
+                                       hop_length=400)
+
+        got, got_given = framed(), given()
+        want = logmel.plain_log_mel(frames, *mats)
+        name = f"log_mel f32 [{batch}, 2998, 400] -> {n_mels}"
+        require(got.shape == (batch, 2998, n_mels), f"{name}: shape "
+                f"{tuple(got.shape)}")
+        err = check(name + " framed in the kernel", max_err(got, want), 1e-3)
+        check(name + " given frames", max_err(got_given.view_as(want), want),
+              1e-3)
+        rows = batch * 2998
+        bytes_moved, madds, madds_400 = log_mel_work(rows, n_mels,
+                                                     wave.numel())
+        ms = event_ms(framed)
+        plain_ms = event_ms(lambda: logmel.plain_log_mel(frames, *mats))
+        given_ms = event_ms(lambda: logmel.log_mel_cuda(
+            frontend.frame_signal(wave, 400, 160).contiguous().view(-1),
+            n_mels, hop_length=400))
+        rfft_ms = event_ms(lambda: frontend.extract_fbank_features(
+            wave, n_mels=n_mels))
+        tf32 = bound(bytes_moved, 3 * 2 * madds, "tf32")
+        tf32_400 = bound(bytes_moved, 3 * 2 * madds_400, "tf32")
+        ffma = bound(bytes_moved, 2 * madds_400, "f32")
+        log(f"  log_mel [{batch}, 2998] x {n_mels} mels: framed in the kernel "
+            f"{ms:.4f} ms, given frames (with the copy) {given_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, rfft path {rfft_ms:.4f} ms; bound "
+            f"{tf32[0]:.4f} ms ({tf32[1]}, 3 TF32 passes of the folded "
+            f"products) = {100 * tf32[0] / ms:.1f}% reached; note: 3 TF32 "
+            f"passes of the 400-tap products {tf32_400[0]:.4f} ms, the "
+            f"400-tap products in f32 FFMA {ffma[0]:.4f} ms")
+        if (batch, n_mels) == (4, 80):
+            record("log_mel", [err], ms, plain_ms, bytes_moved, 3 * 2 * madds,
+                   "tf32")
+        del wave, frames, got, got_given, want
+
+
+def check_split_heads(record, randn) -> None:
+    """Phase 3, split_heads: the kernel (split_heads_cuda) bit for bit
+    against the plain version in f32 and bf16 at the encoders' [4, 1500,
+    512] and [16, 1500, 512] and at a decode step [16, 1, 512]; timed at
+    [16, 1500, 512] bf16 (the serving and training encoders' shape) and
+    [4, 1500, 512]; at the decode step the main path's call
+    (transpose.split_heads, a view of x: no launch) beside the kernel."""
+    from tethys_tpu_torch.ops import transpose
+    from tethys_tpu_torch.utils import kernel_lib
+
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t in ((4, 1500), (16, 1500), (16, 1)):
+            x = randn(b, t, 512, dtype=dtype)
+            got = transpose.split_heads_cuda(x, 8)
+            errs.append(check(f"split_heads {dtype} [{b}, {t}, 512]",
+                              max_err(got, transpose.plain_split_heads(x, 8)),
+                              0.0))
+
+    def times(x):
+        b, t, _ = x.shape
+        return (event_ms(lambda: transpose.split_heads_cuda(x, 8)),
+                bound(2 * x.numel() * 2, 0, "bf16"),
+                event_ms(lambda: transpose.plain_split_heads(x, 8)),
+                event_ms(lambda: x.view(b, t, 8, 64).permute(0, 2, 1, 3)
+                         .contiguous()))
+
+    x = randn(16, 1500, 512, dtype=torch.bfloat16)
+    ms, _, plain_ms, library_ms = times(x)
+    record("split_heads", errs, ms, plain_ms, 2 * x.numel() * 2, 0, "bf16",
+           library_ms)
+    log_row("split_heads", "bf16 [4, 1500, 512]",
+            *times(randn(4, 1500, 512, dtype=torch.bfloat16)))
+    # The shape of nearly all of its calls: a decode step, where the main
+    # path's call is a view.
+    x1 = randn(16, 1, 512, dtype=torch.bfloat16)
+    before = kernel_lib.SPLIT_HEADS.launches
+    view = transpose.split_heads(x1, 8)
+    require(kernel_lib.SPLIT_HEADS.launches == before
+            and view.untyped_storage().data_ptr()
+            == x1.untyped_storage().data_ptr(),
+            "split_heads at a decode step launched or copied")
+    ms, bound_ms, plain_ms, library_ms = times(x1)
+    log_row("split_heads", "bf16 decode step [16, 1, 512], split_heads_cuda",
+            ms, bound_ms, plain_ms, library_ms)
+    log(f"  split_heads bf16 decode step [16, 1, 512], transpose.split_heads "
+        f"(the main path's call, a view): "
+        f"{event_ms(lambda: transpose.split_heads(x1, 8)):.4f} ms")
 
 
 def check_training_kernels(record, randn) -> None:
@@ -930,6 +1024,15 @@ def run_slice_bf16(gpu: str) -> dict:
                 f"tokens shape {tuple(tokens.shape)}")
         require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
                 "token ids outside the vocabulary")
+        # A few decode steps alone: their head splits are views.
+        steps = decode_step_counts(model, feats, tokens, 4)
+        log(f"  launches during 4 decode steps: {steps}")
+        require(steps["split_heads"] == 0,
+                f"split_heads launched {steps['split_heads']} times in 4 "
+                "decode steps")
+        require(steps["decode_self"] == 4 * cfg.decoder_layers,
+                f"decode_self launched {steps['decode_self']} times in 4 "
+                "decode steps")
         frontend_ms = wall_ms(
             lambda: prepare_input_features(wav, n_frames=3000), 5)
         encode_ms = wall_ms(lambda: model.encode(feats), 5)
@@ -952,6 +1055,35 @@ def run_slice_bf16(gpu: str) -> dict:
         f"{stats['per_token_ms']:.4f} ms/token")
     log("  serving " + json.dumps(stats))
     return stats
+
+
+def counts_around(fn) -> dict:
+    """The launch counts of fn() alone: set to 0 just before it and read
+    just after; then added back to the counts of the path it ran in."""
+    from tethys_tpu_torch.utils import kernel_lib
+
+    torch.cuda.synchronize()
+    saved = kernel_lib.launch_counts()
+    kernel_lib.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    counts = kernel_lib.launch_counts()
+    for k in kernel_lib.KERNELS:
+        k.launches = saved[k.name] + counts[k.name]
+    return counts
+
+
+def decode_step_counts(model, features, tokens, steps: int) -> dict:
+    """Launch counts of ``steps`` decode steps after encode and the
+    cross-KV precompute, fed the tokens of a greedy run."""
+    from tethys_tpu_torch.models.whisper import init_kv_caches
+
+    kvs = model.precompute_cross_kv(model.encode(features))
+    caches = init_kv_caches(model.config, features.shape[0],
+                            tokens.shape[1] - 1, features.device)
+    return counts_around(lambda: [
+        model.decode_step(tokens[:, i:i + 1], caches, i, kvs)
+        for i in range(steps)])
 
 
 def run_train_f32() -> None:
@@ -1489,6 +1621,20 @@ def run_flash_bench() -> None:
             + json.dumps(launches))
 
 
+def run_frontend_bench() -> None:
+    """Phase 15: the frontend bench's twin at its defaults (16 x 30 s, 20
+    calls): the fused log-mel, framing included, must beat the rfft path.
+    Its max_abs_diff (fused against rfft) is logged, not held: the kernel
+    is held to the exact f32 plain version in phase 3, and the rfft path
+    rounds in another order again."""
+    from tethys_tpu_torch.scripts import bench_frontend
+
+    result = bench_frontend.main([])
+    require(result["fused_ms"] < result["unfused_ms"],
+            f"fused log-mel {result['fused_ms']:.4f} ms is not faster than "
+            f"the rfft path {result['unfused_ms']:.4f} ms")
+
+
 def drive_path(name: str, phases) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -1558,8 +1704,10 @@ def main() -> int:
     flash_bench = drive_path("flash_bench", (
         ("[14] the flash-kernel bench's twin, bf16, Tk 1536 and 2560",
          run_flash_bench),))
+    frontend = drive_path("frontend", (
+        ("[15] the frontend bench's twin, 16 x 30 s", run_frontend_bench),))
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
-              + flash_bench[k] for k in serving}
+              + flash_bench[k] + frontend[k] for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")

@@ -83,3 +83,141 @@ def test_thirty_seconds_is_2998_frames_padded_to_3000():
     assert (feats[0, :, :2998] > np.log(1e-6) + 1).all()
     np.testing.assert_allclose(feats[0, :, 2998:].numpy(), np.log(1e-6),
                                rtol=1e-6)
+
+
+def _frames_from_framing(waveform, framing):
+    """The frames the kernel reads, rebuilt from its framing arguments."""
+    storage = torch.as_strided(waveform, (waveform.untyped_storage().nbytes()
+                                          // waveform.element_size(),), (1,), 0)
+    return torch.as_strided(
+        storage, (framing.rows, framing.frames_per_row, framing.n_fft),
+        (framing.row_stride, framing.hop, 1), framing.offset)
+
+
+@pytest.mark.parametrize("layout", ["batch", "stream_windows"])
+def test_kernel_framing_rebuilds_frame_signal(layout):
+    """The kernel's arguments (base offset, row stride, rows, frames per
+    row, n_fft, hop) address the frames frame_signal gives: for a [B, T]
+    batch, and for stream_log_mel's overlapping windows (rows W samples
+    apart in one padded signal, here a view 3 samples into its storage)."""
+    if layout == "batch":
+        wave = torch.from_numpy(_wave(4, 3, 16000))
+    else:
+        signal = torch.from_numpy(_wave(5, 3 + 2 * 4000 + 240))[3:]
+        wave = signal.unfold(0, 4000 + 240, 4000)
+        assert wave.storage_offset() == 3 and not wave.is_contiguous()
+    framing = logmel.kernel_framing(wave, 400, 160)
+    want = frontend.frame_signal(wave, 400, 160)
+    assert framing.rows * framing.frames_per_row == want.shape[0] * want.shape[1]
+    got = _frames_from_framing(wave, framing)
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+def test_kernel_framing_refuses_rows_of_two_strides():
+    """Leading dimensions that are not rows of one stride give None (the
+    wrapper then copies); so does a waveform whose samples are not adjacent."""
+    wave = torch.from_numpy(_wave(6, 4, 3, 2000))
+    assert logmel.kernel_framing(wave, 400, 160) is not None
+    assert logmel.kernel_framing(wave[:, :2], 400, 160) is None
+    assert logmel.kernel_framing(wave[..., ::2], 400, 160) is None
+    framing = logmel.kernel_framing(wave[1:3], 400, 160)
+    assert framing.offset == 3 * 2000 and framing.row_stride == 2000
+    assert framing.rows == 6
+
+
+def _tf32_truncate(x):
+    """f32 with its mantissa cut to TF32's 10 bits."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _product_3xtf32(a, b):
+    """a @ b as the kernel forms it: each operand split into TF32 hi and lo
+    (lo = the TF32 part of what hi leaves), hi hi + hi lo + lo hi, each
+    product exact and summed in f32."""
+    a_hi = _tf32_truncate(a)
+    a_lo = _tf32_truncate(a - a_hi)
+    b_hi = _tf32_truncate(b)
+    b_lo = _tf32_truncate(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _folded(frames):
+    """(x[n] + x[N - n], x[n] - x[N - n]) for n = 0 .. N / 2 (mod N), in
+    f32, as the kernel forms them."""
+    n = frames.shape[-1]
+    mirror = (n - np.arange(n // 2 + 1)) % n
+    head = frames[:, :n // 2 + 1]
+    return head + frames[:, mirror], head - frames[:, mirror]
+
+
+def test_folded_dft_is_the_dft():
+    """The kernel's folded taps (the Hann window's symmetry) give the same
+    re and im as the 400-tap products, to f32 rounding."""
+    frames = np.lib.stride_tricks.sliding_window_view(
+        _wave(8, 16000), 400)[::160].astype(np.float64)
+    cos_m, sin_m = logmel.dft_matrices(400)
+    cos_f, sin_f = logmel.folded_dft_matrices(400)
+    assert cos_f.shape == sin_f.shape == (201, 201)
+    total, diff = _folded(frames)
+    np.testing.assert_allclose(total @ cos_f, frames @ cos_m, rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(diff @ sin_f, frames @ sin_m, rtol=0,
+                               atol=1e-5)
+
+
+def test_3xtf32_log_mel_holds_the_kernel_gates(monkeypatch):
+    """The kernel's 3xTF32 numerics on its folded taps, emulated on the CPU
+    on 30 s of seeded audio: within 1e-4 of a float64 reference (so phase
+    3's 1e-3 against the exact f32 plain version holds) and within the 2e-3
+    that holds the plain version to JAX's interpret-mode fused_log_mel."""
+    wave = _wave(7, 1, 16000 * 30)
+    frames = np.lib.stride_tricks.sliding_window_view(wave[0], 400)[::160]
+    assert frames.shape == (2998, 400)
+    cos_m, sin_m = logmel.dft_matrices(400)
+    mel_m = frontend.linear_to_mel_weight_matrix(80, 201, 16000, 0.0, 8000.0)
+
+    re, im = frames @ cos_m.astype(np.float64), frames @ sin_m.astype(np.float64)
+    want64 = np.log((re * re + im * im) @ mel_m.astype(np.float64) + 1e-6)
+    cos_f, sin_f = logmel.folded_dft_matrices(400)
+    total, diff = _folded(frames)
+    re = _product_3xtf32(total, cos_f)
+    im = _product_3xtf32(diff, sin_f)
+    power = (re * re + im * im).astype(np.float32)
+    got = np.log(_product_3xtf32(power, mel_m) + np.float32(1e-6))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want64, rtol=0, atol=1e-4)
+
+    monkeypatch.setattr(pallas_logmel, "_INTERPRET", True)
+    pallas = np.asarray(pallas_logmel.fused_log_mel(jnp.asarray(wave)))[0]
+    np.testing.assert_allclose(got, pallas, rtol=2e-3, atol=2e-3)
+
+
+def test_kernel_operands_are_the_matrices_split_in_fragment_order():
+    """The kernel's constant operands: hi + lo gives back the folded Cf^T,
+    Sf^T and mel^T (to 2^-21 relative), each in mma.m16n8k8's A-fragment order, and
+    the mel tiles' step ranges hold every nonzero weight."""
+    dft, mel, steps = (x.numpy() for x in logmel._kernel_operands(
+        400, 80, 16000, torch.device("cpu")))
+    cos_m, sin_m = logmel.folded_dft_matrices(400)
+    mel_m = frontend.linear_to_mel_weight_matrix(80, 201, 16000, 0.0, 8000.0)
+
+    def unfragment(frag):  # [mt, ks, 32, 4] -> [16 mt, 8 ks]
+        mt, ks = frag.shape[:2]
+        a = frag.reshape(mt, ks, 8, 4, 2, 2)       # [mt, ks, g, t, hi4, hi8]
+        return a.transpose(0, 5, 2, 1, 4, 3).reshape(mt * 16, ks * 8)
+
+    for m, (hi, lo) in ((cos_m, (0, 1)), (sin_m, (2, 3))):
+        got = unfragment(dft[:, :, hi]) + unfragment(dft[:, :, lo])
+        assert got.shape == (208, 208)
+        np.testing.assert_allclose(got[:201, :201], m.T, rtol=2 ** -20,
+                                   atol=1e-30)
+        assert not got[201:].any() and not got[:, 201:].any()
+    got = unfragment(mel[:, :, 0]) + unfragment(mel[:, :, 1])
+    np.testing.assert_allclose(got[:80, :201], mel_m.T, rtol=2 ** -20)
+    for mt, (lo, hi) in enumerate(steps):
+        tile = got[16 * mt:16 * mt + 16]
+        assert not tile[:, :8 * lo].any() and not tile[:, 8 * hi:].any()
+    hi, lo = logmel.split_tf32(cos_m)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    assert not (lo.view(np.uint32) & 0x1FFF).any()

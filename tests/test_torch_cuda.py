@@ -82,12 +82,19 @@ def _assert_rel(got, want, name=""):
 @pytest.mark.parametrize("t,h,d", [(37, 3, 16), (1, 8, 64), (5, 4, 6),
                                    (9, 2, 5), (11, 5, 3)])
 def test_split_heads_exact(cuda, dtype, t, h, d):
-    """16-byte vectors (d*size % 16 == 0), 4-byte words, 2-byte elements."""
+    """16-byte vectors (d*size % 16 == 0), 4-byte words, 2-byte elements.
+    At T = 1 (a decode step) the split moves no bytes: a view of x, no
+    launch; split_heads_cuda, the direct launch, still copies there."""
     x = _randn(cuda, 2, t, h * d, dtype=dtype)
     before = kernel_lib.SPLIT_HEADS.launches
     got = transpose.split_heads(x, h)
-    assert kernel_lib.SPLIT_HEADS.launches == before + 1
+    view = t == 1
+    assert kernel_lib.SPLIT_HEADS.launches == before + (0 if view else 1)
+    shared = got.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+    assert shared == view
     assert torch.equal(got, transpose.plain_split_heads(x, h))
+    assert torch.equal(transpose.split_heads_cuda(x, h),
+                       transpose.plain_split_heads(x, h))
 
 
 def test_split_heads_misaligned_input(cuda):
@@ -212,15 +219,88 @@ def test_decode_self_and_q8_cross_cluster_sizes(cuda):
     assert decode.q8_cross_cluster(128, 64, 1500) > 1
 
 
+def _plain_log_mel(wave, n_mels):
+    frames = frame_signal(wave, 400, 160)
+    return logmel.plain_log_mel(frames, *logmel._device_matrices(
+        400, n_mels, 16000, wave.device))
+
+
 @pytest.mark.parametrize("n_mels,rows", [(80, 37), (128, 2998), (8, 1)])
 def test_log_mel_matches_plain(cuda, n_mels, rows):
     wave = _randn(cuda, 160 * (rows - 1) + 400, seed=9)
-    frames = frame_signal(wave, 400, 160).contiguous()
-    assert frames.shape == (rows, 400)
-    mats = logmel._device_matrices(400, n_mels, 16000, cuda)
-    got = logmel.log_mel_cuda(frames, *mats)
-    torch.testing.assert_close(got, logmel.plain_log_mel(frames, *mats),
-                               rtol=0, atol=1e-3)
+    before = kernel_lib.LOG_MEL.launches
+    got = logmel.log_mel_cuda(wave, n_mels)
+    assert kernel_lib.LOG_MEL.launches == before + 1
+    assert got.shape == (rows, n_mels)
+    torch.testing.assert_close(got, _plain_log_mel(wave, n_mels), rtol=0,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("n_mels", [8, 80, 128])
+@pytest.mark.parametrize("batch,frames", [(1, 1), (3, 37), (4, 2998),
+                                          (16, 2998), (2, 96), (1, 97)])
+def test_log_mel_framed_in_the_kernel(cuda, n_mels, batch, frames):
+    """[B, T] waveforms whose frames are not a whole number of the kernel's
+    96-frame blocks (1, 37, 97) or are (96), at 1 to 16 x 2998 frames and 8,
+    80 and 128 mels, against the plain version at phase 3's atol 1e-3; T
+    leaves 100 samples past the last frame, which no frame reads."""
+    wave = _randn(cuda, batch, 160 * (frames - 1) + 400 + 100, seed=frames)
+    got = logmel.fused_log_mel(wave, n_mels=n_mels)
+    assert got.shape == (batch, frames, n_mels)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, _plain_log_mel(wave, n_mels), rtol=0,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(200, 80), (504, 160), (400, 400),
+                                       (16, 8)])
+def test_log_mel_other_frames(cuda, n_fft, hop):
+    """Other frame lengths and hops: 101 bins (7 warps), 253 bins (16
+    warps), frames that do not overlap (the skew for hop 400 is 20), and
+    the smallest frame the kernel takes, against the plain version."""
+    wave = _randn(cuda, 2, 37 * hop + n_fft, seed=n_fft)
+    got = logmel.log_mel_cuda(wave, 40, n_fft, hop)
+    frames = frame_signal(wave, n_fft, hop)
+    want = logmel.plain_log_mel(frames, *logmel._device_matrices(
+        n_fft, 40, 16000, cuda))
+    assert got.shape == want.shape == (2, 38, 40)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_log_mel_misaligned_base(cuda, offset):
+    """A waveform view 4, 8 or 12 bytes into its storage (not 16-byte
+    aligned) takes the kernel's 4-byte copies, rows included."""
+    base = _randn(cuda, offset + 3 * 16000, seed=offset)
+    wave = base[offset:].view(3, 16000)
+    assert wave.data_ptr() % 16 != 0
+    torch.testing.assert_close(logmel.log_mel_cuda(wave), _plain_log_mel(
+        wave, 80), rtol=0, atol=1e-3)
+
+
+def test_log_mel_stream_windows_need_no_copy(cuda):
+    """stream_log_mel's overlapping windows (rows 30 s apart in one padded
+    signal, a strided view) against their .contiguous() frames through the
+    same kernel (given frames: hop = n_fft) and the plain version."""
+    signal = _randn(cuda, 3 * 480000 + 240, seed=21)
+    windows = signal.unfold(0, 480240, 480000)
+    assert not windows.is_contiguous()
+    assert logmel.kernel_framing(windows, 400, 160).row_stride == 480000
+    got = logmel.log_mel_cuda(windows)
+    assert got.shape == (3, 3000, 80)
+    frames = frame_signal(windows, 400, 160).contiguous()
+    given = logmel.log_mel_cuda(frames.reshape(-1), hop_length=400)
+    want = _plain_log_mel(windows, 80)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    torch.testing.assert_close(given.view(3, 3000, 80), want, rtol=0,
+                               atol=1e-3)
+    from tethys_tpu_torch.audio.frontend import stream_log_mel
+    audio = signal[:3 * 480000 - 5]
+    padded = torch.nn.functional.pad(audio, (0, 245))
+    torch.testing.assert_close(
+        stream_log_mel(audio),
+        _plain_log_mel(padded.unfold(0, 480240, 480000), 80), rtol=0,
+        atol=1e-3)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -242,10 +322,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         decode.decode_self_attention(q4, q4, q4, buf, buf.clone(),
                                      torch.tensor(1))
-    frames = _randn(cuda, 3, 512)
-    mats = logmel._device_matrices(512, 80, 16000, cuda)
+    wave = _randn(cuda, 3, 2000)
     with pytest.raises(ValueError, match="bins"):
-        logmel.log_mel_cuda(frames, *mats)
+        logmel.log_mel_cuda(wave, n_fft=512)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        logmel.log_mel_cuda(wave, hop_length=100)
+    with pytest.raises(ValueError, match="float32"):
+        logmel.log_mel_cuda(wave.double())
 
 
 def test_tiny_greedy_identical_on_card_and_cpu(cuda):

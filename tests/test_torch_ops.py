@@ -59,6 +59,31 @@ def test_split_heads_matches_pallas(monkeypatch, b, t, h, d):
     np.testing.assert_array_equal(transpose.merge_heads(got).numpy(), x)
 
 
+@pytest.mark.parametrize("b,t,h,d", [(16, 1, 8, 64), (2, 37, 1, 16)],
+                         ids=["T=1", "H=1"])
+def test_split_heads_decode_step_is_a_view(monkeypatch, b, t, h, d):
+    """Where [B, T, H*d] and [B, H, T, d] hold the same bytes in the same
+    order (a decode step's T = 1, or H = 1), split_heads is a view of x: it
+    shares x's storage, equals JAX's split_heads in interpret mode, and
+    launches nothing."""
+    monkeypatch.setattr(ptr, "_INTERPRET", True)
+    x = np.random.default_rng(1).standard_normal((b, t, h * d)).astype(
+        np.float32)
+    want = np.asarray(ptr.split_heads(jnp.asarray(x), h))
+    xt = _t(x)
+    kernel_lib.reset_launch_counts()
+    got = transpose.split_heads(xt, h)
+    assert transpose.split_is_a_view(xt, h)
+    assert got.untyped_storage().data_ptr() == xt.untyped_storage().data_ptr()
+    assert got.shape == (b, h, t, d) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert all(n == 0 for n in kernel_lib.launch_counts().values())
+    xg = xt.clone().requires_grad_()
+    y = transpose.split_heads(xg, h)
+    y.backward(torch.ones_like(y))
+    assert torch.equal(xg.grad, torch.ones_like(xt))
+
+
 def _qkv(rng, bh, t, d):
     q = rng.standard_normal((1, bh, t, d)).astype(np.float32) * 0.3
     k = rng.standard_normal((1, bh, t, d)).astype(np.float32) * 0.3

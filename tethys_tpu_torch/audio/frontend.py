@@ -132,8 +132,8 @@ def stream_log_mel(waveform: torch.Tensor, sample_rate: int = 16000,
     padded = torch.nn.functional.pad(
         waveform.float(), (0, n_windows * window_samples + lookahead - t))
     # Overlapping slices of the padded signal as one strided view (no
-    # index tensor); the frames are copied out of it once, in the kernel's
-    # wrapper.
+    # index tensor): rows window_samples apart, which the kernel frames
+    # in place (audio/logmel.kernel_framing), with no copy.
     windows = padded.unfold(0, window_samples + lookahead, window_samples)
     return log_mel_features(windows, sample_rate, n_mels, n_fft, hop_length)
 

@@ -3,7 +3,10 @@
 ``split_heads`` is an autograd Function: its forward launches
 csrc/split_heads.cu, its backward the merge kernel csrc/merge_heads.cu (the
 JAX ``_split_bwd``), each on a CUDA tensor; CPU tensors take the plain
-versions, so the CPU tests run the same backward formula.  ``merge_heads``
+versions, so the CPU tests run the same backward formula.  Where T == 1
+(a decode step) or H == 1, [B, T, H*d] and [B, H, T, d] hold the same
+bytes in the same order, so ``split_heads`` returns a view on every device
+and launches nothing; that is decided by the shape alone.  ``merge_heads``
 in the forward stays plain torch, as the JAX default (``MERGE_IMPL =
 "xla"``).
 """
@@ -61,7 +64,16 @@ def merge_heads_cuda(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def split_is_a_view(x: torch.Tensor, num_heads: int) -> bool:
+    """True where the split moves no bytes: T == 1 or H == 1 (and x is
+    contiguous, as every caller's projection output is)."""
+    return (x.shape[1] == 1 or num_heads == 1) and x.is_contiguous()
+
+
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    if split_is_a_view(x, num_heads):
+        b, t, d_model = x.shape
+        return x.view(b, num_heads, t, d_model // num_heads)
     if x.is_cuda:
         return split_heads_cuda(x, num_heads)
     cpu_or_raise("split_heads", x)
@@ -89,8 +101,11 @@ class SplitHeads(torch.autograd.Function):
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """[B, T, H*d] -> [B, H, T, d]: the kernel on CUDA, plain on CPU.
-    Without a gradient to record (serving) the Function is skipped."""
-    if torch.is_grad_enabled() and x.requires_grad:
+    Where the split moves no bytes it is a view, on every device (autograd
+    records the view; its backward is the inverse view).  Without a
+    gradient to record (serving) the Function is skipped."""
+    if (torch.is_grad_enabled() and x.requires_grad
+            and not split_is_a_view(x, num_heads)):
         return SplitHeads.apply(x, num_heads)
     return _split(x, num_heads)
 

@@ -69,7 +69,8 @@ class Kernel:
 
 
 LOG_MEL = Kernel(
-    "log_mel", "tethys_log_mel", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "log_mel", "tethys_log_mel",
+    (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P),
     "tethys_tpu_torch/csrc/logmel.cu",
     "tethys_tpu/audio/pallas_logmel.py:70")
 SPLIT_HEADS = Kernel(
