@@ -358,19 +358,23 @@ def check_kernels(results: dict) -> None:
 
 
 def log_mel_work(rows: int, n_mels: int, samples: int):
-    """(bytes, multiply-adds as the kernel forms them, multiply-adds of the
+    """(bytes, multiply-adds of the folded products, multiply-adds of the
     400-tap products) of the log-mel over ``rows`` frames, 201 bins, from
     ``samples`` audio samples.  Bytes: the waveform, the kernel's constant
-    operands and the output, each once.  The kernel folds the taps by the
-    window's symmetry (201, not 400)."""
+    operands and the output, each once.  Multiply-adds: one per nonzero
+    weight of the DFT matrices and of the mel filterbank a frame (the
+    filters are bands: about 2 weights a bin, not n_mels); the kernel folds
+    the taps by the window's symmetry (201, not 400)."""
     from tethys_tpu_torch.audio import logmel
 
     consts = logmel._kernel_operands(400, n_mels, SAMPLE_RATE,
                                      torch.device("cuda", 0))
     bytes_moved = 4 * (samples + rows * n_mels) + sum(
         c.numel() * c.element_size() for c in consts)
-    return (bytes_moved, rows * 201 * (2 * 201 + n_mels),
-            rows * 201 * (2 * 400 + n_mels))
+    mel = np.count_nonzero(logmel._mel_matrix(400, n_mels, SAMPLE_RATE))
+    folded = sum(map(np.count_nonzero, logmel.folded_dft_matrices(400)))
+    full = sum(map(np.count_nonzero, logmel.dft_matrices(400)))
+    return bytes_moved, rows * (folded + mel), rows * (full + mel)
 
 
 def check_log_mel(record, randn) -> None:
@@ -380,8 +384,9 @@ def check_log_mel(record, randn) -> None:
     on the contiguous frames) at atol 1e-3.  Each row logs the kernel given
     contiguous frames (the same kernel at hop = n_fft, the copy included),
     the rfft path (audio/frontend.extract_fbank_features), the bound of
-    three TF32 passes of the products (the kernel's work) and, in the note,
-    the bound of the same products in f32 FFMA."""
+    three TF32 passes of the folded products, counted by nonzero weights
+    (log_mel_work), and, in the note, the bounds of the 400-tap products in
+    3xTF32 and in f32 FFMA."""
     from tethys_tpu_torch.audio import frontend, logmel
 
     for batch, n_mels in ((4, 80), (16, 80), (4, 128)):

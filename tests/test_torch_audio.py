@@ -125,21 +125,53 @@ def test_kernel_framing_refuses_rows_of_two_strides():
     assert framing.rows == 6
 
 
-def _tf32_truncate(x):
-    """f32 with its mantissa cut to TF32's 10 bits."""
+def _tf32_bits(x, add):
     bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+    return ((bits + np.uint32(add)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def _product_3xtf32(a, b):
-    """a @ b as the kernel forms it: each operand split into TF32 hi and lo
-    (lo = the TF32 part of what hi leaves), hi hi + hi lo + lo hi, each
-    product exact and summed in f32."""
-    a_hi = _tf32_truncate(a)
-    a_lo = _tf32_truncate(a - a_hi)
-    b_hi = _tf32_truncate(b)
-    b_lo = _tf32_truncate(b - b_hi)
-    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+def _split_b(x):
+    """The kernel's split of a B operand (frames, power) in registers: hi
+    rounded to TF32 by the integer add (as logmel.split_tf32), lo = x - hi,
+    whose low 13 bits the tensor cores ignore."""
+    hi = _tf32_bits(x, 0x1000)
+    return hi, _tf32_bits(x - hi, 0)
+
+
+def _mma_tf32(b, a, c):
+    """c + b @ a for one m16n8k8 step, b [F, 8] and a [8, N] TF32 values, c
+    [F, N] f32, modelled as the tensor cores add: the products exact (two
+    11-bit significands fit f32), every addend cut toward zero to the 24-bit
+    grid of the largest, the sum cut toward zero to f32."""
+    p = b[:, None, :] * a.T[None]                          # [F, N, 8]
+    big = np.maximum(np.abs(p).max(axis=2), np.abs(c))
+    exp = (big.view(np.int32) >> 23) & 0xFF
+    inv = (np.clip(277 - exp, 1, 254) << 23).view(np.float32)  # 1 / grid
+    p *= inv[..., None]
+    np.trunc(p, out=p)
+    total = p.sum(axis=2, dtype=np.float64) + np.trunc(c * inv)
+    cut = total / inv                                      # exact, f64
+    return (cut.view(np.int64) & ~np.int64((1 << 29) - 1)).view(
+        np.float64).astype(np.float32)
+
+
+def _product_3xtf32(b, a):
+    """b @ a as the kernel forms it: a split on the host by
+    logmel.split_tf32, b by _split_b; per step of 8 taps, a_lo b_hi, a_hi
+    b_lo, a_hi b_hi through the tensor cores from a sum of 0 (_mma_tf32),
+    that sum added to the result by an f32 add."""
+    k = -(-b.shape[1] // 8) * 8
+    b = np.pad(b, ((0, 0), (0, k - b.shape[1])))
+    a = np.pad(a, ((0, k - a.shape[0]), (0, 0)))
+    a_hi, a_lo = logmel.split_tf32(a)
+    b_hi, b_lo = _split_b(b)
+    out = np.zeros((b.shape[0], a.shape[1]), np.float32)
+    for s in range(0, k, 8):
+        step = slice(s, s + 8)
+        part = _mma_tf32(b_hi[:, step], a_lo[step], np.zeros_like(out))
+        part = _mma_tf32(b_lo[:, step], a_hi[step], part)
+        out += _mma_tf32(b_hi[:, step], a_hi[step], part)
+    return out
 
 
 def _folded(frames):
@@ -167,8 +199,8 @@ def test_folded_dft_is_the_dft():
 
 
 def test_3xtf32_log_mel_holds_the_kernel_gates(monkeypatch):
-    """The kernel's 3xTF32 numerics on its folded taps, emulated on the CPU
-    on 30 s of seeded audio: within 1e-4 of a float64 reference (so phase
+    """The kernel's 3xTF32 numerics on its folded taps (_product_3xtf32),
+    emulated on the CPU on 30 s of seeded audio: within 1e-4 of a float64 reference (so phase
     3's 1e-3 against the exact f32 plain version holds) and within the 2e-3
     that holds the plain version to JAX's interpret-mode fused_log_mel."""
     wave = _wave(7, 1, 16000 * 30)

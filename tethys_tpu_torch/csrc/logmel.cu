@@ -31,7 +31,7 @@
 //   frame) pair land in the same thread's registers and the power is formed
 //   there; 201 bins take 13 warps (208 bins, 3% padding) and no bin loop.
 //   A block takes 96 or 64 frames (frame_tile: whichever wastes fewer
-//   slots of whole waves), one block an SM.
+//   slots of whole waves, 64 on a tie), one block an SM.
 // * C and S arrive split into hi and lo on the host, in fragment order
 //   ([warp][tap step][Cf hi, Cf lo, S hi, S lo][lane][4]); each thread copies
 //   its own 64 bytes of the next tap step by cp.async into a 2-stage ring in
@@ -308,17 +308,17 @@ int launch(const float* wave, const float4* dft, const float4* mel,
 }
 
 // Frames a block takes: 96 or 64, whichever leaves the fewest frame slots
-// in whole waves of one block an SM (96 on a tie, for fewer reads of the
-// DFT fragments): 4 x 2998 frames take 96 (128 blocks, one wave of 132
-// SMs), one 30 s row 64 (47 blocks).
+// in whole waves of one block an SM, and 64 on a tie (measured faster at
+// 16 x 2998, where both fill 384 slots): 4 x 2998 frames take 96 (128
+// blocks, one wave of 132 SMs), one 30 s row 64 (47 blocks).
 int frame_tile(int rows, int frames_per_row) {
   const long long sms = tethys::sm_count();
   long long best = 0;
-  int tile = 96;
+  int tile = 64;
   for (int f : {96, 64}) {
     const long long blocks = (long long)rows * ((frames_per_row + f - 1) / f);
     const long long slots = (blocks + sms - 1) / sms * f;
-    if (best == 0 || slots < best) best = slots, tile = f;
+    if (best == 0 || slots <= best) best = slots, tile = f;
   }
   return tile;
 }
