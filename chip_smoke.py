@@ -25,8 +25,14 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    the same kernel given contiguous frames, the rfft path and the bound of
    its three TF32 passes (the f32 FFMA bound in the note); split_heads at
    [16, 1500, 512] and [4, 1500, 512] and, at a decode step [16, 1, 512],
-   the main path's call (a view, no launch) beside split_heads_cuda; and
-   dropout beside F.dropout;
+   the main path's call (a view, no launch) beside split_heads_cuda;
+   dropout beside F.dropout; and Wav2Vec2's GroupNorm at its seven inputs
+   [32, T, 512] (and a 5 s clip's T = 250), f32 and bf16: the moments
+   (gn_stats), apply, grad sums and apply_bwd kernels each against its
+   plain version, the forward and the backward beside F.group_norm and
+   its autograd backward, the gn_stats launch against the occupancy it
+   reports (at most one wave), two launches bitwise equal, and the
+   moments' time by cluster size;
 4. serving: whisper-base in f32 (random weights from seed 0) serves 2
    requests of 30 s seeded audio on the card; the same model and inputs
    run on the CPU, where every kernel's plain version runs; greedy tokens
@@ -59,7 +65,9 @@ Phases, each of which raises on failure (the exit code is then nonzero):
 10. launch counts: set to 0 before each path (serving: phases 4-5,
    training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13,
    flash bench: phase 14, frontend: phase 15)
-   and read after it; every kernel of a path must have launched during it;
+   and read after it; every kernel of a path must have launched during it,
+   and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
+   as often as gn_grad_sums;
 11. int8 long-audio serving: whisper-base in f32 with kv_quant="int8" and
    TETHYS_FUSED_QKV=1 (this phase only) transcribes 70 s of seeded audio
    (3 windows in a batch of 4) on the card and on the CPU; features,
@@ -126,12 +134,15 @@ W2V_BATCH = 32          # bench.py's wav2vec2-base pretraining shape
 W2V_STEPS = 10
 W2V_SAMPLES = 32000     # 2 s clips: T = 6400, 3200, ..., 100 after the convs
 W2V_LR = 3e-5
+# wav2vec2-base's GroupNorm inputs at 2 s clips: [32, T, 512] after each conv.
+GN_T = (6400, 3200, 1600, 800, 400, 200, 100)
 # The kernels each path must launch.
 PATH_KERNELS = {
     "serving": ("log_mel", "split_heads", "flash_fwd", "decode_self"),
     "training": ("split_heads", "merge_heads", "flash_fwd",
                  "flash_fwd_dropout", "flash_bwd", "dropout"),
-    "wav2vec2": ("gn_stats", "dropout"),
+    "wav2vec2": ("gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd",
+                 "dropout"),
     "long_audio": ("log_mel", "split_heads", "flash_fwd", "decode_self",
                    "q8_cross", "proj_split", "merge_proj"),
     "flash_bench": ("flash_fwd", "flash_fwd_dropout", "flash_bwd"),
@@ -588,7 +599,7 @@ def check_training_kernels(record, randn) -> None:
                         f"flash_bwd {name} f32 {tq}x1500 rate {r} vs autograd",
                         max_err(a, leaf.grad), 1e-4))
                 del leaves, o_ref
-    check_gn_stats(record, randn)
+    check_group_norm(record, randn)
     q, k, v = qkv(1500, 1500, bf16)
     do = randn(128, 1500, 64, dtype=bf16)
     o, lse = flash_attention.flash_fwd_cuda(q, k, v, 1500, rate, seed)
@@ -918,47 +929,247 @@ def sdpa(q, k, v, rate: float = 0.0):
         q[None], k[None], v[None], dropout_p=rate, scale=1.0)[0]
 
 
-def check_gn_stats(record, randn) -> None:
-    """Phase 3, Wav2Vec2's GroupNorm statistics at every GN input of
-    wav2vec2-base at b32 on 2 s clips, [32, T, 512] for T = 6400 ... 100, and
-    a 5 s clip's ragged T = 250, in bf16 and f32, around a mean of 3 and of
-    50.  Both versions read the same x and sum in f32 in other orders:
-    mean to 1e-5 of (1 + |mean|), var to 1e-4 relative."""
-    from tethys_tpu_torch.ops import group_norm
+def check_pass(name: str, got, want, rel: float) -> float:
+    """An elementwise GroupNorm pass against its plain version from the same
+    vectors: f32 within rel of max|want|, bf16 within one unit in the last
+    place (8 bits) of the plain value rounded once.  Returns max_abs_err."""
+    err = max_err(got, want)
+    if got.dtype != torch.bfloat16:
+        return check(name, err, rel * want.float().abs().max().item())
+    _, e = torch.frexp(want.float())
+    ulps = ((got.float() - want.float()).abs()
+            / torch.ldexp(torch.ones_like(want.float()), e - 8)).max().item()
+    log(f"  {name}: {ulps:.3f} bf16 units in the last place (limit 1), "
+        f"max_abs_err {err:.3e}")
+    require(ulps <= 1.0, f"{name}: {ulps} units in the last place")
+    return err
 
-    errs = []
+
+def check_group_norm(record, randn) -> None:
+    """Phase 3, Wav2Vec2's GroupNorm at every GroupNorm input of
+    wav2vec2-base at b32 on 2 s clips, [32, T, 512] for T = 6400 ... 100
+    (GN_T), and a 5 s clip's ragged T = 250, in bf16 and f32, around a mean
+    of 3 and of 50, 16 groups.  Each of the four kernels against its plain
+    version: the moments (gn_stats; both read the same x and sum in f32 in
+    other orders: mean to 1e-5 of (1 + |mean|), var and rstd to 1e-4
+    relative); apply and apply_bwd from the same vectors as their plain
+    versions (f32 1e-5 and 1e-4 of the largest magnitude, bf16 one unit in
+    the last place); the grad sums A, B, s1, s2 and dgamma, dbeta (1e-4 of
+    each largest magnitude); the whole f32 forward and backward against
+    the plain ones (1e-5 and 1e-4 relative).  Times at mean 3: each kernel,
+    its plain version, the forward and the backward beside F.group_norm
+    and its autograd backward (the library's GroupNorm on [B, C, T], with
+    gamma and beta in x's dtype), and their bounds."""
+    from tethys_tpu_torch.ops import group_norm as gn
+
+    groups, b, c = 16, 32, 512
+    errs = {k: [] for k in ("gn_stats", "gn_grad_sums", "gn_apply",
+                            "gn_apply_bwd")}
+    totals = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for t in (6400, 3200, 1600, 800, 400, 200, 100, 250):
+        for t in GN_T + (250,):
             for mean in (3.0, 50.0):
-                x = (randn(32, t, 512) + mean).to(dtype)
-                got = group_norm.group_moments_cuda(x, 16)
-                want = group_norm.plain_group_moments(x, 16)
-                err_mean = max_err(got[0], want[0])
-                rel_var = ((got[1] - want[1]).abs() / want[1]).max().item()
-                errs += [check(f"gn_stats mean {dtype} T={t} mean {mean}",
-                               err_mean, 1e-5 * (1 + mean)),
-                         max_err(got[1], want[1])]
-                check(f"gn_stats var (relative) {dtype} T={t} mean {mean}",
-                      rel_var, 1e-4)
-                if mean != 3.0:
+                tag = f"{dtype} T={t} mean {mean}"
+                x = (randn(b, t, c) + mean).to(dtype)
+                dy = randn(b, t, c, dtype=dtype)
+                gamma, beta = randn(c), randn(c)
+                got = gn.group_moments_cuda(x, groups)
+                want = gn.plain_group_moments(x, groups)
+                errs["gn_stats"].append(check(
+                    f"gn_stats mean {tag}", max_err(got[0], want[0]),
+                    1e-5 * (1 + mean)))
+                for name, i in (("var", 1), ("rstd", 2)):
+                    check(f"gn_stats {name} (relative) {tag}",
+                          ((got[i] - want[i]).abs() / want[i]).max().item(),
+                          1e-4)
+                mu, rstd = got[0], got[2]
+                y = gn.apply_cuda(x, gamma, beta, mu, rstd, groups)
+                errs["gn_apply"].append(check_pass(
+                    f"gn_apply {tag}", y,
+                    gn.plain_apply(x, gamma, beta, mu, rstd, groups), 1e-5))
+                sums, s = gn.grad_sums_cuda(x, dy, mu, rstd, gamma, groups)
+                want_sums, want_s = gn.plain_grad_sums(x, dy, mu, rstd, gamma,
+                                                       groups)
+                for name, g, w in (
+                        ("A", sums[0], want_sums[0]),
+                        ("B", sums[1], want_sums[1]), ("s1", s[0], want_s[0]),
+                        ("s2", s[1], want_s[1]),
+                        ("dgamma", sums[0].sum(0), want_sums[0].sum(0)),
+                        ("dbeta", sums[1].sum(0), want_sums[1].sum(0))):
+                    errs["gn_grad_sums"].append(max_err(g, w))
+                    check(f"gn_grad_sums {name} (of max) {tag}",
+                          rel_err(g, w), 1e-4)
+                dx = gn.apply_bwd_cuda(x, dy, gamma, mu, rstd, s, groups)
+                errs["gn_apply_bwd"].append(check_pass(
+                    f"gn_apply_bwd {tag}", dx,
+                    gn.plain_apply_bwd(x, dy, gamma, mu, rstd, s, groups),
+                    1e-4))
+                if dtype == torch.float32:
+                    plain_s = gn.plain_grad_sums(x, dy, want[0], want[2],
+                                                 gamma, groups)[1]
+                    check(f"GroupNorm forward (of max) {tag}", rel_err(
+                        y, gn.plain_apply(x, gamma, beta, want[0], want[2],
+                                          groups)), 1e-5)
+                    check(f"GroupNorm backward dx (of max) {tag}", rel_err(
+                        dx, gn.plain_apply_bwd(x, dy, gamma, want[0], want[2],
+                                               plain_s, groups)), 1e-4)
+                if mean != 3.0 or t == 250:
                     continue
-                xv = x.view(32, t, 16, 32)
-                times = [event_ms(lambda: group_norm.group_moments_cuda(x, 16)),
-                         event_ms(lambda: group_norm.plain_group_moments(x, 16)),
-                         event_ms(lambda: torch.var_mean(xv, dim=(1, 3),
-                                                         correction=0)),
-                         bound(x.numel() * x.element_size(), 3 * x.numel(),
-                               "f32")[0]]
-                log(f"  gn_stats {dtype} [32, {t}, 512]: kernel "
-                    "{:.4f} ms, plain {:.4f} ms, torch.var_mean {:.4f} ms, "
-                    "bound {:.4f} ms".format(*times))
-    x = (randn(32, 6400, 512) + 3.0).to(torch.bfloat16)
-    xv = x.view(32, 6400, 16, 32)
-    record("gn_stats", errs,
-           event_ms(lambda: group_norm.group_moments_cuda(x, 16)),
-           event_ms(lambda: group_norm.plain_group_moments(x, 16)),
-           x.numel() * 2 + 2 * 32 * 16 * 4, 3 * x.numel(), "f32",
-           event_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0)))
+                totals[(dtype, t)] = gn_times(gn, x, dy, gamma, beta, groups)
+                for bwd in (False, True):
+                    plan, blocks, sms, fit = gn.stats_launch(
+                        x, groups, gn.pack_elems(x), bwd)
+                    grid_all, grid = blocks * sms, plan[1] * plan[2]
+                    fits = fit.get(plan[1], grid_all)
+                    log(f"  {'gn_grad_sums' if bwd else 'gn_stats'} {dtype} "
+                        f"[32, {t}, 512] launch: {plan[0]} channel tiles, "
+                        f"clusters of {plan[1]}, {plan[2]} clusters = {grid} "
+                        f"blocks; occupancy {blocks} blocks/SM x {sms} SMs = "
+                        f"{grid_all}, so {grid / grid_all:.3f} of one wave; "
+                        f"{fits} clusters of {plan[1]} fit at once")
+                    require(grid <= grid_all and plan[2] <= fits,
+                            f"gn_stats {tag}: {grid} blocks exceed one wave")
+    x = (randn(b, 6400, c) + 3.0).to(torch.bfloat16)
+    dy = randn(b, 6400, c, dtype=torch.bfloat16)
+    gamma = randn(c)
+    mu, _, rstd = gn.group_moments_cuda(x, groups)
+    check_repeatable("gn_stats bf16 [32, 6400, 512]",
+                     lambda x: gn.group_moments_cuda(x, groups), (x,))
+    check_repeatable("gn_grad_sums bf16 [32, 6400, 512]",
+                     lambda x, dy: gn.grad_sums_cuda(x, dy, mu, rstd, gamma,
+                                                     groups), (x, dy))
+    # The cluster size against the plan's, for _SYNC_ROWS (logged only).
+    for t in (6400, 800, 100):
+        xt = x[:, :t].contiguous()
+        plan, blocks, sms, fit = gn.stats_launch(xt, groups, 8, False)
+        sweep = ", ".join(
+            f"{s} {event_ms(lambda: gn.group_moments_cuda(xt, groups, plan=(4, s, min(b * 4, fit.get(s, blocks * sms))))):.4f}"
+            for s in (1, 2, 4, 8))
+        log(f"  gn_stats bf16 [32, {t}, 512] by cluster size (4 tiles): "
+            f"{sweep} ms; the plan takes {plan}")
+    for dtype in (torch.bfloat16, torch.float32):
+        rows = [totals[(dtype, t)] for t in GN_T]
+        summed = {k: sum(r[k] for r in rows) for k in rows[0]}
+        log(f"  GroupNorm {dtype} over the {len(GN_T)} shapes: gn_stats "
+            f"{summed['stats']:.4f} ms (bound {summed['stats_bound']:.4f}, "
+            f"{summed['stats_bound'] / summed['stats']:.1%}); forward "
+            f"{summed['fwd']:.4f} ms (bound {summed['fwd_bound']:.4f}, "
+            f"{summed['fwd_bound'] / summed['fwd']:.1%}; plain "
+            f"{summed['fwd_plain']:.4f}, F.group_norm {summed['fwd_lib']:.4f});"
+            f" backward {summed['bwd']:.4f} ms (bound "
+            f"{summed['bwd_bound']:.4f}, "
+            f"{summed['bwd_bound'] / summed['bwd']:.1%}; plain "
+            f"{summed['bwd_plain']:.4f}, F.group_norm backward "
+            f"{summed['bwd_lib']:.4f})")
+    top = totals[(torch.bfloat16, 6400)]
+    n = x.numel()
+    record("gn_stats", errs["gn_stats"], top["stats"], top["stats_plain"],
+           *gn_work(n, 2, b, c, groups)["stats"], top["stats_lib"])
+    record("gn_grad_sums", errs["gn_grad_sums"], top["sums"],
+           top["sums_plain"], *gn_work(n, 2, b, c, groups)["sums"])
+    record("gn_apply", errs["gn_apply"], top["apply"], top["apply_plain"],
+           *gn_work(n, 2, b, c, groups)["apply"], top["fwd_lib"])
+    record("gn_apply_bwd", errs["gn_apply_bwd"], top["apply_bwd"],
+           top["apply_bwd_plain"], *gn_work(n, 2, b, c, groups)["apply_bwd"],
+           top["bwd_lib"])
+
+
+def gn_work(n: int, elem: int, b: int, c: int, groups: int) -> dict:
+    """(bytes, flops, "f32") of each GroupNorm kernel on n elements of
+    elem bytes: each input read once, each output written once (x, dy, y,
+    dx; the f32 [B, G], [B, C] and [C] vectors), and its f32 operations."""
+    bg, f = b * groups * 4, 4
+    return {
+        "stats": (n * elem + 3 * bg, 3 * n, "f32"),
+        "sums": (2 * n * elem + 4 * bg + 2 * b * c * f + c * f + 2 * bg,
+                 5 * n, "f32"),
+        "apply": (2 * n * elem + 2 * c * f + 2 * bg, 4 * n, "f32"),
+        "apply_bwd": (3 * n * elem + c * f + 4 * bg, 8 * n, "f32"),
+    }
+
+
+def gn_times(gn, x, dy, gamma, beta, groups: int) -> dict:
+    """Phase 3: one GroupNorm shape's times (module doc of check_group_norm)
+    and bounds, logged; the forward and backward bounds are the sums of
+    their two kernels' (the function alone, one read of its inputs and one
+    write, is logged beside them)."""
+    b, t, c = x.shape
+    mu, _, rstd = gn.group_moments_cuda(x, groups)
+    s = gn.grad_sums_cuda(x, dy, mu, rstd, gamma, groups)[1]
+    pm, _, pr = gn.plain_group_moments(x, groups)
+    ps = gn.plain_grad_sums(x, dy, pm, pr, gamma, groups)[1]
+    xv = x.view(b, t, groups, c // groups)
+    leaves = [x.transpose(1, 2).detach().requires_grad_(),
+              gamma.to(x.dtype).requires_grad_(),
+              beta.to(x.dtype).requires_grad_()]
+    y_lib = F.group_norm(*leaves[:1], groups, *leaves[1:], 1e-5)
+    dy_lib = dy.transpose(1, 2)
+
+    def fwd():
+        m, _, r = gn.group_moments_cuda(x, groups)
+        return gn.apply_cuda(x, gamma, beta, m, r, groups)
+
+    def fwd_plain():
+        m, _, r = gn.plain_group_moments(x, groups)
+        return gn.plain_apply(x, gamma, beta, m, r, groups)
+
+    def bwd():
+        sums, s = gn.grad_sums_cuda(x, dy, mu, rstd, gamma, groups)
+        return gn.apply_bwd_cuda(x, dy, gamma, mu, rstd, s, groups), sums.sum(1)
+
+    def bwd_plain():
+        sums, s = gn.plain_grad_sums(x, dy, pm, pr, gamma, groups)
+        return gn.plain_apply_bwd(x, dy, gamma, pm, pr, s, groups), sums.sum(1)
+
+    ms = {
+        "stats": event_ms(lambda: gn.group_moments_cuda(x, groups)),
+        "stats_plain": event_ms(lambda: gn.plain_group_moments(x, groups)),
+        "stats_lib": event_ms(lambda: torch.var_mean(xv, dim=(1, 3),
+                                                     correction=0)),
+        "apply": event_ms(lambda: gn.apply_cuda(x, gamma, beta, mu, rstd,
+                                                groups)),
+        "apply_plain": event_ms(lambda: gn.plain_apply(x, gamma, beta, mu,
+                                                       rstd, groups)),
+        "fwd": event_ms(fwd), "fwd_plain": event_ms(fwd_plain),
+        "fwd_lib": event_ms(lambda: F.group_norm(leaves[0], groups,
+                                                 leaves[1], leaves[2], 1e-5)),
+        "sums": event_ms(lambda: gn.grad_sums_cuda(x, dy, mu, rstd, gamma,
+                                                   groups)),
+        "sums_plain": event_ms(lambda: gn.plain_grad_sums(x, dy, pm, pr,
+                                                          gamma, groups)),
+        "apply_bwd": event_ms(lambda: gn.apply_bwd_cuda(x, dy, gamma, mu,
+                                                        rstd, s, groups)),
+        "apply_bwd_plain": event_ms(lambda: gn.plain_apply_bwd(
+            x, dy, gamma, pm, pr, ps, groups)),
+        "bwd": event_ms(bwd), "bwd_plain": event_ms(bwd_plain),
+        "bwd_lib": event_ms(lambda: torch.autograd.grad(
+            y_lib, leaves, dy_lib, retain_graph=True)),
+    }
+    work = gn_work(x.numel(), x.element_size(), b, c, groups)
+    bounds = {k: bound(*w) for k, w in work.items()}
+    ms["stats_bound"] = bounds["stats"][0]
+    ms["fwd_bound"] = bounds["stats"][0] + bounds["apply"][0]
+    ms["bwd_bound"] = bounds["sums"][0] + bounds["apply_bwd"][0]
+    one = x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+    shape = f"{x.dtype} [{b}, {t}, {c}]"
+    log_row("gn_stats", shape, ms["stats"], bounds["stats"],
+            ms["stats_plain"], ms["stats_lib"])
+    log_row("gn_apply", shape, ms["apply"], bounds["apply"],
+            ms["apply_plain"])
+    log_row("gn_grad_sums", shape, ms["sums"], bounds["sums"],
+            ms["sums_plain"])
+    log_row("gn_apply_bwd", shape, ms["apply_bwd"], bounds["apply_bwd"],
+            ms["apply_bwd_plain"])
+    log_row("GroupNorm forward (gn_stats + gn_apply)", shape, ms["fwd"],
+            (ms["fwd_bound"], "bytes"), ms["fwd_plain"], ms["fwd_lib"])
+    log_row("GroupNorm backward (gn_grad_sums + gn_apply_bwd)", shape,
+            ms["bwd"], (ms["bwd_bound"], "bytes"), ms["bwd_plain"],
+            ms["bwd_lib"])
+    log(f"  GroupNorm {shape}: the function's own bounds (inputs read once, "
+        f"outputs written once) forward {2 * one:.4f} ms, backward "
+        f"{3 * one:.4f} ms")
+    del y_lib, leaves
+    return ms
 
 
 def seeded_audio(batch: int, seed: int) -> np.ndarray:
@@ -1699,6 +1910,16 @@ def main() -> int:
     w2v = drive_path("wav2vec2", (
         ("[8] wav2vec2-base f32 pretraining, card against cpu", run_w2v_f32),
         ("[9] wav2vec2-base bf16 pretraining job", run_w2v_bf16, gpu)))
+    # Every GroupNorm forward took the moments and apply kernels, every
+    # backward the grad sums and apply_bwd kernels: CUDA tensors have no
+    # plain path, and the counts pair up.
+    log(f"  GroupNorm launches on the wav2vec2 path: forward "
+        f"{w2v['gn_stats']} gn_stats, {w2v['gn_apply']} gn_apply; backward "
+        f"{w2v['gn_grad_sums']} gn_grad_sums, {w2v['gn_apply_bwd']} "
+        "gn_apply_bwd")
+    require(w2v["gn_stats"] == w2v["gn_apply"]
+            and w2v["gn_grad_sums"] == w2v["gn_apply_bwd"] > 0,
+            "a GroupNorm pass of the wav2vec2 path missed its kernel")
     long_audio = drive_path("long_audio", (
         ("[11] whisper-base f32 int8 long-audio serving, card against cpu",
          run_long_audio_f32),

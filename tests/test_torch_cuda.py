@@ -7,8 +7,9 @@ dims 16-128, ragged sequence edges (Tq 1500 against keys padded to 1536,
 Tk 2560), misaligned flash inputs, misaligned and odd-width head splits
 and merges, dropout on odd lengths and misaligned views, the flash
 backward with and without dropout, caches that need more than 48 KB of
-shared memory, the GroupNorm statistics at ragged T and C and far-off
-means, the int8 cross-attention at odd Tk and kv_len, the fused
+shared memory, the GroupNorm statistics, apply and backward passes at
+ragged T and C, far-off means, misaligned views and every cluster size,
+the int8 cross-attention at odd Tk and kv_len, the fused
 projections at ragged tiles on each of their routes (wgmma, weight
 streaming, mma.sync, FFMA) and the boundaries between them, with their
 gradients, the wrappers' refusals,
@@ -544,37 +545,141 @@ def test_tiny_training_steps_card_against_cpu(cuda):
                                    atol=2 * lr * steps)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,c,groups,mean", [
+# GroupNorm shapes: wav2vec2-base's widths at small B, ragged T and C (C
+# not a multiple of a 16-byte word takes the element-wise form), one row,
+# one channel a group, and means far from zero (50, where E[x^2] - mu^2
+# would lose digits).
+GN_SHAPES = [
     (2, 100, 512, 16, 3.0), (3, 37, 100, 4, 50.0), (1, 1, 16, 16, 0.0),
     (4, 250, 512, 16, -7.0), (2, 6400, 512, 16, 50.0), (5, 17, 130, 2, 1.0),
-])
+]
+
+
+def _gn_inputs(dev, b, t, c, groups, mean, dtype, misaligned=False):
+    """x (a view one element into its storage when misaligned, so no
+    16-byte path), gamma, beta, dy."""
+    n = b * t * c
+    flat = (_randn(dev, n + 1, seed=12) + mean).to(dtype)
+    x = (flat[1:] if misaligned else flat[:n]).view(b, t, c)
+    dy = _randn(dev, n + 1, seed=13).to(dtype)
+    dy = (dy[1:] if misaligned else dy[:n]).view(b, t, c)
+    return (x, _randn(dev, c, seed=14), _randn(dev, c, seed=15), dy)
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in units of the last place of bf16 at want (8 bits)."""
+    _, e = torch.frexp(want.float())
+    return ((got.float() - want.float()).abs()
+            / torch.ldexp(torch.ones_like(want.float()), e - 8)).max().item()
+
+
+def _assert_pass(got, want, rel):
+    """An elementwise pass against its plain version from the same vectors:
+    f32 within rel of the largest magnitude (the operations are rounded in
+    the same places, so it reads 0), bf16 within one unit in the last
+    place of the plain value rounded once."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.bfloat16:
+        assert _bf16_ulps(got, want) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=rel * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,groups,mean", GN_SHAPES)
 def test_gn_stats_matches_plain(cuda, dtype, b, t, c, groups, mean):
-    """Ragged last chunk, C not a multiple of the 128-thread tile, one row,
-    means far from zero (50, where E[x^2] - mu^2 would lose digits).  Both
-    read the same dtype-rounded x and sum in f32 in other orders: mean to
-    1e-5 of (1 + |mean|), var to 1e-4 relative."""
-    x = (_randn(cuda, b, t, c, seed=12) + mean).to(dtype)
+    """The moments kernel (one launch) against its plain version.  Both read
+    the same dtype-rounded x and sum in f32 in other orders: mean to 1e-5
+    of (1 + |mean|), var and rstd to 1e-4 relative."""
+    x = _gn_inputs(cuda, b, t, c, groups, mean, dtype)[0]
     before = kernel_lib.GN_STATS.launches
-    got_mean, got_var = group_norm.group_moments(x, groups)
+    got = group_norm.group_moments(x, groups)
     assert kernel_lib.GN_STATS.launches == before + 1
-    want_mean, want_var = group_norm.plain_group_moments(x, groups)
-    assert got_mean.shape == got_var.shape == (b, groups)
-    torch.testing.assert_close(got_mean, want_mean, rtol=0,
+    want = group_norm.plain_group_moments(x, groups)
+    assert all(g.shape == (b, groups) for g in got)
+    torch.testing.assert_close(got[0], want[0], rtol=0,
                                atol=1e-5 * (1 + abs(mean)))
-    torch.testing.assert_close(got_var, want_var, rtol=1e-4, atol=1e-7)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-7)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,groups,mean", GN_SHAPES)
+def test_gn_apply_and_backward_match_plain(cuda, dtype, b, t, c, groups,
+                                           mean, misaligned):
+    """Each pass against its plain version from the same vectors, aligned
+    and one element off (the element-wise form): the moments; apply (f32
+    1e-5 of max|y|, bf16 one unit in the last place); the grad sums (A, B,
+    s1, s2 and dgamma, dbeta to 1e-4 of each largest magnitude: f32 sums
+    in other orders); apply_bwd (f32 1e-4 of max|dx|, bf16 one unit)."""
+    x, gamma, beta, dy = _gn_inputs(cuda, b, t, c, groups, mean, dtype,
+                                    misaligned)
+    vec = 16 // x.element_size()
+    assert (group_norm.pack_elems(x, dy) == 1) == (misaligned or c % vec != 0)
+    mean_g, var_g, rstd_g = group_norm.group_moments(x, groups)
+    want = group_norm.plain_group_moments(x, groups)
+    torch.testing.assert_close(mean_g, want[0], rtol=0,
+                               atol=1e-5 * (1 + abs(mean)))
+    _assert_pass(group_norm.apply(x, gamma, beta, mean_g, rstd_g, groups),
+                 group_norm.plain_apply(x, gamma, beta, mean_g, rstd_g,
+                                        groups), 1e-5)
+    sums, s = group_norm.grad_sums(x, dy, mean_g, rstd_g, gamma, groups)
+    want_sums, want_s = group_norm.plain_grad_sums(x, dy, mean_g, rstd_g,
+                                                   gamma, groups)
+    for got_v, want_v in ((sums, want_sums), (s, want_s),
+                          (sums.sum(dim=1), want_sums.sum(dim=1))):
+        for g, w in zip(got_v, want_v):
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=1e-4 * w.abs().max().item())
+    _assert_pass(group_norm.apply_bwd(x, dy, gamma, mean_g, rstd_g, s, groups),
+                 group_norm.plain_apply_bwd(x, dy, gamma, mean_g, rstd_g, s,
+                                            groups), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [6400, 250, 100])
+def test_gn_stats_plans_agree_and_repeat(cuda, dtype, t):
+    """Every cluster size (1, 2, 4, 8 blocks splitting T, partials met in
+    DSMEM in rank order) gives what the plain version gives, within the
+    tolerances above; two launches of one plan give the same bits."""
+    b, c, groups = 4, 512, 16
+    x, gamma, _, dy = _gn_inputs(cuda, b, t, c, groups, 50.0, dtype)
+    want = group_norm.plain_group_moments(x, groups)
+    for cluster in (1, 2, 4, 8):
+        plan = (4, cluster, b * 4)
+        got = group_norm.group_moments_cuda(x, groups, plan=plan)
+        again = group_norm.group_moments_cuda(x, groups, plan=plan)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5 * 51)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-7)
+        sums, s = group_norm.grad_sums_cuda(x, dy, got[0], got[2], gamma,
+                                            groups, plan=plan)
+        sums2, s2 = group_norm.grad_sums_cuda(x, dy, got[0], got[2], gamma,
+                                              groups, plan=plan)
+        assert torch.equal(sums, sums2) and torch.equal(s, s2)
+        want_sums, want_s = group_norm.plain_grad_sums(x, dy, got[0], got[2],
+                                                       gamma, groups)
+        for g, w in zip((*sums, *s), (*want_sums, *want_s)):
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=1e-4 * w.abs().max().item())
 
 
 def test_group_norm_on_card_matches_cpu(cuda):
-    """The GroupNorm Function's forward (gn_stats) and closed-form backward
-    on the card against the CPU, f32, 1e-5."""
+    """The GroupNorm Function on the card (gn_stats, gn_apply; gn_grad_sums,
+    gn_apply_bwd: one launch each, no plain GroupNorm) against the CPU,
+    f32: y to 1e-5, dx to 1e-4, dgamma and dbeta to 1e-4."""
     gn = norms.ReferenceGroupNorm(64, 16).to(cuda)
     with torch.no_grad():
         gn.gamma.copy_(_randn(cuda, 64, seed=13))
         gn.beta.copy_(_randn(cuda, 64, seed=14))
     x = (_randn(cuda, 3, 90, 64, seed=15) + 5.0).requires_grad_()
     dy = _randn(cuda, 3, 90, 64, seed=16)
+    kernel_lib.reset_launch_counts()
     gn(x).backward(dy)
+    assert {k: v for k, v in kernel_lib.launch_counts().items() if v} == {
+        "gn_stats": 1, "gn_grad_sums": 1, "gn_apply": 1, "gn_apply_bwd": 1}
     cpu = norms.ReferenceGroupNorm(64, 16)
     cpu.load_state_dict({k: v.cpu() for k, v in gn.state_dict().items()})
     xc = x.detach().cpu().requires_grad_()
@@ -597,13 +702,23 @@ def test_gn_stats_refuses_what_it_does_not_take(cuda):
         group_norm.group_moments(x.half(), 4)
     with pytest.raises(ValueError, match="groups"):
         group_norm.group_moments(x, 5)
+    mean, _, rstd = group_norm.group_moments(x, 4)
+    ones = torch.ones(32, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        group_norm.grad_sums(x, x.bfloat16(), mean, rstd, ones, 4)
+    with pytest.raises(ValueError, match="dtype"):
+        group_norm.apply(x, ones, ones, mean, rstd, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="f32"):
+        group_norm.apply(x, ones.double(), ones, mean, rstd, 4)
+    with pytest.raises(ValueError, match="dtype"):
+        norms.ReferenceGroupNorm(32, 4, dtype=torch.bfloat16).to(cuda)(x)
 
 
 def test_tiny_wav2vec2_steps_card_against_cpu(cuda):
     """Three hardened f32 steps of a tiny Wav2Vec2 pretraining model with
     dropout on (the same seeds and negatives on both devices, so the same
-    masks): every loss to 1e-4 relative, and gn_stats and dropout
-    launched."""
+    masks): every loss to 1e-4 relative, and the four GroupNorm kernels
+    (one launch each per GroupNorm a step) and dropout launched."""
     cfg = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
                intermediate_size=128, conv_dim=(32, 32, 32),
                conv_stride=(5, 2, 2), conv_kernel=(10, 3, 2),
@@ -632,7 +747,9 @@ def test_tiny_wav2vec2_steps_card_against_cpu(cuda):
         runs.append(losses)
         if dev.type == "cuda":
             counts = kernel_lib.launch_counts()
-    assert counts["gn_stats"] == 3 * 3 and counts["dropout"] > 0
+    for name in ("gn_stats", "gn_apply", "gn_grad_sums", "gn_apply_bwd"):
+        assert counts[name] == 3 * 3, name
+    assert counts["dropout"] > 0
     torch.testing.assert_close(torch.tensor(runs[0]), torch.tensor(runs[1]),
                                rtol=1e-4, atol=0)
 

@@ -115,6 +115,34 @@ def test_plain_flash_matches_pallas(monkeypatch, t, kv_len):
         rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("side", ["port", "pallas"])
+@pytest.mark.parametrize("t,kv_len", [(128, 128), (200, 200), (200, 150)])
+def test_flash_sides_match_float64(monkeypatch, side, t, kv_len):
+    """Each side of test_plain_flash_matches_pallas alone against a float64
+    softmax(q k^T) v on test_plain_flash_matches_pallas's inputs: o and lse
+    within 2e-6 (each reads about 3e-7 from it), so a drift past that
+    test's 2e-5 names the side it came from."""
+    monkeypatch.setattr(pa, "_INTERPRET", True)
+    q, k, v = _qkv(np.random.default_rng(1), 2, t, 64)
+    if side == "port":
+        o, lse = (x.numpy() for x in flash_attention.flash_attention_fwd(
+            _t(q[0]), _t(k[0]), _t(v[0]), kv_len))
+    else:
+        o, lse = pa._fwd4(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jnp.zeros((1,), jnp.int32), dropout_rate=0.0,
+                          kv_len=kv_len)
+        o, lse = np.asarray(o)[0], np.asarray(lse)[0, :, 0]
+    s64 = np.einsum("bqd,bkd->bqk", q[0].astype(np.float64),
+                    k[0].astype(np.float64))
+    s64[..., kv_len:] = -np.inf
+    m = s64.max(-1, keepdims=True)
+    p = np.exp(s64 - m)
+    np.testing.assert_allclose(o, p @ v[0].astype(np.float64)
+                               / p.sum(-1, keepdims=True), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(lse, (m + np.log(p.sum(-1, keepdims=True)))[
+        ..., 0], rtol=0, atol=2e-6)
+
+
 def test_flash_dropout_not_ported():
     """Dropout in flash attention is ported (this test once pinned the
     refusal of a nonzero rate).  At rate 0.1 it drops the probabilities
@@ -214,7 +242,7 @@ def test_group_moments_match_pallas(monkeypatch, b, t, c, groups, mean):
     monkeypatch.setattr(pallas_gn, "_INTERPRET", True)
     x = (mean + np.random.default_rng(5).standard_normal((b, t, c))).astype(
         np.float32)
-    got_mean, got_var = group_norm.group_moments(_t(x), groups)
+    got_mean, got_var, got_rstd = group_norm.group_moments(_t(x), groups)
     want = pallas_gn.group_moments(jnp.asarray(x), groups)
     if want is None:
         assert pallas_gn.stats_chunk(t) == 0
@@ -226,20 +254,27 @@ def test_group_moments_match_pallas(monkeypatch, b, t, c, groups, mean):
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got_var.numpy(), np.asarray(want[1]),
                                rtol=1e-4, atol=0)
-    assert got_mean.dtype == got_var.dtype == torch.float32
+    assert got_mean.dtype == got_var.dtype == got_rstd.dtype == torch.float32
+    np.testing.assert_allclose(got_rstd.numpy(),
+                               1 / np.sqrt(np.asarray(want[1]) + 1e-5),
+                               rtol=1e-4, atol=0)
     bf = group_norm.group_moments(_t(x).bfloat16(), groups)
     ref = group_norm.plain_group_moments(_t(x).bfloat16().float(), groups)
     assert all(torch.equal(a, r) for a, r in zip(bf, ref))
 
 
 def test_group_moments_chunking_fills_the_card():
-    """The kernel's chunk: a multiple of 16 rows, and at wav2vec2-base b32
-    (T 6400 ... 100) enough blocks for a wave of 132 SMs where T allows."""
+    """The moments kernel's launch (stats_plan) at wav2vec2-base b32 (T
+    6400 ... 100 and a 5 s clip's 250, bf16): at most one wave of 4 blocks
+    on each of 132 SMs, every item resident at once and a block on every
+    SM where the items allow; a cluster splits T only where an item has
+    rows to spare."""
     for t in (6400, 3200, 1600, 800, 400, 200, 100, 250, 1):
-        chunk = group_norm.stats_chunk(32, t, 512)
-        assert chunk % 16 == 0 and chunk >= 16
-        blocks = 32 * 4 * -(-t // chunk)
-        assert blocks >= min(132 * 16, 32 * 4 * -(-t // 16)) // 2
+        n_ctile, cluster, n_clusters = group_norm.stats_plan(
+            32, t, 512, 16, 8, 2, 4, 132)
+        grid = cluster * n_clusters
+        assert grid <= 4 * 132 and 16 % n_ctile == 0 and cluster <= t
+        assert n_clusters == 32 * n_ctile and grid >= min(132, 32 * n_ctile)
 
 
 def test_split_heads_gradient_is_a_merge():
@@ -436,7 +471,8 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     assert [k.name for k in kernel_lib.KERNELS] == [
         "log_mel", "split_heads", "merge_heads", "flash_fwd",
         "flash_fwd_dropout", "flash_bwd", "dropout", "decode_self",
-        "gn_stats", "q8_cross", "proj_split", "merge_proj"]
+        "gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd", "q8_cross",
+        "proj_split", "merge_proj"]
     for k in kernel_lib.KERNELS:
         assert (PKG.parent / k.source).is_file()
         assert (PKG.parent / k.replaces.split(":")[0]).is_file()

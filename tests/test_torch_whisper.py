@@ -157,5 +157,5 @@ def test_cpu_slice_launches_no_kernel(tiny, monkeypatch):
     assert kernel_lib.launch_counts() == {
         "log_mel": 0, "split_heads": 0, "merge_heads": 0, "flash_fwd": 0,
         "flash_fwd_dropout": 0, "flash_bwd": 0, "dropout": 0,
-        "decode_self": 0, "gn_stats": 0, "q8_cross": 0, "proj_split": 0,
-        "merge_proj": 0}
+        "decode_self": 0, "gn_stats": 0, "gn_grad_sums": 0, "gn_apply": 0,
+        "gn_apply_bwd": 0, "q8_cross": 0, "proj_split": 0, "merge_proj": 0}

@@ -192,6 +192,72 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
+// kVec consecutive elements of T as raw bits: one 16-byte word where kVec
+// elements fill 16 bytes (8 bf16 or 4 f32), else kVec scalars.  load_pack
+// reads them (the 16-byte form needs a 16-byte aligned address), unpack
+// widens them to f32, store_pack rounds kVec floats to T (nearest even) and
+// writes them.
+template <typename T, int kVec>
+struct Pack {
+  T v[kVec];
+};
+template <>
+struct Pack<float, 4> {
+  uint4 u;
+};
+template <>
+struct Pack<__nv_bfloat16, 8> {
+  uint4 u;
+};
+
+template <typename T, int kVec>
+__device__ __forceinline__ Pack<T, kVec> load_pack(const T* p) {
+  Pack<T, kVec> r;
+  if constexpr (kVec * sizeof(T) == 16) {
+    r.u = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) r.v[i] = p[i];
+  }
+  return r;
+}
+
+template <typename T, int kVec>
+__device__ __forceinline__ void unpack(const Pack<T, kVec>& r, float* f) {
+  if constexpr (kVec * sizeof(T) != 16) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) f[i] = to_f32<T>(r.v[i]);
+  } else if constexpr (sizeof(T) == 4) {
+    f[0] = __uint_as_float(r.u.x);
+    f[1] = __uint_as_float(r.u.y);
+    f[2] = __uint_as_float(r.u.z);
+    f[3] = __uint_as_float(r.u.w);
+  } else {
+    const uint32_t w[4] = {r.u.x, r.u.y, r.u.z, r.u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+template <typename T, int kVec>
+__device__ __forceinline__ void store_pack(T* p, const float* f) {
+  if constexpr (kVec * sizeof(T) != 16) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) p[i] = from_f32<T>(f[i]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                   __float_as_uint(f[2]), __float_as_uint(f[3]));
+  } else {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                   pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+  }
+}
+
 // The current device's number of SMs (host side; read once per device).
 inline int sm_count() {
   static int cached[64] = {};

@@ -6,14 +6,18 @@ the input's dtype; torch's kernel keeps the statistics in f32.
 ``ReferenceGroupNorm``: Wav2Vec2's GroupNorm with the reference's two
 choices (num_conv_pos_embedding_groups groups; moments over time and the
 channels of a group jointly), as an autograd Function holding the JAX
-custom VJP (norms.py:42-120):
-- forward: ``group_moments`` (the gn_stats kernel on the card), then
-  ``gamma * (x - mu) * r + beta`` in f32, r = rsqrt(var + eps);
-- backward, the closed form in plain torch (the JAX backward is no Pallas
-  kernel either), with S the (T, C/G) set of a (batch, group):
+custom VJP (norms.py:42-120), built from ops/group_norm.py's four entry
+points (kernels on the card, plain versions on the CPU):
+- forward: ``group_moments`` (mean, var, rstd = rsqrt(var + eps)), then
+  ``apply``, y = gamma * ((x - mu) * rstd) + beta in f32, rounded once to
+  the module's dtype;
+- backward, the closed form, with S the (T, C/G) set of a (batch, group):
       dx = r * (dy g - mean_S(dy g) - xhat * mean_S(dy g xhat))
-      dgamma = sum_{b,t} dy xhat,  dbeta = sum_{b,t} dy.
-The module returns the compute dtype (norms.py:157).
+      dgamma = sum_{b,t} dy xhat,  dbeta = sum_{b,t} dy,
+  as ``grad_sums`` (the per-channel sums and the two group means) and
+  ``apply_bwd``.
+The kernels take x and dy of one dtype, so on the card the module's dtype
+must be x's.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tethys_tpu_torch.ops.group_norm import group_moments
+from tethys_tpu_torch.ops import group_norm
 
 
 class LayerNorm(nn.LayerNorm):
@@ -35,27 +39,14 @@ class LayerNorm(nn.LayerNorm):
                             self.eps)
 
 
-def _spread(v: torch.Tensor, pg: int) -> torch.Tensor:
-    """[B, G] -> [B, 1, C]."""
-    return v.repeat_interleave(pg, dim=-1)[:, None, :]
-
-
-def _fold(per_channel: torch.Tensor, groups: int) -> torch.Tensor:
-    """[B, C] -> [B, G] sums."""
-    b, c = per_channel.shape
-    return per_channel.view(b, groups, c // groups).sum(dim=-1)
-
-
 class GroupNormFunction(torch.autograd.Function):
-    """y = gamma * (x - mu_g) * rsqrt(var_g + eps) + beta, f32 out."""
+    """y = gamma * (x - mu_g) * rsqrt(var_g + eps) + beta, in ``dtype``."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, groups: int, eps: float):
-        pg = x.shape[-1] // groups
-        mean_g, var_g = group_moments(x, groups)
-        rstd_g = torch.rsqrt(var_g + eps)
-        xhat = (x.float() - _spread(mean_g, pg)) * _spread(rstd_g, pg)
-        y = gamma * xhat + beta
+    def forward(ctx, x, gamma, beta, groups: int, eps: float,
+                dtype: torch.dtype):
+        mean_g, _, rstd_g = group_norm.group_moments(x, groups, eps)
+        y = group_norm.apply(x, gamma, beta, mean_g, rstd_g, groups, dtype)
         ctx.save_for_backward(x, mean_g, rstd_g, gamma)
         ctx.groups = groups
         return y
@@ -64,18 +55,11 @@ class GroupNormFunction(torch.autograd.Function):
     def backward(ctx, dy):
         x, mean_g, rstd_g, gamma = ctx.saved_tensors
         groups = ctx.groups
-        _, t, c = x.shape
-        pg = c // groups
-        n = t * pg
-        r = _spread(rstd_g, pg)
-        dyf = dy.float()
-        xhat = (x.float() - _spread(mean_g, pg)) * r
-        a = (dyf * xhat).sum(dim=1)              # [B, C]
-        s = dyf.sum(dim=1)                       # [B, C]
-        s1 = _spread(_fold(s * gamma, groups) / n, pg)
-        s2 = _spread(_fold(a * gamma, groups) / n, pg)
-        dx = r * (dyf * gamma - s1 - xhat * s2)
-        return dx.to(x.dtype), a.sum(dim=0), s.sum(dim=0), None, None
+        dy = dy.contiguous()
+        sums, s = group_norm.grad_sums(x, dy, mean_g, rstd_g, gamma, groups)
+        dx = group_norm.apply_bwd(x, dy, gamma, mean_g, rstd_g, s, groups)
+        dgamma, dbeta = sums.sum(dim=1)
+        return dx, dgamma, dbeta, None, None, None
 
 
 class ReferenceGroupNorm(nn.Module):
@@ -95,6 +79,6 @@ class ReferenceGroupNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = GroupNormFunction.apply(x.contiguous(), self.gamma, self.beta,
-                                    self.groups, float(self.eps))
-        return y.to(self.dtype)
+        return GroupNormFunction.apply(x.contiguous(), self.gamma, self.beta,
+                                       self.groups, float(self.eps),
+                                       self.dtype)

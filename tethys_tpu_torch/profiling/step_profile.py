@@ -16,7 +16,7 @@ config's dropout), runs warm-up steps, then:
 - traces the same number of steps with ``torch.profiler`` (CPU and CUDA)
   and adds up the device time of every kernel, by the category of the
   operation that launched it: the kernel's own name for the port's kernels,
-  else the nearest enclosing operation (conv, GroupNorm apply, attention,
+  else the nearest enclosing operation (conv, GroupNorm, attention,
   dense GEMMs, LayerNorm, GELU, the optimizer and its clips).  It also
   counts the kernel launches a step makes.
 
@@ -37,7 +37,10 @@ import torch
 # (category, substrings of a kernel's or an enclosing operation's name),
 # tried from the innermost operation outwards.
 KERNEL_CATEGORIES = (
-    ("gn_stats kernel", ("gn_partials_kernel", "gn_combine_kernel")),
+    ("gn_stats kernel (moments)", ("gn_moments_kernel",)),
+    ("gn_grad_sums kernel", ("gn_grad_sums_kernel",)),
+    ("gn_apply kernel", ("gn_apply_kernel",)),
+    ("gn_apply_bwd kernel", ("gn_apply_bwd_kernel",)),
     ("dropout kernel", ("dropout_kernel",)),
     ("flash_bwd kernel", ("flash_bwd_",)),
     ("flash_fwd kernel", ("flash_fwd_",)),
@@ -45,7 +48,7 @@ KERNEL_CATEGORIES = (
 )
 OP_CATEGORIES = (
     ("optimizer + clips", ("Optimizer.step", "_foreach_")),
-    ("GroupNorm apply (plain torch)", ("GroupNormFunction",)),
+    ("GroupNorm (torch around its kernels)", ("GroupNormFunction",)),
     ("conv (cuDNN)", ("convolution",)),
     ("cross-entropy loss", ("log_softmax", "LogSoftmax", "nll_loss",
                             "NllLoss")),

@@ -114,9 +114,26 @@ DECODE_SELF = Kernel(
 
 GN_STATS = Kernel(
     "gn_stats", "tethys_gn_stats",
-    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "tethys_tpu_torch/csrc/gn_stats.cu",
     "tethys_tpu/ops/pallas_gn.py:50")
+# The same engine's backward mode, and the apply passes around it: XLA on
+# the TPU (no Pallas kernel), so "replaces" names the JAX function.
+GN_GRAD_SUMS = Kernel(
+    "gn_grad_sums", "tethys_gn_grad_sums",
+    (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "tethys_tpu_torch/csrc/gn_stats.cu",
+    "tethys_tpu/ops/norms.py:108 _gn_core (bwd_rule's joint stats pass)")
+GN_APPLY = Kernel(
+    "gn_apply", "tethys_gn_apply",
+    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "tethys_tpu_torch/csrc/gn_apply.cu",
+    "tethys_tpu/ops/norms.py:68 _gn_core (forward apply)")
+GN_APPLY_BWD = Kernel(
+    "gn_apply_bwd", "tethys_gn_apply_bwd",
+    (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "tethys_tpu_torch/csrc/gn_apply.cu",
+    "tethys_tpu/ops/norms.py:116 _gn_core (bwd_rule's dx)")
 
 Q8_CROSS = Kernel(
     "q8_cross", "tethys_q8_cross",
@@ -136,15 +153,18 @@ MERGE_PROJ = Kernel(
     "tethys_tpu/ops/pallas_qkv.py:236")
 
 # Functions of the library that launch nothing: the cluster size the two
-# decode-step attention kernels take for given sizes.
+# decode-step attention kernels take for given sizes, and the GroupNorm
+# kernels' occupancy (ops/group_norm.py).
 _QUERIES = {
     "tethys_q8_cross_cluster": (_I, _I, _I),
     "tethys_decode_self_cluster": (_I, _I, _I, _I),
+    "tethys_gn_stats_occupancy": (_I, _I, _I, _I, _P),
+    "tethys_gn_apply_occupancy": (_I, _I, _I, _P),
 }
 
 KERNELS = (LOG_MEL, SPLIT_HEADS, MERGE_HEADS, FLASH_FWD, FLASH_FWD_DROPOUT,
-           FLASH_BWD, DROPOUT, DECODE_SELF, GN_STATS, Q8_CROSS, PROJ_SPLIT,
-           MERGE_PROJ)
+           FLASH_BWD, DROPOUT, DECODE_SELF, GN_STATS, GN_GRAD_SUMS, GN_APPLY,
+           GN_APPLY_BWD, Q8_CROSS, PROJ_SPLIT, MERGE_PROJ)
 
 
 def launch_counts() -> dict:
