@@ -20,7 +20,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    launches on the same inputs, log the thread-block cluster size each
    shape takes, and log rows at T_max 448 (idx 447 and 63, hot and cold)
    and at whisper-large-v3's B 4 x H 20, beside the timing floor (one
-   one-element add_ under the same method); log_mel, framed in the
+   one-element add_ under the same method) and SDPA over the first idx + 1
+   cached keys; log_mel, framed in the
    kernel, at 4 and 16 x 30 s with 80 mels and 4 x 30 s with 128, beside
    the same kernel given contiguous frames, the rfft path and the bound of
    its three TF32 passes (the f32 FFMA bound in the note); split_heads at
@@ -64,7 +65,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    line, the checkpoint and the JCT file written;
 10. launch counts: set to 0 before each path (serving: phases 4-5,
    training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13,
-   flash bench: phase 14, frontend: phase 15)
+   flash bench: phase 14, frontend: phase 15, training bench: phase 16,
+   resume: phase 17)
    and read after it; every kernel of a path must have launched during it,
    and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
    as often as gn_grad_sums;
@@ -91,7 +93,20 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    forward and the backward; the backward must launch at Tk 2560;
 15. the frontend bench's twin (python -m tethys_tpu_torch.scripts.
    bench_frontend) at its defaults (16 x 30 s, 20 calls): the fused
-   log-mel, framing included, must be faster than the rfft path.
+   log-mel, framing included, must be faster than the rfft path;
+16. the training bench's twin (python -m tethys_tpu_torch.scripts.bench)
+   at its defaults: wav2vec2-base b32, b64, whisper-base b16 last, bf16,
+   3 warm-up and 20 timed steps: ms/step, audio-s/s, FLOPs per step (the
+   flop counter plus the kernels' analytic products) and mfu, which must
+   lie in (0, 1];
+17. (a) phase 6's step under the flop counter on the card and on the CPU:
+   the card's total less the CPU's count is one recompute product of the
+   flash backward per flash site (0.1%), and TETHYS_FUSED_QKV=1 leaves the
+   card's total unchanged; (b) 2 steps, save, restore_like into a fresh
+   job and 2 more equal 4 straight steps within phase 6's tolerances
+   (dropout on); (c) the wav2vec2_dist CLI run twice, the second time with
+   --resume and --jax_profile, prints ``Resumed from checkpoint
+   model_epoch_1`` and writes a trace that holds the card's kernels.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -147,6 +162,12 @@ PATH_KERNELS = {
                    "q8_cross", "proj_split", "merge_proj"),
     "flash_bench": ("flash_fwd", "flash_fwd_dropout", "flash_bwd"),
     "frontend": ("log_mel",),
+    "train_bench": ("split_heads", "merge_heads", "flash_fwd_dropout",
+                    "flash_bwd", "dropout", "gn_stats", "gn_grad_sums",
+                    "gn_apply", "gn_apply_bwd"),
+    "resume": ("split_heads", "merge_heads", "flash_fwd", "flash_fwd_dropout",
+               "flash_bwd", "dropout", "proj_split", "merge_proj",
+               "gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -343,7 +364,8 @@ def check_kernels(results: dict) -> None:
            event_ms(lambda: decode.decode_self_cuda(q, kn, vn, kb, vb, 127)),
            event_ms(lambda: decode.plain_decode_self_attention(
                q, kn, vn, kb, vb, 127)),
-           *self_bound(127))
+           *self_bound(127),
+           library_ms=event_ms(lambda: decode_sdpa(q, kb, vb, 127)))
     log_row("decode_self", "bf16 [16, 8, 64, 128] idx 127, cold",
             event_ms(lambda: decode.decode_self_cuda(q, kn, vn, kb, vb, 127),
                      cold=True), bound(*self_bound(127)))
@@ -356,7 +378,8 @@ def check_kernels(results: dict) -> None:
         plain_ms = event_ms(lambda: decode.plain_decode_self_attention(
             q, kn, vn, kb, vb, idx))
         log_row("decode_self", shape + ", hot", event_ms(fn),
-                bound(*self_bound(idx)), plain_ms)
+                bound(*self_bound(idx)), plain_ms,
+                event_ms(lambda: decode_sdpa(q, kb, vb, idx)))
         log_row("decode_self", shape + ", cold", event_ms(fn, cold=True),
                 bound(*self_bound(idx)))
     # What the method reads for next to no work: the floor under the
@@ -927,6 +950,15 @@ def sdpa(q, k, v, rate: float = 0.0):
     Timed only; the port never calls it."""
     return torch.nn.functional.scaled_dot_product_attention(
         q[None], k[None], v[None], dropout_p=rate, scale=1.0)[0]
+
+
+def decode_sdpa(q, kb, vb, idx: int):
+    """The library yardstick of decode_self: scaled_dot_product_attention
+    of the pre-scaled query [B, H, 1, D] over the first idx + 1 columns of
+    the [B, H, D, T_max] caches (views, no copy).  Timed only."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, kb[..., :idx + 1].transpose(-1, -2),
+        vb[..., :idx + 1].transpose(-1, -2), scale=1.0)
 
 
 def check_pass(name: str, got, want, rel: float) -> float:
@@ -1851,6 +1883,177 @@ def run_frontend_bench() -> None:
             f"the rfft path {result['unfused_ms']:.4f} ms")
 
 
+def run_train_bench(gpu: str) -> list:
+    """Phase 16: the training bench's twin at its defaults: wav2vec2-base
+    b32, the b64 row, whisper-base b16 last, bf16, 3 warm-up and 20 timed
+    steps each; every row's audio-s/s finite and positive, 0 < mfu <= 1."""
+    from tethys_tpu_torch.scripts import bench
+
+    rows = bench.main([])
+    require([r["metric"] for r in rows] == [
+        "wav2vec2_base_audio_sec_per_sec_per_chip",
+        "wav2vec2_base_audio_sec_per_sec_per_chip_b64_sweet_spot",
+        "whisper_base_audio_sec_per_sec_per_chip"],
+        f"bench rows {[r['metric'] for r in rows]}")
+    for row in rows:
+        require(np.isfinite(row["value"]) and row["value"] > 0
+                and row["mfu"] is not None and 0 < row["mfu"] <= 1,
+                f"bench row {row}")
+        log(f"  train_bench {row['metric']}: "
+            f"{row['step_time_s'] * 1e3:.2f} ms/step, {row['value']} "
+            f"audio-s/s, {row['flops_per_step']:.6e} FLOPs/step, mfu "
+            f"{row['mfu']} (counted only {row['mfu_counted_only']}) on {gpu}")
+        log("  train_bench " + json.dumps(row))
+    return rows
+
+
+NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
+RESUME_STEPS = 4
+
+
+def whisper_f32_job(device, **overrides):
+    """Phase 6's whisper-base f32 b2 training job on ``device``."""
+    from tethys_tpu_torch.train import jobs
+
+    return jobs.make_whisper_job(MODEL, TRAIN_F32_BATCH, 1e-4, "float32",
+                                 seed=SEED, config_overrides=overrides,
+                                 device=device)
+
+
+def run_flops_card_vs_cpu() -> None:
+    """Phase 17(a): phase 6's step (rates 0) under the flop counter on the
+    card and on the CPU.  The card's total (what the counter sees plus the
+    flash kernels' analytic products) less the CPU's count (where the plain
+    attention runs as bmm) is one [Tq, D] x [D, Tk] product per flash site,
+    the flash backward's recompute of S; with TETHYS_FUSED_QKV=1 the card's
+    total is the same."""
+    from tethys_tpu_torch.parallel import dp
+    from tethys_tpu_torch.profiling import flops
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    def count(device, fused=False):
+        with fused_qkv(fused):
+            job = whisper_f32_job(device, **NO_DROPOUT)
+            batch = job.prepare_batch(next(iter(job.dataset)))
+            result = flops.step_flops(job.step_fn, job.state, batch,
+                                      dp.step_generator(SEED, 0))
+        log(f"  {device} fused={fused}: counted {result.counted:.6e}, "
+            f"custom {result.custom:.6e}, total {result.total:.6e}, loss "
+            f"{result.loss.item():.6f}")
+        return result, job.config, batch[1].shape[1]
+
+    card, cfg, labels = count(require_cuda())
+    fused, _, _ = count(require_cuda(), fused=True)
+    cpu, _, _ = count(torch.device("cpu"))
+    require(cpu.custom == 0.0, f"the CPU counted {cpu.custom} analytically")
+    b, h = TRAIN_F32_BATCH, cfg.encoder_attention_heads
+    d, t = cfg.d_model // h, 1500
+    recompute = 2.0 * b * h * d * t * (cfg.encoder_layers * t
+                                       + cfg.decoder_layers * labels)
+    diff = card.total - cpu.counted
+    log(f"  card total - cpu counted = {diff:.6e}; one recompute product "
+        f"per flash site {recompute:.6e} ({cfg.encoder_layers} encoder "
+        f"sites 1500 x 1500, {cfg.decoder_layers} cross sites {labels} x "
+        f"1500, D {d}, B*H {b * h})")
+    check("FLOPs: card - cpu against one recompute product per flash site "
+          "(relative)", abs(diff - recompute) / recompute, 1e-3)
+    log(f"  fused projections: counted {card.counted - fused.counted:.6e} "
+        f"fewer, custom {fused.custom - card.custom:.6e} more")
+    require(fused.total == card.total,
+            f"TETHYS_FUSED_QKV=1 changed the card's total: {fused.total} "
+            f"against {card.total}")
+
+
+def run_resume_equals_straight() -> None:
+    """Phase 17(b): phase 6's step with the config's dropout on the card: 4
+    straight steps against 2 steps, save, restore_like into a freshly built
+    job and 2 more steps with the generators of steps 2-3; phase 6's
+    tolerances (losses 1e-4 relative; parameters 2 * lr * steps: flash_bwd
+    adds dq by atomics, so the two runs are not bitwise)."""
+    from tethys_tpu_torch.checkpoint import CheckpointManager
+    from tethys_tpu_torch.parallel import dp
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+
+    def steps(job, batches, first):
+        state, losses = job.state, []
+        for i, batch in enumerate(batches):
+            state, loss = job.step_fn(state, job.prepare_batch(batch),
+                                      dp.step_generator(SEED, first + i))
+            losses.append(loss.item())
+        return state, losses
+
+    straight = whisper_f32_job(dev)
+    batches = [b for b, _ in zip(straight.dataset, range(RESUME_STEPS))]
+    want, want_losses = steps(straight, batches, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        mgr = CheckpointManager(ws)
+        half = RESUME_STEPS // 2
+        first, _ = steps(whisper_f32_job(dev), batches[:half], 0)
+        mgr.save(f"whisper_{MODEL}_step_{half}", first)
+        require(mgr.latest_tag(prefix=f"whisper_{MODEL}_")
+                == f"whisper_{MODEL}_step_{half}", "latest_tag")
+        fresh = whisper_f32_job(dev)
+        resumed = mgr.restore_like(f"whisper_{MODEL}_step_{half}",
+                                   fresh.state)
+        got, got_losses = steps(fresh._replace(state=resumed),
+                                batches[half:], half)
+    log(f"  losses straight {want_losses}, resumed {got_losses}")
+    check("resume: losses of steps 2-3 against straight (relative)",
+          max(abs(a - b) / abs(b)
+              for a, b in zip(got_losses, want_losses[half:])), 1e-4)
+    got_params = dict(got.model.named_parameters())
+    check("resume: parameters after step 4 against straight",
+          max(max_err(p, got_params[n])
+              for n, p in want.model.named_parameters()),
+          2 * 1e-4 * RESUME_STEPS)
+    counts = {s["step"] for s in got.optimizer.state.values()}
+    require(counts == {RESUME_STEPS}, f"Adam's counts after resume {counts}")
+    for s in got.optimizer.state.values():
+        require(s["m"].is_cuda and s["m"].dtype == s["v"].dtype
+                == torch.float32, "restored Adam moments not f32 on the card")
+
+
+def run_resume_cli() -> None:
+    """Phase 17(c): the wav2vec2_dist CLI twice at --num_batches 2
+    --batch_size 2 in a fresh workspace, the second time with --resume (and
+    --jax_profile, whose trace must hold the card's kernels): it prints
+    ``Resumed from checkpoint model_epoch_1``."""
+    from tethys_tpu_torch.jobs import wav2vec2_dist
+
+    tee = Tee(sys.stdout)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        os.environ["TETHYS_WORKSPACE"] = ws
+        os.environ["TETHYS_RESULT"] = ws
+        with open(os.path.join(ws, "model.txt"), "w") as fh:
+            fh.write("chip_smoke")
+        os.makedirs(os.path.join(ws, "chip_smoke"))
+        trace_dir = os.path.join(ws, "trace")
+        argv = ["--num_batches", "2", "--batch_size", "2"]
+        wav2vec2_dist.main(argv)
+        sys.stdout = tee
+        try:
+            wav2vec2_dist.main(argv + ["--resume", "--jax_profile",
+                                       trace_dir])
+        finally:
+            sys.stdout = tee.out
+        out = "".join(tee.text).splitlines()
+        require("Resumed from checkpoint model_epoch_1" in out,
+                "the resumed CLI did not print 'Resumed from checkpoint "
+                "model_epoch_1'")
+        require("Error at step" not in "".join(tee.text),
+                "the resumed run caught a failing step")
+        traces = os.listdir(trace_dir)
+        require(len(traces) == 1, f"trace files {traces}")
+        with open(os.path.join(trace_dir, traces[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        log(f"  --jax_profile trace: {len(events)} events, {len(kernels)} "
+            "CUDA kernels")
+        require(kernels, "the profiler trace holds no CUDA kernel")
+
+
 def drive_path(name: str, phases) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -1932,8 +2135,18 @@ def main() -> int:
          run_flash_bench),))
     frontend = drive_path("frontend", (
         ("[15] the frontend bench's twin, 16 x 30 s", run_frontend_bench),))
+    train_bench = drive_path("train_bench", (
+        ("[16] the training bench's twin at its defaults", run_train_bench,
+         gpu),))
+    resume = drive_path("resume", (
+        ("[17a] FLOPs of phase 6's step, card against cpu",
+         run_flops_card_vs_cpu),
+        ("[17b] resume equals uninterrupted, whisper-base f32 b2",
+         run_resume_equals_straight),
+        ("[17c] the wav2vec2_dist CLI with --resume", run_resume_cli)))
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
-              + flash_bench[k] + frontend[k] for k in serving}
+              + flash_bench[k] + frontend[k] + train_bench[k] + resume[k]
+              for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")

@@ -330,10 +330,8 @@ def test_step_profile_categories_and_card_only(monkeypatch):
     (["--pp", "2"], "queue 1 item 7"), (["--remat"], "queue 1 item 7"),
     (["--remat_layers"], "queue 1 item 7"),
     (["--grad_accum", "2"], "queue 1 item 7"),
-    (["--resume"], "queue 1 item 4"),
     (["--master_dtype", "bfloat16"], "queue 1 item 7"),
     (["--microbatches", "4"], "queue 1 item 7"),
-    (["--jax_profile", "/tmp/x"], "queue 1 item 6"),
 ])
 def test_cli_refuses_unported_flags(capsys, argv, where):
     with pytest.raises(SystemExit) as exc:

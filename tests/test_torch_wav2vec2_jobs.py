@@ -7,8 +7,10 @@ the JAX model's own parameters, f32, dropout off where the two are
 compared, injected negatives; a trajectory at 1e-4 relative per step.
 """
 
+import contextlib
 import os
 import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -24,8 +26,14 @@ from tethys_tpu.parallel.mesh import make_data_mesh
 from tethys_tpu_torch import data
 from tethys_tpu_torch.checkpoint import CheckpointManager
 from tethys_tpu_torch.convert import params_from_flax
-from tethys_tpu_torch.jobs import wav2vec2_dist, wav2vec2_single, whisper_single
+from tethys_tpu_torch.jobs import (
+    wav2vec2_dist,
+    wav2vec2_single,
+    whisper_dist,
+    whisper_single,
+)
 from tethys_tpu_torch.jobs.stable import wav2vec2_dist as stable_dist
+from tethys_tpu_torch.jobs.stable import whisper_dist as stable_whisper_dist
 from tethys_tpu_torch.models import wav2vec2 as w2v
 from tethys_tpu_torch.models.whisper import create_whisper_model
 from tethys_tpu_torch.parallel import dp
@@ -298,13 +306,6 @@ def test_job_clis_on_the_cpu(tiny_jobs, tmp_path, monkeypatch, capsys, cli,
     (wav2vec2_dist, ["--sp", "2"], "queue 1 item 7"),
     (wav2vec2_dist, ["--remat"], "queue 1 item 7"),
     (wav2vec2_dist, ["--grad_accum", "2"], "queue 1 item 7"),
-    (wav2vec2_dist, ["--resume"], "queue 1 item 4"),
-    (wav2vec2_single, ["--resume"], "queue 1 item 4"),
-    (whisper_single, ["--resume"], "queue 1 item 4"),
-    (wav2vec2_dist, ["--jax_profile", "/tmp/x"], "queue 1 item 6"),
-    (wav2vec2_single, ["--jax_profile", "/tmp/x"], "queue 1 item 6"),
-    (whisper_single, ["--jax_profile", "/tmp/x"], "queue 1 item 6"),
-    (stable_dist, ["--jax_profile", "/tmp/x"], "queue 1 item 6"),
 ])
 def test_clis_refuse_unported_flags(capsys, cli, argv, where):
     with pytest.raises(SystemExit) as exc:
@@ -312,6 +313,48 @@ def test_clis_refuse_unported_flags(capsys, cli, argv, where):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and where in err
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flag", ["resume", "jax_profile"])
+@pytest.mark.parametrize("cli", [
+    whisper_dist, stable_whisper_dist, wav2vec2_dist, wav2vec2_single,
+    whisper_single, stable_dist])
+def test_clis_forward_resume_and_the_trace_flag(monkeypatch, tmp_path, cli,
+                                                flag):
+    """Every job CLI takes --resume and --jax_profile DIR (both were
+    refused before they were ported): --resume reaches its train_* call as
+    resume=True, and --jax_profile wraps that call in the profiler trace
+    of DIR."""
+    trace_dir = str(tmp_path / "trace")
+    seen = {}
+    module = sys.modules[cli.main.__module__]
+
+    @contextlib.contextmanager
+    def tracing(log_dir):
+        seen["trace"] = log_dir
+        seen["inside"] = True
+        yield
+        seen["inside"] = False
+
+    def train(**kwargs):
+        seen.update(kwargs, called_inside=seen.get("inside", False))
+        raise _Stop
+
+    monkeypatch.setattr(module, "maybe_profiler_trace", tracing)
+    name = "train_whisper" if module is whisper_dist else "train_wav2vec2"
+    monkeypatch.setattr(jobs, name, train)
+    argv = ["--resume"] if flag == "resume" else ["--jax_profile", trace_dir]
+    with pytest.raises(_Stop):
+        cli.main(argv + ["--device", "cpu"])
+    if flag == "resume":
+        assert seen["resume"] is True and seen["trace"] is None
+    else:
+        assert seen["resume"] is False and seen["trace"] == trace_dir
+        assert seen["called_inside"]
 
 
 def test_cli_defaults_match_the_jax_jobs():

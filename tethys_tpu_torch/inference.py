@@ -1,4 +1,7 @@
-"""Transcription (tethys_tpu/inference.py ``transcribe_audio``).
+"""Transcription and text preprocessing (tethys_tpu/inference.py).
+
+``preprocess_text`` tokenizes and wraps the tokens in BOS/EOS (reference
+speech_jobs/whisper_dist.py:770-780).  Transcription:
 
 waveform -> log-mel features (audio/frontend.py) -> greedy decode
 (models/whisper.py) on the model's device.  ``transcribe_batch`` serves a
@@ -19,6 +22,13 @@ from tethys_tpu_torch.audio.frontend import (
     prepare_streaming_features,
 )
 from tethys_tpu_torch.models.whisper import greedy_generate
+
+
+def preprocess_text(text: str, tokenizer) -> list:
+    """Tokenize and add BOS/EOS (tokenizer: any object with encode and
+    bos_token_id/eos_token_id, e.g. a transformers tokenizer)."""
+    tokens = tokenizer.encode(text)
+    return [tokenizer.bos_token_id] + list(tokens) + [tokenizer.eos_token_id]
 
 
 def _model_device(model) -> torch.device:

@@ -1,10 +1,12 @@
 """Flags shared by the job CLIs (jobs/_common.py).
 
 The reference's ``--num_batches`` and ``--batch_size``, the JAX jobs'
-``--dtype``, and ``--device`` (cuda: the kernels on one GPU; cpu: the plain
-versions, for small runs).  The JAX jobs' parallel and capacity flags are
-accepted so that they can be refused, each with an error that names where
-it waits in ROADMAP.md; none is ignored.
+``--dtype``, ``--resume`` (restore the job's newest checkpoint) and
+``--jax_profile DIR`` (a profiler trace of the run, utils/tracing.py), and
+``--device`` (cuda: the kernels on one GPU; cpu: the plain versions, for
+small runs).  The JAX jobs' parallel and capacity flags are accepted so
+that they can be refused, each with an error that names where it waits in
+ROADMAP.md; none is ignored.
 """
 
 from __future__ import annotations
@@ -25,25 +27,18 @@ REFUSED = {
                      "queue 1 item 7 (per-layer remat)"),
     "grad_accum": (dict(type=int, default=1), 1,
                    "queue 1 item 7 (gradient accumulation)"),
-    "resume": (dict(action="store_true"), False,
-               "queue 1 item 4 (checkpoint restore)"),
     "master_dtype": (dict(type=str, default="float32",
                           choices=["float32", "bfloat16"]), "float32",
                      "queue 1 item 7 (bf16 master weights)"),
     "microbatches": (dict(type=int, default=2), 2,
                      "queue 1 item 7 (pipeline microbatches)"),
-    "jax_profile": (dict(type=str, default=None, metavar="DIR"), None,
-                    "queue 1 item 6 (profiler trace)"),
 }
-# Every JAX job takes --jax_profile (its jobs/_common.py).
-EVERY_JOB = ("jax_profile",)
 
 
 def add_common_flags(parser: argparse.ArgumentParser,
                      num_batches_default: int, batch_size_default: int,
                      refused=()) -> None:
-    """The shared flags, and the JAX job's unported flags: ``EVERY_JOB``
-    and those in ``refused``."""
+    """The shared flags, and the JAX job's unported flags in ``refused``."""
     parser.add_argument(
         "--num_batches", type=int, default=num_batches_default,
         help=f"num_batches per replica, default is set {num_batches_default}")
@@ -57,7 +52,12 @@ def add_common_flags(parser: argparse.ArgumentParser,
                         choices=["cuda", "cpu"],
                         help="cuda: the kernels on one GPU; cpu: the plain "
                              "versions")
-    for flag in dict.fromkeys(EVERY_JOB + tuple(refused)):
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint (extension)")
+    parser.add_argument(
+        "--jax_profile", type=str, default=None, metavar="DIR",
+        help="write a torch.profiler trace of the training run to DIR")
+    for flag in refused:
         parser.add_argument(f"--{flag}", **REFUSED[flag][0])
 
 

@@ -5,7 +5,8 @@
 
 The reference stable_jobs/wav2vec2_dist.py: the base model with the real
 CTC loss on its ASR head (``real_ctc=True``; the pretraining head it trains
-does not use it), the JCT contract of the distributed jobs.
+does not use it), the JCT contract of the distributed jobs; ``--resume``
+and ``--jax_profile DIR`` as in the other jobs.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import argparse
 import time
 
 from tethys_tpu_torch.jobs._common import add_common_flags, job_device, parse
+from tethys_tpu_torch.utils.tracing import maybe_profiler_trace
 
 MODEL_SIZE = "base"
 
@@ -39,15 +41,17 @@ def main(argv=None) -> None:
     artifacts.start_side_captures()
 
     start = time.time()
-    result, _model, _config = jobs.train_wav2vec2(
-        model_type="pretraining",
-        model_size=MODEL_SIZE,
-        batch_size_per_replica=args.batch_size,
-        num_batches=args.num_batches,
-        compute_dtype=args.dtype,
-        real_ctc=True,
-        device=device,
-    )
+    with maybe_profiler_trace(args.jax_profile):
+        result, _model, _config = jobs.train_wav2vec2(
+            model_type="pretraining",
+            model_size=MODEL_SIZE,
+            batch_size_per_replica=args.batch_size,
+            num_batches=args.num_batches,
+            compute_dtype=args.dtype,
+            real_ctc=True,
+            device=device,
+            resume=args.resume,
+        )
     jct = time.time() - start
     jobs.finalize_job(result, "wav2vec2_base_model", jct)
 

@@ -5,9 +5,10 @@
 
 The reference CLI: the hardened step (NaN scrub, 1/N loss scaling, double
 clipping), the 50-step and per-epoch checkpoints, the JCT contract.
-``--device cpu`` runs the plain versions (small runs); ``--tp``, ``--sp``,
-``--remat``, ``--grad_accum`` above 1 and ``--resume`` are refused with
-their ROADMAP.md item (jobs/_common.py).
+``--resume`` restores the newest ``model_*`` checkpoint, ``--jax_profile
+DIR`` writes a profiler trace, ``--device cpu`` runs the plain versions
+(small runs); ``--tp``, ``--sp``, ``--remat`` and ``--grad_accum`` above 1
+are refused with their ROADMAP.md item (jobs/_common.py).
 """
 
 from __future__ import annotations
@@ -16,13 +17,14 @@ import argparse
 import time
 
 from tethys_tpu_torch.jobs._common import add_common_flags, job_device, parse
+from tethys_tpu_torch.utils.tracing import maybe_profiler_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="wav2vec2 Distributed Speech Recognition")
     add_common_flags(parser, num_batches_default=5, batch_size_default=1,
-                     refused=("resume", "tp", "sp", "remat", "grad_accum"))
+                     refused=("tp", "sp", "remat", "grad_accum"))
     parser.add_argument(
         "--model_size", type=str, default="small",
         choices=["tiny", "small", "base"],
@@ -46,14 +48,16 @@ def main(argv=None) -> None:
     artifacts.start_side_captures()
 
     start = time.time()
-    result, _model, _config = jobs.train_wav2vec2(
-        model_type="pretraining",
-        model_size=args.model_size,
-        batch_size_per_replica=args.batch_size,
-        num_batches=args.num_batches,
-        compute_dtype=args.dtype,
-        device=device,
-    )
+    with maybe_profiler_trace(args.jax_profile):
+        result, _model, _config = jobs.train_wav2vec2(
+            model_type="pretraining",
+            model_size=args.model_size,
+            batch_size_per_replica=args.batch_size,
+            num_batches=args.num_batches,
+            compute_dtype=args.dtype,
+            device=device,
+            resume=args.resume,
+        )
     jct = time.time() - start
     jobs.finalize_job(result, f"wav2vec2_{args.model_size}_model", jct)
 

@@ -5,8 +5,8 @@
 
 The reference CLI (--model_size/--model_type/--learning_rate/--num_epochs),
 2 s clips, the JCT printed and not written (the reference's behaviour), the
-final weights saved into a relative ``./model_cache``.  ``--resume`` is
-refused with its ROADMAP.md item.
+final weights saved into a relative ``./model_cache``; ``--resume`` and
+``--jax_profile DIR`` as in the other jobs.
 """
 
 from __future__ import annotations
@@ -16,13 +16,13 @@ import os
 import time
 
 from tethys_tpu_torch.jobs._common import add_common_flags, job_device, parse
+from tethys_tpu_torch.utils.tracing import maybe_profiler_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Wav2Vec2 Single GPU Speech Recognition")
-    add_common_flags(parser, num_batches_default=5, batch_size_default=1,
-                     refused=("resume",))
+    add_common_flags(parser, num_batches_default=5, batch_size_default=1)
     parser.add_argument(
         "--model_size", type=str, default="small",
         choices=["tiny", "small", "base"],
@@ -51,16 +51,18 @@ def main(argv=None) -> None:
     print(f"selected model type: {args.model_type}")
 
     start = time.time()
-    result, model, _config = jobs.train_wav2vec2(
-        model_type=args.model_type,
-        model_size=args.model_size,
-        batch_size_per_replica=args.batch_size,
-        num_batches=args.num_batches,
-        num_epochs=args.num_epochs,
-        learning_rate=args.learning_rate,
-        compute_dtype=args.dtype,
-        device=device,
-    )
+    with maybe_profiler_trace(args.jax_profile):
+        result, model, _config = jobs.train_wav2vec2(
+            model_type=args.model_type,
+            model_size=args.model_size,
+            batch_size_per_replica=args.batch_size,
+            num_batches=args.num_batches,
+            num_epochs=args.num_epochs,
+            learning_rate=args.learning_rate,
+            compute_dtype=args.dtype,
+            device=device,
+            resume=args.resume,
+        )
     jct = time.time() - start
     print("Training completed.")
     print("JCT:", jct)

@@ -5,8 +5,9 @@
 
 The reference CLI (``--num_batches``, ``--batch_size``) with the JAX job's
 ``--dtype`` and ``--model_size``, its stdout lines, JCT file and
-checkpoints.  ``--device cpu`` runs the plain versions of every kernel on
-the CPU (for small runs).  The JAX job's parallel and capacity flags are
+checkpoints; ``--resume`` restores the newest ``whisper_<size>_*``
+checkpoint and ``--jax_profile DIR`` writes a profiler trace.  ``--device
+cpu`` runs the plain versions of every kernel on the CPU (for small runs).  The JAX job's parallel and capacity flags are
 refused with an error that names where they wait in ROADMAP.md
 (jobs/_common.py).
 """
@@ -22,6 +23,7 @@ from tethys_tpu_torch.jobs._common import (
     job_device,
     parse,
 )
+from tethys_tpu_torch.utils.tracing import maybe_profiler_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,13 +52,15 @@ def main(argv=None) -> None:
     artifacts.start_side_captures()
 
     start = time.time()
-    result, _model, _config = jobs.train_whisper(
-        model_type=args.model_size,
-        batch_size_per_replica=args.batch_size,
-        num_batches=args.num_batches,
-        compute_dtype=args.dtype,
-        device=device,
-    )
+    with maybe_profiler_trace(args.jax_profile):
+        result, _model, _config = jobs.train_whisper(
+            model_type=args.model_size,
+            batch_size_per_replica=args.batch_size,
+            num_batches=args.num_batches,
+            compute_dtype=args.dtype,
+            device=device,
+            resume=args.resume,
+        )
     jct = time.time() - start
     jobs.finalize_job(result, f"whisper_{args.model_size}_model", jct)
 

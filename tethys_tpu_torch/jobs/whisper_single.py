@@ -6,7 +6,8 @@
 The reference's quirk #1, kept: the file named ``whisper_single.py`` holds
 Wav2Vec2-base and trains contrastive pretraining on 80000-sample (5 s)
 clips (reference speech_jobs/whisper_single.py), and writes
-``single_jct.txt``.  ``--resume`` is refused with its ROADMAP.md item.
+``single_jct.txt``; ``--resume`` and ``--jax_profile DIR`` as in the
+other jobs.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import argparse
 import time
 
 from tethys_tpu_torch.jobs._common import add_common_flags, job_device, parse
+from tethys_tpu_torch.utils.tracing import maybe_profiler_trace
 
 MODEL_SIZE = "base"
 AUDIO_LENGTH = 80000   # 5 s clips (reference whisper_single.py:1102)
@@ -23,8 +25,7 @@ AUDIO_LENGTH = 80000   # 5 s clips (reference whisper_single.py:1102)
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="wav2vec2 Single GPU Speech Recognition")
-    add_common_flags(parser, num_batches_default=40, batch_size_default=4,
-                     refused=("resume",))
+    add_common_flags(parser, num_batches_default=40, batch_size_default=4)
     return parser
 
 
@@ -42,15 +43,17 @@ def main(argv=None) -> None:
     artifacts.start_side_captures()
 
     start = time.time()
-    result, model, _config = jobs.train_wav2vec2(
-        model_type="pretraining",
-        model_size=MODEL_SIZE,
-        batch_size_per_replica=args.batch_size,
-        num_batches=args.num_batches,
-        compute_dtype=args.dtype,
-        audio_length=AUDIO_LENGTH,
-        device=device,
-    )
+    with maybe_profiler_trace(args.jax_profile):
+        result, model, _config = jobs.train_wav2vec2(
+            model_type="pretraining",
+            model_size=MODEL_SIZE,
+            batch_size_per_replica=args.batch_size,
+            num_batches=args.num_batches,
+            compute_dtype=args.dtype,
+            audio_length=AUDIO_LENGTH,
+            device=device,
+            resume=args.resume,
+        )
     jct = time.time() - start
     print("Training completed.")
     print("jct:", jct)

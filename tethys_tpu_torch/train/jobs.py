@@ -5,9 +5,13 @@ weights, its optimizer, the synthetic dataset, the one-replica train step
 and the loop, on one device (a CUDA device unless the caller names
 another); ``make_whisper_job`` and ``make_wav2vec2_job`` build the step
 alone (the profiler drives them too).  ``finalize_job``: the JCT print,
-the JCT file and the final weights save.  Only the data-parallel branch on one process
-exists; TP/SP/PP, remat, gradient accumulation, bf16 master weights and
-resume are refused by the CLIs (jobs/) and wait in ROADMAP.md.
+the JCT file and the final weights save.  With ``resume=True`` each
+restores its own newest checkpoint (``whisper_<size>_*`` or ``model_*``)
+into the fresh state and prints ``Resumed from checkpoint <tag>``; the
+loop then starts at step 0 with the same seeds, as the JAX job's does (the
+optimizer's state carries Adam's count).  Only the data-parallel branch on
+one process exists; TP/SP/PP, remat, gradient accumulation and bf16 master
+weights are refused by the CLIs (jobs/) and wait in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -91,6 +95,7 @@ def train_whisper(
     config_overrides: Optional[dict] = None,
     device=None,
     step_hooks: tuple = (),
+    resume: bool = False,
 ):
     """End-to-end Whisper training (reference train_whisper,
     speech_jobs/whisper_dist.py:894-958).  Returns (result, model, config)."""
@@ -98,6 +103,8 @@ def train_whisper(
         model_type, batch_size_per_replica, learning_rate, compute_dtype,
         seed, data_seq_len, config_overrides, device)
     ckpt = CheckpointManager(checkpoint_dir) if checkpointing else None
+    if resume and ckpt is not None:
+        _resume(ckpt, job.state, f"whisper_{model_type}_")
     result = run_training(
         job.step_fn, job.dataset, job.state, seed,
         num_epochs=num_epochs, max_iterations=num_batches,
@@ -172,6 +179,7 @@ def train_wav2vec2(
     config_overrides: Optional[dict] = None,
     device=None,
     step_hooks: tuple = (),
+    resume: bool = False,
 ):
     """End-to-end Wav2Vec2 training (reference train_wav2vec2,
     speech_jobs/wav2vec2_dist.py:1263-1376): pretraining, asr or
@@ -182,6 +190,8 @@ def train_wav2vec2(
         model_type, model_size, batch_size_per_replica, learning_rate,
         compute_dtype, seed, audio_length, real_ctc, config_overrides, device)
     ckpt = CheckpointManager(checkpoint_dir) if checkpointing else None
+    if resume and ckpt is not None:
+        _resume(ckpt, job.state, "model_")
     result = run_training(
         job.step_fn, job.dataset, job.state, seed,
         num_epochs=num_epochs, max_iterations=num_batches,
@@ -189,6 +199,17 @@ def train_wav2vec2(
         checkpoint_every_steps=50 if checkpointing else None,
         checkpoint_tag="model", resilient=True, step_hooks=step_hooks)
     return result, job.state.model, job.config
+
+
+def _resume(ckpt: CheckpointManager, state: dp.TrainState,
+            prefix: str) -> None:
+    """Restores the newest checkpoint whose tag starts with ``prefix`` (the
+    job's own tag and its underscore, so ``whisper_large`` never takes
+    ``whisper_large-v3``'s) into ``state``, if there is one."""
+    latest = ckpt.latest_tag(prefix=prefix)
+    if latest:
+        ckpt.restore_like(latest, state)
+        print(f"Resumed from checkpoint {latest}")
 
 
 def _refuse_multi_process() -> None:

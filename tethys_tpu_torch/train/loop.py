@@ -19,12 +19,15 @@ every N steps, and ``resilient=True`` swallows a step's exception, prints
 ``Error at step N: ...``, resets the data iterator and goes on (reference
 wav2vec2_dist.py:1367-1371).  A failure that shows only when a step's loss
 is fetched is attributed to that step, one behind the dispatch counter.
+``steady_state_step_time`` is the mean step time after the warm-up steps.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Any, Callable, Iterable, NamedTuple, Optional
+
+import numpy as np
 
 from tethys_tpu_torch.checkpoint import CheckpointManager
 from tethys_tpu_torch.parallel.dp import step_generator
@@ -159,3 +162,12 @@ def run_training(
                                     state)
 
     return TrainLoopResult(state, losses, step_times, step)
+
+
+def steady_state_step_time(step_times, warmup: int = 3) -> float:
+    """Mean step time after dropping the warm-up steps (all of them when
+    there are no more than ``warmup``)."""
+    if not step_times:
+        return 0.0
+    tail = step_times[warmup:] or step_times
+    return float(np.mean(tail))
