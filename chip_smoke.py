@@ -66,7 +66,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
 10. launch counts: set to 0 before each path (serving: phases 4-5,
    training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13,
    flash bench: phase 14, frontend: phase 15, training bench: phase 16,
-   resume: phase 17)
+   resume: phase 17, data parallel: phase 18, with the launches of the
+   processes it starts)
    and read after it; every kernel of a path must have launched during it,
    and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
    as often as gn_grad_sums;
@@ -106,7 +107,23 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    job and 2 more equal 4 straight steps within phase 6's tolerances
    (dropout on); (c) the wav2vec2_dist CLI run twice, the second time with
    --resume and --jax_profile, prints ``Resumed from checkpoint
-   model_epoch_1`` and writes a trace that holds the card's kernels.
+   model_epoch_1`` and writes a trace that holds the card's kernels;
+18. data parallelism: (a) the wav2vec2_dist CLI at wav2vec2-base b32
+   bf16, 10 steps, four times, each in a process of its own: alone, with
+   torchrun's env for a world of one (WORLD_SIZE=1, RANK=0, a free port on
+   127.0.0.1) twice, alone; in the world of one the group must be nccl,
+   its GroupNorm and dropout kernels must launch, and the second world
+   must resume the first's checkpoint with --resume (rank 0 reads it and
+   broadcasts it over NCCL); the four ms/step (steps 3-8 from the loop's
+   elapsed column) are logged beside phase 9's, with the bytes a step
+   hands to all_reduce from the collective report; (a') f32 b2, 2 hardened steps,
+   rates 0, cuDNN deterministic: the step under an NCCL group of one
+   (buckets and a SUM over one rank) equals the step without a group bit
+   for bit; (b) two ranks on the one card over gloo (which takes CUDA
+   tensors), wav2vec2-base f32 b2 a rank, 2 hardened steps, rates 0: the
+   two ranks' parameters are identical, and they, their losses and the
+   summed gradient's norm agree, within phase 8's tolerances, with one
+   process that sums both replicas' clipped 1/N-scaled gradients.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -118,7 +135,10 @@ import contextlib
 import copy
 import json
 import os
+import re
+import socket
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -168,6 +188,8 @@ PATH_KERNELS = {
     "resume": ("split_heads", "merge_heads", "flash_fwd", "flash_fwd_dropout",
                "flash_bwd", "dropout", "proj_split", "merge_proj",
                "gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd"),
+    "data_parallel": ("gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd",
+                      "dropout"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -1582,8 +1604,9 @@ class Tee:
         self.out.flush()
 
 
-def run_w2v_bf16(gpu: str) -> dict:
-    """Phase 9: the Wav2Vec2 job's loop at bench.py's shape."""
+def run_w2v_bf16(gpu: str, measured: dict) -> dict:
+    """Phase 9: the Wav2Vec2 job's loop at bench.py's shape; its step times
+    go into ``measured`` for phase 18(a)."""
     from tethys_tpu_torch.train import jobs
     from tethys_tpu_torch.utils.device import require_cuda
 
@@ -1639,6 +1662,7 @@ def run_w2v_bf16(gpu: str) -> dict:
         f" {stats['audio_s_per_s']:.1f} audio-s/s, peak memory "
         f"{stats['peak_mem_gib']:.2f} GiB")
     log("  wav2vec2 " + json.dumps(stats))
+    measured["w2v_step_ms"] = stats["step_ms"]
     return stats
 
 
@@ -2054,10 +2078,384 @@ def run_resume_cli() -> None:
         require(kernels, "the profiler trace holds no CUDA kernel")
 
 
-def drive_path(name: str, phases) -> dict:
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DP_RANKS = 2
+DP_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
+# Runs the wav2vec2_dist CLI as ``python -m`` does, then prints the
+# process's launch counts on a line of their own.
+DIST_CLI = (
+    "import json, runpy, sys\n"
+    "sys.argv[0] = 'tethys_tpu_torch.jobs.wav2vec2_dist'\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+    "from tethys_tpu_torch.utils import kernel_lib\n"
+    "print('LAUNCHES ' + json.dumps(kernel_lib.launch_counts()))\n")
+ELAPSED_RE = re.compile(r"^Step (\d+), Loss: ([^,]+), Time: \S+ \(경과: ([\d.]+)초")
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def add_counts(into: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        into[k] = into.get(k, 0) + n
+
+
+def dist_cli(ws: str, group: bool, *flags: str) -> dict:
+    """python -m tethys_tpu_torch.jobs.wav2vec2_dist --model_size base
+    --batch_size 32 --dtype bfloat16 --num_batches 10 (and ``flags``) in a
+    process of its own, in the workspace ``ws``, with torchrun's env for a
+    world of one when ``group``: its lines, launch counts, collective
+    report and ms/step.
+
+    The ms/step is the loop's elapsed column (10 ms steps) from step 2's
+    line to step 8's over 6: step i's line is printed once step i + 1 is
+    queued, so that span holds 6 whole steps; the last step's line comes
+    after no further step and measures the device's tail alone."""
+    with open(os.path.join(ws, "model.txt"), "w") as fh:
+        fh.write("chip_smoke")
+    os.makedirs(os.path.join(ws, "chip_smoke"), exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    env.update(TETHYS_WORKSPACE=ws, TETHYS_RESULT=ws, PYTHONPATH=ROOT)
+    if group:
+        env.update(WORLD_SIZE="1", RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(free_port()))
+    proc = subprocess.run(
+        [sys.executable, "-c", DIST_CLI, "--model_size", W2V_MODEL,
+         "--batch_size", str(W2V_BATCH), "--dtype", "bfloat16",
+         "--num_batches", str(W2V_STEPS), *flags],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"the CLI exited {proc.returncode}:\n"
+            + proc.stdout[-3000:] + proc.stderr[-3000:])
+    report_path = os.path.join(ws, "chip_smoke", "worker_0_collectives.txt")
+    report = None
+    if os.path.exists(report_path):
+        with open(report_path) as fh:
+            report = fh.read().splitlines()
+        os.remove(report_path)
+    out = proc.stdout.splitlines()
+    require("Error at step" not in proc.stdout, "a step failed in the CLI")
+    counts = json.loads(next(line for line in out
+                             if line.startswith("LAUNCHES "))[9:])
+    steps = [ELAPSED_RE.match(line) for line in out]
+    steps = [(int(m[1]), float(m[2]), float(m[3])) for m in steps if m]
+    require([i for i, _, _ in steps] == list(range(W2V_STEPS))
+            and all(np.isfinite(loss) for _, loss, _ in steps),
+            f"the CLI's step lines {steps}")
+    first, last = TRAIN_WARMUP, W2V_STEPS - 2
+    ms = (steps[last][2] - steps[first][2]) / (last - first) * 1e3
+    return {"out": out, "counts": counts, "report": report, "ms": ms}
+
+
+def run_dist_cli(measured: dict, child: dict) -> None:
+    """Phase 18(a): the wav2vec2_dist CLI at wav2vec2-base b32 bf16 in an
+    NCCL world of one (torchrun's env) and alone, in turns: alone, world,
+    world, alone; each in a process of its own (``dist_cli``).  The
+    second world resumes from the first's checkpoint (``--resume``: rank
+    0 reads it and broadcasts it over NCCL)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as world_ws:
+        runs = []
+        for group, flags in ((False, ()), (True, ()), (True, ("--resume",)),
+                             (False, ())):
+            if group:
+                runs.append(dist_cli(world_ws, group, *flags))
+                continue
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+                runs.append(dist_cli(ws, group, *flags))
+    for run in runs:
+        add_counts(child, run["counts"])
+    alone, grouped = runs[0::3], runs[1:3]
+    log("  a world of one, its lines: " + " | ".join(
+        line for line in grouped[0]["out"] if not line.startswith(
+            ("LAUNCHES", "=", "network")) and line))
+    for run in grouped:
+        require("process group: nccl, rank 0 of 1" in run["out"],
+                "the CLI did not join an nccl group of one")
+        require(run["report"][0] == "kind,bytes_per_step"
+                and run["report"][-1].startswith("total,"),
+                f"collective report {run['report']}")
+    require("Resumed from checkpoint model_epoch_1" in grouped[1]["out"],
+            "the second world of one did not resume the first's checkpoint")
+    for run in alone:
+        require(not any(line.startswith("process group")
+                        for line in run["out"]) and run["report"] is None,
+                "the CLI without torchrun's env joined a group")
+    log(f"  the CLI's launches in a world of one: {grouped[0]['counts']}")
+    rose = ("gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd", "dropout")
+    require(all(grouped[0]["counts"][k] > 0 for k in rose),
+            f"the CLI launched no "
+            f"{[k for k in rose if not grouped[0]['counts'][k]]}")
+    first, last = TRAIN_WARMUP, W2V_STEPS - 2
+    phase9 = measured["w2v_step_ms"][first + 1:last + 1]
+    log(f"  18(a) wav2vec2-base b{W2V_BATCH} bf16, ms/step over steps "
+        f"{first + 1}-{last} (each run a process of its own): alone "
+        f"{runs[0]['ms']:.2f}, nccl world of one {runs[1]['ms']:.2f}, "
+        f"{runs[2]['ms']:.2f} (resumed), alone {runs[3]['ms']:.2f}; phase 9 "
+        f"(in this process, no group) {statistics.mean(phase9):.2f} over "
+        "the same steps")
+    log(f"  collective report: {grouped[0]['report']}; all_reduce bytes a "
+        f"step {int(grouped[0]['report'][-1].split(',')[1])}")
+
+
+def w2v_dp_setup(device, global_batch: int):
+    """Wav2Vec2-base f32, rates 0, from SEED on ``device``; the global
+    batches of phase 18 (2 s clips) with their negatives, drawn on the
+    host; the hardened step's loss on a (clips, negatives) batch."""
+    from tethys_tpu_torch import data, losses
+    from tethys_tpu_torch.models import wav2vec2
+
+    model, config = wav2vec2.create_full_model(
+        "pretraining", W2V_MODEL, device=device, seed=SEED,
+        hidden_dropout=0.0, activation_dropout=0.0, attention_dropout=0.0)
+    model.train()
+    clips = iter(data.create_wav2vec2_dummy_dataset(global_batch,
+                                                    W2V_SAMPLES))
+    frames = config.downsampled_length(W2V_SAMPLES)
+    batches = [(torch.from_numpy(next(clips)[0]),
+                losses.sample_negative_indices(
+                    torch.Generator().manual_seed(100 + i), global_batch,
+                    frames, config.num_negatives))
+               for i in range(W2V_F32_STEPS)]
+
+    def loss_fn(mod, batch, generator):
+        audio, negatives = batch
+        return wav2vec2.pretraining_loss(
+            config, mod(audio.to(device), generator=generator),
+            negative_indices=negatives)
+
+    return model, batches, loss_fn
+
+
+def w2v_dp_steps(device, rank: int = 0, ranks: int = 1):
+    """Phase 18's hardened steps on this process's rows of the global
+    batch: the step, the logged losses, the global norm of the gradient the
+    optimizer takes (the sum over the replicas), the final parameters (on
+    the host) and the last gradients."""
+    from tethys_tpu_torch.parallel import dp
+
+    model, batches, loss_fn = w2v_dp_setup(device, W2V_F32_BATCH * ranks)
+    opt = dp.wav2vec2_optimizer(model.parameters(), W2V_LR)
+    step = dp.make_train_step(loss_fn, opt, hardened=True)
+    norms, adam_step = [], opt.step
+
+    def record():
+        norms.append(torch.linalg.vector_norm(torch.stack(
+            [p.grad.norm() for p in model.parameters()
+             if p.grad is not None])).item())
+        adam_step()
+
+    opt.step = record
+    state, losses_seen = dp.TrainState(model, opt), []
+    rows = slice(rank * W2V_F32_BATCH, (rank + 1) * W2V_F32_BATCH)
+    for i, (audio, negatives) in enumerate(batches):
+        state, loss = step(state, (audio[rows], negatives[rows]),
+                           dp.step_generator(SEED, i, rank))
+        losses_seen.append(loss.item())
+    return step, losses_seen, norms, {
+        n: p.detach().to("cpu", copy=True) for n, p in
+        model.named_parameters()}, [p.grad for p in model.parameters()
+                                    if p.grad is not None]
+
+
+@contextlib.contextmanager
+def torchrun_env(world: int, rank: int, port: int):
+    """torchrun's env for one process of a world on 127.0.0.1."""
+    before = {k: os.environ.get(k) for k in DP_ENV}
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def run_dist_identity() -> None:
+    """Phase 18(a'): f32 b2, 2 hardened steps, rates 0: under an NCCL group
+    of one the step (buckets, a SUM over one rank) equals the step without
+    a group bit for bit.  Both run with cuDNN's deterministic algorithms:
+    its default ones need not give the same bits twice (two runs without
+    a group under them are compared and logged first)."""
+    from tethys_tpu_torch.parallel import mesh
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    runs = [w2v_dp_steps(dev)[3] for _ in range(2)]
+    gap = max(max_err(runs[0][n], p) for n, p in runs[1].items())
+    log(f"  cuDNN's default algorithms, two runs without a group: "
+        f"parameters bitwise equal {gap == 0.0} (max difference {gap:.3e})")
+    del runs
+    with deterministic_cudnn():
+        alone, want_losses, want_norms, want, _ = w2v_dp_steps(dev)
+        require(alone.reducer is None, "a step without a group reduces")
+        with torchrun_env(1, 0, free_port()):
+            mesh.initialize_distributed()
+            try:
+                backend = torch.distributed.get_backend()
+                grouped, losses_seen, norms, got, grads = w2v_dp_steps(dev)
+                reducer_times(grouped.reducer, grads)
+            finally:
+                mesh.shutdown_distributed()
+    require(backend == "nccl", f"backend {backend}")
+    log(f"  without a group: losses {want_losses}, summed-gradient norms "
+        f"{want_norms}; nccl world of one: {losses_seen}, {norms}; "
+        f"{grouped.reducer.bytes_per_step} bytes a step to all_reduce")
+    require(losses_seen == want_losses and norms == want_norms,
+            "the nccl world of one changed the losses or gradients")
+    differ = [n for n, p in want.items() if not torch.equal(got[n], p)]
+    require(not differ, f"parameters differ after the steps: {differ[:5]}")
+    log(f"  18(a'): {len(want)} parameters bitwise equal")
+
+
+def reducer_times(reducer, grads) -> None:
+    """The all-reduce layer alone on wav2vec2-base's gradients (an NCCL
+    world of one), median of 30 calls: the host ms to queue one call and
+    its device ms by CUDA events.  Each call is queued behind a ~10 ms
+    device spin, so the events time the device's work and not the host's
+    queueing."""
+    loss = torch.zeros((), device=grads[0].device)
+    reducer(grads, loss)
+    host, device = [], []
+    for _ in range(TIMING_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        t0 = time.perf_counter()
+        reducer(grads, loss)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end))
+    log(f"  the gradient all-reduce alone ({len(reducer.buckets(grads))} "
+        f"buckets, {reducer.bytes_per_step} bytes, nccl world of one): "
+        f"device {statistics.median(device):.4f} ms, host "
+        f"{statistics.median(host):.4f} ms to queue it")
+
+
+def gloo_rank(rank: str, port: str, out_dir: str) -> int:
+    """A rank of phase 18(b) (``chip_smoke.py --gloo_rank R PORT DIR``)."""
+    sys.path.insert(0, ROOT)
+    from tethys_tpu_torch.parallel import mesh
+    from tethys_tpu_torch.utils import kernel_lib
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torchrun_env(DP_RANKS, int(rank), int(port)):
+        mesh.initialize_distributed(backend="gloo")
+        try:
+            require(torch.distributed.get_backend() == "gloo", "backend")
+            _, losses_seen, norms, params, _ = w2v_dp_steps(
+                require_cuda(), int(rank), DP_RANKS)
+        finally:
+            mesh.shutdown_distributed()
+    torch.save({"losses": losses_seen, "norms": norms, "params": params,
+                "launches": kernel_lib.launch_counts()},
+               os.path.join(out_dir, f"rank_{rank}.pt"))
+    return 0
+
+
+def run_gloo_two_ranks(child: dict) -> None:
+    """Phase 18(b): two ranks on the one card over gloo against one process
+    that sums both replicas' clipped, 1/N-scaled gradients; phase 8's
+    tolerances (losses 1e-4 relative, the gradient 1e-3 of its norm,
+    parameters 2 * lr * steps)."""
+    from tethys_tpu_torch.parallel import dp
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gloo_rank",
+             str(r), port, tmp], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(DP_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        require(all(p.returncode == 0 for p in procs),
+                "a gloo rank failed:\n" + "\n".join(o[-3000:] for o in outs))
+        ranks = [torch.load(os.path.join(tmp, f"rank_{r}.pt"))
+                 for r in range(DP_RANKS)]
+    for r in ranks:
+        add_counts(child, r["launches"])
+    differ = [n for n, p in ranks[0]["params"].items()
+              if not torch.equal(ranks[1]["params"][n], p)]
+    require(not differ and ranks[0]["losses"] == ranks[1]["losses"],
+            f"the two ranks differ: {differ[:5]}")
+    log(f"  the two ranks: identical parameters; losses "
+        f"{ranks[0]['losses']}, summed-gradient norms {ranks[0]['norms']}")
+
+    # One process: each replica's loss scrubbed and /N, its gradient
+    # clipped to a global norm of 1, the two summed, then the optimizer.
+    dev = require_cuda()
+    model, batches, loss_fn = w2v_dp_setup(dev, W2V_F32_BATCH * DP_RANKS)
+    opt = dp.wav2vec2_optimizer(model.parameters(), W2V_LR)
+    want_losses, want_norms = [], []
+    for i, (audio, negatives) in enumerate(batches):
+        total, summed = 0.0, {}
+        for r in range(DP_RANKS):
+            rows = slice(r * W2V_F32_BATCH, (r + 1) * W2V_F32_BATCH)
+            opt.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(model, (audio[rows], negatives[rows]),
+                              dp.step_generator(SEED, i, r))
+            loss = torch.where(torch.isnan(loss), torch.zeros_like(loss),
+                               loss) / DP_RANKS
+            loss.backward()
+            params = [p for p in model.parameters() if p.grad is not None]
+            dp.clip_by_global_norm([p.grad for p in params], 1.0)
+            for p in params:
+                summed[p] = summed[p] + p.grad if p in summed else p.grad
+            total += loss.item()
+        for p in model.parameters():
+            p.grad = summed.get(p)
+        want_norms.append(torch.linalg.vector_norm(torch.stack(
+            [g.norm() for g in summed.values()])).item())
+        opt.step()
+        want_losses.append(total)
+    log(f"  one process: losses {want_losses}, summed-gradient norms "
+        f"{want_norms}")
+    check("18(b) losses, gloo ranks vs one process (relative)",
+          max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                   want_losses)), 1e-4)
+    check("18(b) summed-gradient norms (relative)",
+          max(abs(a - b) / b for a, b in zip(ranks[0]["norms"], want_norms)),
+          1e-3)
+    want = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    check("18(b) parameters after the last step, gloo ranks vs one process",
+          max(max_err(ranks[0]["params"][n], p) for n, p in want.items()),
+          2 * W2V_LR * W2V_F32_STEPS)
+
+
+def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
-    path's kernels launched."""
+    path's kernels launched.  ``child_counts``: launches the phases' own
+    processes reported (their counts start at 0 in each process), added in."""
     from tethys_tpu_torch.utils import kernel_lib
 
     torch.cuda.synchronize()
@@ -2067,6 +2465,10 @@ def drive_path(name: str, phases) -> dict:
         fn(*args)
     torch.cuda.synchronize()
     counts = kernel_lib.launch_counts()
+    if child_counts:
+        log(f"  launches in this process: {counts}; in the processes it "
+            f"started: {child_counts}")
+        counts = {k: n + child_counts.get(k, 0) for k, n in counts.items()}
     log(f"  launches during the {name} path: {counts}")
     missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
     require(not missing, f"{name}: kernels never launched: {missing}")
@@ -2100,7 +2502,7 @@ def main() -> int:
             log("    " + line.strip())
 
     log("[3] kernels against their plain versions on the card")
-    results = {}
+    results, measured = {}, {}
     check_kernels(results)
     torch.cuda.synchronize()
 
@@ -2112,7 +2514,8 @@ def main() -> int:
         ("[7] whisper-base bf16 training job", run_train_bf16, gpu)))
     w2v = drive_path("wav2vec2", (
         ("[8] wav2vec2-base f32 pretraining, card against cpu", run_w2v_f32),
-        ("[9] wav2vec2-base bf16 pretraining job", run_w2v_bf16, gpu)))
+        ("[9] wav2vec2-base bf16 pretraining job", run_w2v_bf16, gpu,
+         measured)))
     # Every GroupNorm forward took the moments and apply kernels, every
     # backward the grad sums and apply_bwd kernels: CUDA tensors have no
     # plain path, and the counts pair up.
@@ -2144,9 +2547,17 @@ def main() -> int:
         ("[17b] resume equals uninterrupted, whisper-base f32 b2",
          run_resume_equals_straight),
         ("[17c] the wav2vec2_dist CLI with --resume", run_resume_cli)))
+    child = {}
+    data_parallel = drive_path("data_parallel", (
+        ("[18a] the wav2vec2_dist CLI in an nccl world of one, base b32 bf16",
+         run_dist_cli, measured, child),
+        ("[18a'] an nccl world of one equals no group, bit for bit",
+         run_dist_identity),
+        ("[18b] two ranks on the card over gloo against one process",
+         run_gloo_two_ranks, child)), child_counts=child)
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
               + flash_bench[k] + frontend[k] + train_bench[k] + resume[k]
-              for k in serving}
+              + data_parallel[k] for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")
@@ -2163,4 +2574,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo_rank"]:
+        sys.exit(gloo_rank(*sys.argv[2:]))
     sys.exit(main())

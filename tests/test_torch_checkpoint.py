@@ -199,12 +199,25 @@ def test_preprocess_text_equals_jax():
       "task": {"type": "worker", "index": 1}}, "worker_1"),
     ({"cluster": {"chief": ["h:1"]}, "task": {"type": "chief", "index": 0}},
      "chief_0"),
+    ({"cluster": {"worker": ["h:1", "h:2"]}}, "None_None"),
+    ({"task": {"type": "worker"}}, "worker_None"),
+    ("not json", json.JSONDecodeError),
 ])
 def test_job_name_equals_the_jax_script(monkeypatch, tf_config, want):
+    """The twin prints what the JAX script prints: TF_CONFIG's fields as
+    they stand (None where one is missing), and malformed JSON raises on
+    both sides."""
     if tf_config is None:
         monkeypatch.delenv("TF_CONFIG", raising=False)
     else:
-        monkeypatch.setenv("TF_CONFIG", json.dumps(tf_config))
+        monkeypatch.setenv("TF_CONFIG", tf_config if isinstance(
+            tf_config, str) else json.dumps(tf_config))
+    if want is json.JSONDecodeError:
+        with pytest.raises(json.JSONDecodeError):
+            job_name.main()
+        with pytest.raises(json.JSONDecodeError):
+            runpy.run_path(os.path.join(ROOT, "scripts", "job_name.py"))
+        return
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert job_name.main() == want

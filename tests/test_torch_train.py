@@ -352,6 +352,11 @@ def test_cli_defaults_match_the_jax_job():
 
 
 def test_job_identity_and_multi_process_refusal(monkeypatch):
+    """The identity and the cluster spec a job reads from TF_CONFIG (chief
+    first, then each task type in its own id range), and no refusal of a
+    spec that names several processes (this test once pinned that
+    refusal): a job built without a process group keeps one replica whose
+    step reduces nothing."""
     monkeypatch.delenv("TF_CONFIG", raising=False)
     assert mesh.job_identity() == ("worker", 0)
     one = {"cluster": {"worker": ["localhost:2222"]},
@@ -364,8 +369,10 @@ def test_job_identity_and_multi_process_refusal(monkeypatch):
     monkeypatch.setenv("TF_CONFIG", json.dumps(two))
     assert mesh.job_identity() == ("worker", 1)
     assert mesh.multi_process_spec() == ("a:1", 3, 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        jobs.train_whisper(config_overrides=TINY, device="cpu")
+    chief = dict(two, task={"type": "chief", "index": 0})
+    assert mesh.cluster_spec_from_tf_config(chief) == ("a:1", 3, 0)
+    job = jobs.make_whisper_job(config_overrides=TINY, device="cpu")
+    assert job.step_fn.reducer is None and mesh.world_size() == 1
 
 
 def test_hardened_step_waits_for_wav2vec2():

@@ -8,6 +8,14 @@ reference whisper_dist.py:916-919,956) and the final weights-only save into
 ``restore_like`` and ``latest_tag`` are the JAX package's extension, which
 makes the jobs resumable (``--resume``).
 
+Under a process group the checkpoints are rank 0's: ``save`` and
+``save_final_weights`` write on rank 0 alone (``save`` then holds every
+rank at a barrier, so no two ranks race on one tag directory), and
+``restore_like`` reads on rank 0 and broadcasts what it read (the
+parameters, the optimizer's moments and count), so a rank whose
+filesystem holds no checkpoint resumes too; the jobs take the tag to
+resume from rank 0's ``latest_tag`` the same way.
+
 A save writes into a hidden temporary directory and renames it into place,
 so a save cut short leaves no half-written tag, and a tag saved again
 becomes the newest: ``latest_tag`` orders the tags by the time their save
@@ -26,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tethys_tpu_torch.parallel import mesh
 from tethys_tpu_torch.utils.artifacts import workspace_dir
 
 _MODEL = "model.pt"
@@ -44,7 +53,14 @@ class CheckpointManager:
         return os.path.abspath(os.path.join(self.directory, tag))
 
     def save(self, tag: str, state) -> str:
+        """Writes ``tag`` on rank 0, then waits for every rank."""
         path = self._path(tag)
+        if mesh.rank() == 0:
+            self._write(path, tag, state)
+        mesh.barrier()
+        return path
+
+    def _write(self, path: str, tag: str, state) -> None:
         tmp = tempfile.mkdtemp(prefix=f".{tag}.", dir=self.directory)
         torch.save(state.model.state_dict(), os.path.join(tmp, _MODEL))
         torch.save(state.optimizer.state_dict(), os.path.join(tmp, _OPTIMIZER))
@@ -56,7 +72,6 @@ class CheckpointManager:
         os.rename(tmp, path)
         if old is not None:
             shutil.rmtree(old)
-        return path
 
     def restore(self, tag: str) -> Tuple[dict, dict]:
         """(model state dict, optimizer state dict) of ``tag``, on the
@@ -69,8 +84,10 @@ class CheckpointManager:
     def restore_like(self, tag: str, state):
         """Loads ``tag`` into the live ``state`` (its model and optimizer,
         on their device; the optimizer's moments take their parameter's
-        dtype) and returns it."""
-        model_sd, optimizer_sd = self.restore(tag)
+        dtype) and returns it.  Under a process group rank 0 reads ``tag``
+        and every rank loads what it broadcasts."""
+        model_sd, optimizer_sd = mesh.broadcast_object(
+            self.restore(tag) if mesh.rank() == 0 else None)
         state.model.load_state_dict(model_sd)
         state.optimizer.load_state_dict(optimizer_sd)
         return state
@@ -91,8 +108,11 @@ class CheckpointManager:
 
 
 def save_final_weights(model: torch.nn.Module, name: str,
-                       cache_dir: Optional[str] = None) -> str:
-    """Final weights-only save into ``<workspace>/model_cache/<name>``."""
+                       cache_dir: Optional[str] = None) -> Optional[str]:
+    """Final weights-only save into ``<workspace>/model_cache/<name>``, on
+    rank 0 alone (None on the others)."""
+    if mesh.rank() != 0:
+        return None
     cache_dir = cache_dir or os.path.join(workspace_dir(), "model_cache")
     path = os.path.abspath(os.path.join(cache_dir, name))
     os.makedirs(path, exist_ok=True)

@@ -3,10 +3,12 @@
 The reference's ``--num_batches`` and ``--batch_size``, the JAX jobs'
 ``--dtype``, ``--resume`` (restore the job's newest checkpoint) and
 ``--jax_profile DIR`` (a profiler trace of the run, utils/tracing.py), and
-``--device`` (cuda: the kernels on one GPU; cpu: the plain versions, for
-small runs).  The JAX jobs' parallel and capacity flags are accepted so
-that they can be refused, each with an error that names where it waits in
-ROADMAP.md; none is ignored.
+``--device`` (cuda: the kernels on the process's GPU; cpu: the plain
+versions, for small runs).  ``start_distributed`` joins the job's process
+group (``parallel/mesh.initialize_distributed``: torchrun's env or a
+TF_CONFIG that names several processes) for the dist jobs.  The JAX jobs'
+parallel and capacity flags are accepted so that they can be refused, each
+with an error that names where it waits in ROADMAP.md; none is ignored.
 """
 
 from __future__ import annotations
@@ -73,8 +75,35 @@ def parse(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
     return args
 
 
+def start_distributed(args: argparse.Namespace) -> int:
+    """Joins the job's process group, if its env names one (nccl on the
+    card, gloo with ``--device cpu``), prints it and returns the number of
+    replicas."""
+    from tethys_tpu_torch.parallel import mesh
+
+    mesh.initialize_distributed(device=args.device)
+    if mesh.group_up():
+        import torch.distributed as dist
+
+        print(f"process group: {dist.get_backend()}, rank {mesh.rank()} of "
+              f"{mesh.world_size()}")
+    return mesh.world_size()
+
+
 def job_device(args: argparse.Namespace):
-    """The card (require_cuda: no CPU fallback) or, asked for, the CPU."""
+    """This process's card (require_cuda: ``cuda:<local_rank>``, no CPU
+    fallback) or, asked for, the CPU.  Under a process group of several
+    ranks, rank 0 builds the kernel library first while the others wait
+    at a barrier, so a cold build runs once and not once a rank."""
+    from tethys_tpu_torch.parallel import mesh
+    from tethys_tpu_torch.utils import kernel_lib
     from tethys_tpu_torch.utils.device import require_cuda
 
-    return require_cuda() if args.device == "cuda" else "cpu"
+    if args.device != "cuda":
+        return "cpu"
+    device = require_cuda()
+    if mesh.world_size() > 1:
+        if mesh.rank() == 0:
+            kernel_lib.build()
+        mesh.barrier()
+    return device

@@ -5,8 +5,9 @@
 
 The reference stable_jobs/wav2vec2_dist.py: the base model with the real
 CTC loss on its ASR head (``real_ctc=True``; the pretraining head it trains
-does not use it), the JCT contract of the distributed jobs; ``--resume``
-and ``--jax_profile DIR`` as in the other jobs.
+does not use it), one process per replica and the JCT contract of the
+distributed jobs; ``--resume`` and ``--jax_profile DIR`` as in the other
+jobs.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ from __future__ import annotations
 import argparse
 import time
 
-from tethys_tpu_torch.jobs._common import add_common_flags, job_device, parse
+from tethys_tpu_torch.jobs._common import (
+    add_common_flags,
+    job_device,
+    parse,
+    start_distributed,
+)
 from tethys_tpu_torch.utils.tracing import maybe_profiler_trace
 
 MODEL_SIZE = "base"
@@ -33,9 +39,10 @@ def main(argv=None) -> None:
     from tethys_tpu_torch.train import jobs
     from tethys_tpu_torch.utils import artifacts
 
+    n_replicas = start_distributed(args)
     device = job_device(args)
     print(f"batch size per replica: {args.batch_size}, "
-          f"global batch size: {args.batch_size}")
+          f"global batch size: {args.batch_size * n_replicas}")
     print(f"num_batches: {args.num_batches}")
     print("Wav2Vec2-base distributed training starting...")
     artifacts.start_side_captures()
@@ -51,6 +58,7 @@ def main(argv=None) -> None:
             real_ctc=True,
             device=device,
             resume=args.resume,
+            collective_report=True,
         )
     jct = time.time() - start
     jobs.finalize_job(result, "wav2vec2_base_model", jct)

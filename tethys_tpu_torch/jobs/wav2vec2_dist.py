@@ -1,7 +1,13 @@
-"""Wav2Vec2 distributed pretraining job on one GPU (jobs/wav2vec2_dist.py).
+"""Wav2Vec2 distributed pretraining job (jobs/wav2vec2_dist.py).
 
     python -m tethys_tpu_torch.jobs.wav2vec2_dist --model_size base \
         --batch_size 32 --num_batches 10 --dtype bfloat16
+    torchrun --nproc_per_node 4 -m tethys_tpu_torch.jobs.wav2vec2_dist ...
+
+One process per replica, from torchrun's env or a TF_CONFIG that names
+several processes (a TFJob's CHIEF + WORKERs), else one process alone
+(jobs/_common.start_distributed); the gradients are summed over the
+replicas and each writes its JCT file and its collective report.
 
 The reference CLI: the hardened step (NaN scrub, 1/N loss scaling, double
 clipping), the 50-step and per-epoch checkpoints, the JCT contract.
@@ -16,7 +22,12 @@ from __future__ import annotations
 import argparse
 import time
 
-from tethys_tpu_torch.jobs._common import add_common_flags, job_device, parse
+from tethys_tpu_torch.jobs._common import (
+    add_common_flags,
+    job_device,
+    parse,
+    start_distributed,
+)
 from tethys_tpu_torch.utils.tracing import maybe_profiler_trace
 
 
@@ -39,10 +50,11 @@ def main(argv=None) -> None:
     from tethys_tpu_torch.train import jobs
     from tethys_tpu_torch.utils import artifacts
 
+    n_replicas = start_distributed(args)
     device = job_device(args)
     print(f"selected model size: {args.model_size}")
     print(f"batch size per replica: {args.batch_size}, "
-          f"global batch size: {args.batch_size}")
+          f"global batch size: {args.batch_size * n_replicas}")
     print(f"num_batches: {args.num_batches}")
     print("Wav2Vec2 distributed training starting...")
     artifacts.start_side_captures()
@@ -57,6 +69,7 @@ def main(argv=None) -> None:
             compute_dtype=args.dtype,
             device=device,
             resume=args.resume,
+            collective_report=True,
         )
     jct = time.time() - start
     jobs.finalize_job(result, f"wav2vec2_{args.model_size}_model", jct)

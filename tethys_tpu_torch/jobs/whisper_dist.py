@@ -1,15 +1,16 @@
-"""Whisper distributed training job on one GPU (jobs/whisper_dist.py).
+"""Whisper distributed training job (jobs/whisper_dist.py).
 
     python -m tethys_tpu_torch.jobs.whisper_dist --model_size base \
         --batch_size 16 --num_batches 10 --dtype bfloat16
 
-The reference CLI (``--num_batches``, ``--batch_size``) with the JAX job's
-``--dtype`` and ``--model_size``, its stdout lines, JCT file and
-checkpoints; ``--resume`` restores the newest ``whisper_<size>_*``
-checkpoint and ``--jax_profile DIR`` writes a profiler trace.  ``--device
-cpu`` runs the plain versions of every kernel on the CPU (for small runs).  The JAX job's parallel and capacity flags are
-refused with an error that names where they wait in ROADMAP.md
-(jobs/_common.py).
+One process per replica, as ``jobs.wav2vec2_dist`` runs.  The reference
+CLI (``--num_batches``, ``--batch_size``) with the JAX job's ``--dtype``
+and ``--model_size``, its stdout lines, JCT file and checkpoints;
+``--resume`` restores the newest ``whisper_<size>_*`` checkpoint and
+``--jax_profile DIR`` writes a profiler trace.  ``--device cpu`` runs the
+plain versions of every kernel on the CPU (for small runs).  The JAX job's
+parallel and capacity flags are refused with an error that names where
+they wait in ROADMAP.md (jobs/_common.py).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from tethys_tpu_torch.jobs._common import (
     add_common_flags,
     job_device,
     parse,
+    start_distributed,
 )
 from tethys_tpu_torch.utils.tracing import maybe_profiler_trace
 
@@ -44,9 +46,10 @@ def main(argv=None) -> None:
     from tethys_tpu_torch.train import jobs
     from tethys_tpu_torch.utils import artifacts
 
+    n_replicas = start_distributed(args)
     device = job_device(args)
     print(f"batch size per replica: {args.batch_size}, "
-          f"global batch size: {args.batch_size}")
+          f"global batch size: {args.batch_size * n_replicas}")
     print(f"num_batches: {args.num_batches}")
     print("Whisper-small distributed training starting...")
     artifacts.start_side_captures()
@@ -60,6 +63,7 @@ def main(argv=None) -> None:
             compute_dtype=args.dtype,
             device=device,
             resume=args.resume,
+            collective_report=True,
         )
     jct = time.time() - start
     jobs.finalize_job(result, f"whisper_{args.model_size}_model", jct)

@@ -18,17 +18,23 @@
   ``per_variable_clipnorm(1.0)`` then Keras Adam with eps 1e-8 (reference
   wav2vec2_dist.py:1271-1275).
 * ``make_train_step(loss_fn, optimizer, hardened=False)``: one replica's
-  step -- forward, backward, optimizer -- returning the loss as a detached
-  device tensor (no host sync).  The JAX step logs the SUM of the
-  replicas' losses, which at one replica is the loss itself.  The hardened
-  step (Wav2Vec2, reference wav2vec2_dist.py:1186-1260) scrubs a NaN loss
-  to 0, divides it by the number of replicas N, and clips the replica's
-  gradients to a global norm of 1.0 before the optimizer, whose
-  per-variable clip then clips them again: the reference's double clip
-  (quirk #8), kept.  A parameter that took no gradient (the frozen
-  codevectors) is left out of both clips and of the update, as the JAX
-  step's zero gradient leaves it.  A multi-process world is refused: the
-  data-parallel runtime waits (ROADMAP.md, queue 1 item 5).
+  step -- forward, backward, the gradients' all-reduce, optimizer --
+  returning the loss as a detached device tensor (no host sync).  With a
+  process group up (``parallel/mesh.initialize_distributed``) every rank
+  keeps one replica, and the step aggregates as the JAX step's ``psum``
+  does (the reference's MultiWorkerMirroredStrategy): the gradients are
+  SUMMED over the replicas, not averaged, and so is the logged loss.  The
+  hardened step (Wav2Vec2, reference wav2vec2_dist.py:1186-1260) scrubs a
+  NaN loss to 0, divides it by the number of replicas N, and clips the
+  replica's own gradients to a global norm of 1.0 BEFORE the all-reduce;
+  the optimizer's per-variable clip then clips the sum again: the
+  reference's double clip (quirk #8), kept.  A parameter that took no
+  gradient (the frozen codevectors) is left out of both clips, of the
+  all-reduce and of the update, as the JAX step's zero gradient leaves it.
+* ``GradientReducer``: the SUM all-reduce as flat buckets of about 25 MB,
+  one dtype each, taken after the backward (``DistributedDataParallel``
+  would average, and would start reducing before the hardened clip has
+  seen the replica's whole gradient).
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from typing import Any, Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from tethys_tpu_torch.parallel import mesh
 
 
 class TrainState(NamedTuple):
@@ -138,12 +146,57 @@ def wav2vec2_optimizer(params, learning_rate: float = 3e-5) -> KerasAdam:
 
 LossFn = Callable[[torch.nn.Module, Any, torch.Generator], Any]
 
+BUCKET_BYTES = 25 * 2 ** 20
 
-def _world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+
+class GradientReducer:
+    """SUM all-reduce of one replica's gradients over the process group.
+
+    The gradients are packed in order into flat buckets, one dtype each, a
+    new bucket begun once one holds ``BUCKET_BYTES``; each bucket is
+    all-reduced with SUM and copied back.  The buckets follow the
+    parameters that took a gradient, which is the same list on every rank.
+    ``bytes_per_step`` is what the last step handed to ``all_reduce``
+    (buckets and loss), for the collective report.  Nothing here waits for
+    the device: NCCL queues the all-reduce behind the backward."""
+
+    def __init__(self):
+        self.bytes_per_step = 0
+
+    @staticmethod
+    def buckets(grads: List[torch.Tensor]) -> List[List[torch.Tensor]]:
+        by_dtype = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        out = []
+        for group in by_dtype.values():
+            bucket, size = [], 0
+            for g in group:
+                if bucket and size >= BUCKET_BYTES:
+                    out.append(bucket)
+                    bucket, size = [], 0
+                bucket.append(g)
+                size += g.numel() * g.element_size()
+            out.append(bucket)
+        return out
+
+    def __call__(self, grads: List[torch.Tensor],
+                 loss: torch.Tensor) -> torch.Tensor:
+        """Sums ``grads`` in place over the replicas; returns the SUM of
+        the replicas' ``loss``."""
+        dist = torch.distributed
+        moved = 0
+        for bucket in self.buckets(grads):
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            torch._foreach_copy_(bucket, [
+                part.view_as(g) for part, g in
+                zip(flat.split([g.numel() for g in bucket]), bucket)])
+            moved += flat.numel() * flat.element_size()
+        loss = loss.clone()
+        dist.all_reduce(loss, op=dist.ReduceOp.SUM)
+        self.bytes_per_step = moved + loss.numel() * loss.element_size()
+        return loss
 
 
 def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
@@ -153,12 +206,12 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
     loss_fn(model, batch, generator) -> (scalar loss, aux).  The model and
     the optimizer are updated in place; ``loss`` is detached and stays on
     the device.  ``hardened``: the NaN scrub, 1/N and the global-norm clip
-    (module doc); none of them waits on the device."""
-    n_replicas = _world_size()
-    if n_replicas > 1:
-        raise NotImplementedError(
-            "multi-process data parallelism is not ported yet (ROADMAP.md, "
-            "queue 1 item 5); run one process on one GPU")
+    (module doc); none of them waits on the device.  With a process group
+    up the step sums the gradients and the loss over the replicas
+    (``step.reducer``, a ``GradientReducer``); without one it is the
+    identity of a sum over one replica and reduces nothing."""
+    n_replicas = mesh.world_size()
+    reducer = GradientReducer() if mesh.group_up() else None
 
     def step(state: TrainState, batch, generator: torch.Generator):
         optimizer.zero_grad(set_to_none=True)
@@ -167,20 +220,34 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
             loss = torch.where(torch.isnan(loss), torch.zeros_like(loss),
                                loss) / n_replicas
         loss.backward()
+        loss = loss.detach()
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
         if hardened:
-            clip_by_global_norm([p.grad for p in state.model.parameters()
-                                 if p.grad is not None], 1.0)
+            clip_by_global_norm(grads, 1.0)   # per replica, before the sum
+        if reducer is not None:
+            loss = reducer(grads, loss)
         optimizer.step()
-        return state, loss.detach()
+        return state, loss
 
+    step.reducer = reducer
     return step
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of one step's dropout seeds, a function of (run
-    seed, step) as JAX's fold_in(rng, step) is: a splitmix64 mix of both."""
-    z = ((seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF))
+def _splitmix64(z: int) -> int:
     z = (z + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return torch.Generator().manual_seed(z ^ (z >> 31))
+    return z ^ (z >> 31)
+
+
+def step_generator(seed: int, step: int, replica: int = 0) -> torch.Generator:
+    """The CPU generator of one step's dropout seeds and negatives, a
+    function of (run seed, step) as JAX's fold_in(rng, step) is: a
+    splitmix64 mix of both.  A replica other than 0 folds its rank in with
+    one more mix, as the JAX step's fold_in(rng, axis_index) does, so each
+    replica draws its own; replica 0 keeps the one-process draws."""
+    z = _splitmix64((seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF))
+    if replica:
+        z = _splitmix64(z ^ replica)
+    return torch.Generator().manual_seed(z)

@@ -1,18 +1,30 @@
-"""Job identity from the cluster spec (tethys_tpu/parallel/mesh.py).
+"""The process group and the job identity (tethys_tpu/parallel/mesh.py).
+
+``initialize_distributed()`` is the twin of the JAX package's: one process
+per replica, joined from torchrun's env (``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``, as JAX puts ``JAX_COORDINATOR_ADDRESS``
+first), else from a Kubeflow-style TF_CONFIG that names more than one
+process (``cluster_spec_from_tf_config``: chief first, the chief's address
+as the rendezvous), else standalone with no group, as the reference's dist
+scripts run without TF_CONFIG.  ``group_up``, ``rank``, ``world_size``,
+``local_rank``, ``barrier`` and ``broadcast_object`` read or use the group
+and fall back to one process without it.
 
 ``job_identity()`` reproduces job_name.py's ``<task_type>_<index>`` naming
-(reference job_name.py:1-15) from a Kubeflow-style TF_CONFIG when present,
-else from the torch.distributed rank (0 in a single process).
-``cluster_spec_from_tf_config`` is the plain-Python parser the multi-process
-runtime will use (ROADMAP.md, queue 1 item 5); today the training job uses
-it to refuse a multi-host spec.
+(reference job_name.py:1-15) from TF_CONFIG when present, else from the
+rank (0 in a single process).
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
+
+import torch
+
+_TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
 def _parse_tf_config():
@@ -25,13 +37,46 @@ def _parse_tf_config():
         return None
 
 
-def _rank() -> int:
-    import torch
-
+def group_up() -> bool:
+    """Whether this process has joined a process group."""
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    """This process's rank in the group (0 without one)."""
+    return torch.distributed.get_rank() if group_up() else 0
+
+
+def world_size() -> int:
+    """The number of replicas (1 without a group)."""
+    return torch.distributed.get_world_size() if group_up() else 1
+
+
+def local_rank() -> int:
+    """The card of this process on its host: torchrun's ``LOCAL_RANK``,
+    else 0 (a Kubeflow pod holds one card)."""
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+def barrier() -> None:
+    """Every rank waits here for the others (nothing without a group)."""
+    if not group_up():
+        return
+    dist = torch.distributed
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def broadcast_object(obj: Any) -> Any:
+    """Rank 0's ``obj`` on every rank (itself without a group)."""
+    if not group_up():
+        return obj
+    box = [obj]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def job_identity() -> Tuple[str, int]:
@@ -42,7 +87,7 @@ def job_identity() -> Tuple[str, int]:
         task_type = task.get("type") or "worker"
         task_index = int(task.get("index") or 0)
         return task_type, task_index
-    return "worker", _rank()
+    return "worker", rank()
 
 
 def cluster_spec_from_tf_config(tf_config: dict
@@ -70,3 +115,38 @@ def multi_process_spec() -> Optional[Tuple[str, int, int]]:
     """The TF_CONFIG cluster spec of this job when it names > 1 process."""
     tf_config = _parse_tf_config()
     return cluster_spec_from_tf_config(tf_config) if tf_config else None
+
+
+def initialize_distributed(timeout_s: int = 120,
+                           backend: Optional[str] = None,
+                           device: str = "cuda") -> None:
+    """Join the job's process group when a cluster spec exists (module
+    doc); return at once when the group is already up.
+
+    ``backend`` defaults to ``nccl`` for a job on the card (``device``
+    "cuda", the card ``cuda:<local_rank>`` set first) and to ``gloo`` for
+    one on the CPU.  ``timeout_s`` bounds the rendezvous and every
+    collective, as the reference's 120 s collective-op hardening does
+    (wav2vec2_dist.py:1463-1471)."""
+    if group_up():
+        return
+    if all(os.environ.get(k) for k in _TORCHRUN_ENV):
+        init = dict(init_method="env://")
+    else:
+        spec = multi_process_spec()
+        if spec is None:
+            return
+        coordinator, num_processes, process_id = spec
+        init = dict(init_method=f"tcp://{coordinator}",
+                    world_size=num_processes, rank=process_id)
+    backend = backend or ("nccl" if device == "cuda" else "gloo")
+    if device == "cuda":
+        torch.cuda.set_device(local_rank())
+    torch.distributed.init_process_group(
+        backend, timeout=datetime.timedelta(seconds=timeout_s), **init)
+
+
+def shutdown_distributed() -> None:
+    """Destroy the process group, if one is up."""
+    if group_up():
+        torch.distributed.destroy_process_group()

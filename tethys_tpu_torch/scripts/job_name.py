@@ -3,19 +3,27 @@
 
     python -m tethys_tpu_torch.scripts.job_name
 
-From a Kubeflow-style TF_CONFIG when there is one, else from the
-torch.distributed rank when a process group is initialised, else
-``worker_0`` (``parallel/mesh.job_identity``).
+As the JAX script and the reference's job_name.py:1-15 do: TF_CONFIG's
+``task.type`` and ``task.index`` as they stand (``None`` where one is
+missing; malformed JSON raises), else ``worker_<rank>``, the
+torch.distributed rank (0 without a process group).
 """
 
 from __future__ import annotations
 
-from tethys_tpu_torch.parallel.mesh import job_identity
+import json
+import os
+
+from tethys_tpu_torch.parallel.mesh import rank
 
 
 def main() -> str:
-    task_type, task_index = job_identity()
-    name = f"{task_type}_{task_index}"
+    tf_config = json.loads(os.environ.get("TF_CONFIG") or "{}")
+    task = tf_config.get("task", {})
+    job_name, task_index = task.get("type"), task.get("index")
+    if not tf_config:
+        job_name, task_index = "worker", rank()
+    name = f"{job_name}_{task_index}"
     print(name)
     return name
 

@@ -1,16 +1,24 @@
 """Training job assembly (tethys_tpu/train/jobs.py).
 
 ``train_whisper`` and ``train_wav2vec2``: the model with f32 master
-weights, its optimizer, the synthetic dataset, the one-replica train step
-and the loop, on one device (a CUDA device unless the caller names
-another); ``make_whisper_job`` and ``make_wav2vec2_job`` build the step
-alone (the profiler drives them too).  ``finalize_job``: the JCT print,
-the JCT file and the final weights save.  With ``resume=True`` each
-restores its own newest checkpoint (``whisper_<size>_*`` or ``model_*``)
-into the fresh state and prints ``Resumed from checkpoint <tag>``; the
-loop then starts at step 0 with the same seeds, as the JAX job's does (the
-optimizer's state carries Adam's count).  Only the data-parallel branch on
-one process exists; TP/SP/PP, remat, gradient accumulation and bf16 master
+weights, its optimizer, the synthetic dataset, the train step and the
+loop, on one device (a CUDA device unless the caller names another);
+``make_whisper_job`` and ``make_wav2vec2_job`` build the step alone (the
+profiler drives them too).  ``finalize_job``: the JCT print, the JCT file,
+the final weights save and the end of the process group.  With
+``resume=True`` each restores its own newest checkpoint (``whisper_<size>_*``
+or ``model_*``) into the fresh state and prints ``Resumed from checkpoint
+<tag>``; the loop then starts at step 0 with the same seeds, as the JAX
+job's does (the optimizer's state carries Adam's count).
+
+Data parallelism: when the job's CLI has joined a process group
+(``parallel/mesh.initialize_distributed``), every process builds the model
+from the same seed, feeds its own local batch of
+``batch_size_per_replica`` from the same seeded synthetic dataset (JAX
+jobs.py:200-207) and keeps one replica; the step sums the gradients over
+the replicas (``parallel/dp``), rank 0 writes the checkpoints, and
+``collective_report=True`` writes ``<task>_<idx>_collectives.txt`` on
+every rank.  TP/SP/PP, remat, gradient accumulation and bf16 master
 weights are refused by the CLIs (jobs/) and wait in ROADMAP.md.
 """
 
@@ -26,8 +34,8 @@ from tethys_tpu_torch.checkpoint import CheckpointManager, save_final_weights
 from tethys_tpu_torch.configs import Wav2Vec2Config, WhisperConfig
 from tethys_tpu_torch.models import wav2vec2 as wav2vec2_lib
 from tethys_tpu_torch.models.whisper import create_whisper_model
-from tethys_tpu_torch.parallel import dp
-from tethys_tpu_torch.parallel.mesh import job_identity, multi_process_spec
+from tethys_tpu_torch.parallel import dp, mesh
+from tethys_tpu_torch.profiling.comm import write_collective_report
 from tethys_tpu_torch.train.loop import TrainLoopResult, run_training
 from tethys_tpu_torch.utils.artifacts import write_jct
 from tethys_tpu_torch.utils.device import host_to_device, require_cuda
@@ -55,7 +63,6 @@ def make_whisper_job(
 ) -> TrainJob:
     """The model with f32 master weights (in train mode), the plain step
     with ``whisper_optimizer``, the synthetic dataset."""
-    _refuse_multi_process()
     device = require_cuda() if device is None else torch.device(device)
     model, config = create_whisper_model(
         model_type, device=device, seed=seed, param_dtype=torch.float32,
@@ -96,6 +103,7 @@ def train_whisper(
     device=None,
     step_hooks: tuple = (),
     resume: bool = False,
+    collective_report: bool = False,
 ):
     """End-to-end Whisper training (reference train_whisper,
     speech_jobs/whisper_dist.py:894-958).  Returns (result, model, config)."""
@@ -110,6 +118,8 @@ def train_whisper(
         num_epochs=num_epochs, max_iterations=num_batches,
         prepare_batch=job.prepare_batch, checkpoint_manager=ckpt,
         checkpoint_tag=f"whisper_{model_type}", step_hooks=step_hooks)
+    if collective_report:
+        _emit_collective_report(job.step_fn)
     return result, job.state.model, job.config
 
 
@@ -129,7 +139,6 @@ def make_wav2vec2_job(
     with ``wav2vec2_optimizer``, the synthetic dataset.  Each step draws its
     contrastive negatives, then its dropout seeds, from the step's CPU
     generator."""
-    _refuse_multi_process()
     device = require_cuda() if device is None else torch.device(device)
     model, config = wav2vec2_lib.create_full_model(
         model_type, model_size, device=device, seed=seed, real_ctc=real_ctc,
@@ -180,6 +189,7 @@ def train_wav2vec2(
     device=None,
     step_hooks: tuple = (),
     resume: bool = False,
+    collective_report: bool = False,
 ):
     """End-to-end Wav2Vec2 training (reference train_wav2vec2,
     speech_jobs/wav2vec2_dist.py:1263-1376): pretraining, asr or
@@ -198,6 +208,8 @@ def train_wav2vec2(
         prepare_batch=job.prepare_batch, checkpoint_manager=ckpt,
         checkpoint_every_steps=50 if checkpointing else None,
         checkpoint_tag="model", resilient=True, step_hooks=step_hooks)
+    if collective_report:
+        _emit_collective_report(job.step_fn)
     return result, job.state.model, job.config
 
 
@@ -205,29 +217,40 @@ def _resume(ckpt: CheckpointManager, state: dp.TrainState,
             prefix: str) -> None:
     """Restores the newest checkpoint whose tag starts with ``prefix`` (the
     job's own tag and its underscore, so ``whisper_large`` never takes
-    ``whisper_large-v3``'s) into ``state``, if there is one."""
-    latest = ckpt.latest_tag(prefix=prefix)
+    ``whisper_large-v3``'s) into ``state``, if there is one: rank 0's, on
+    every rank."""
+    latest = mesh.broadcast_object(
+        ckpt.latest_tag(prefix=prefix) if mesh.rank() == 0 else None)
     if latest:
         ckpt.restore_like(latest, state)
         print(f"Resumed from checkpoint {latest}")
 
 
-def _refuse_multi_process() -> None:
-    if multi_process_spec() is not None:
-        raise NotImplementedError(
-            "TF_CONFIG names more than one process: multi-process data "
-            "parallelism is not ported yet (ROADMAP.md, queue 1 item 5)")
+def _emit_collective_report(step_fn) -> None:
+    """``<task>_<idx>_collectives.txt`` from the bytes the step's last
+    all-reduce moved, when a process group is up (the JAX job's
+    ``_emit_collective_report``, tethys_tpu/train/jobs.py:78-99)."""
+    if step_fn.reducer is None:
+        return
+    task_type, task_index = mesh.job_identity()
+    path = write_collective_report(
+        {"all-reduce": step_fn.reducer.bytes_per_step}, task_type, task_index)
+    if path:
+        print(f"collective report: {path}")
 
 
 def finalize_job(result: TrainLoopResult, name: str, jct_seconds: float,
                  single: bool = False) -> None:
     """JCT print + file (``single_jct.txt`` with ``single``) + final weights
-    save (reference speech_jobs/whisper_dist.py:1001-1026)."""
+    save (reference speech_jobs/whisper_dist.py:1001-1026), then the end of
+    the process group.  Every rank writes its own JCT file; rank 0 alone
+    saves the weights."""
     print("Training completed.")
     print("jct:", jct_seconds)
-    task_type, task_index = job_identity()
+    task_type, task_index = mesh.job_identity()
     write_jct(jct_seconds, task_type, task_index, single=single)
     try:
         save_final_weights(result.state.model, name)
     except Exception as e:  # noqa: BLE001 — missing volume must not kill job
         print(f"final weight save failed: {e}")
+    mesh.shutdown_distributed()

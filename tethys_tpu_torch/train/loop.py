@@ -12,7 +12,10 @@ dispatched (the device runs it asynchronously), then step i-1's loss is
 fetched with ``.item()`` and printed, so the host waits for the device
 only once per step and the printed step times are the device's steady
 state.  The pending step is flushed before every checkpoint.  Each step's
-dropout seeds come from a CPU generator made from (seed, step).
+dropout seeds come from a CPU generator made from (seed, step) and the
+replica's rank (``dp.step_generator``).  Every process prints its own
+lines, as the JAX loop does; under a process group the loss they print is
+the SUM over the replicas, the same on every rank.
 
 Wav2Vec2's parts: ``checkpoint_every_steps`` saves ``{tag}_step_{N}``
 every N steps, and ``resilient=True`` swallows a step's exception, prints
@@ -30,6 +33,7 @@ from typing import Any, Callable, Iterable, NamedTuple, Optional
 import numpy as np
 
 from tethys_tpu_torch.checkpoint import CheckpointManager
+from tethys_tpu_torch.parallel import mesh
 from tethys_tpu_torch.parallel.dp import step_generator
 
 
@@ -65,6 +69,7 @@ def run_training(
     step_hooks: tuple = (),          # callables(step, loss, duration)
 ) -> TrainLoopResult:
     losses, step_times = [], []
+    replica = mesh.rank()
     step = 0
     iterator = iter(dataset)
     start_time = time.time()
@@ -126,7 +131,7 @@ def run_training(
                 if prepare_batch is not None:
                     batch = prepare_batch(batch)
                 state, loss = step_fn(state, batch,
-                                      step_generator(seed, step))
+                                      step_generator(seed, step, replica))
                 # Register step i, then wait for step i-1: if that fetch
                 # raises, step i stays in the pipeline.
                 prev, pending = pending, (step, loss, step_start)

@@ -12,15 +12,21 @@ import subprocess
 
 import torch
 
+from tethys_tpu_torch.parallel.mesh import local_rank
+
 
 def require_cuda() -> torch.device:
-    """The first CUDA device, or RuntimeError when there is none."""
+    """This process's card, ``cuda:<local_rank>`` (``parallel/mesh.
+    local_rank``), made the current device; RuntimeError when there is no
+    card."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port runs on an NVIDIA GPU unless the caller "
             "asks for the CPU "
             "(torch.cuda.is_available() is False)")
-    return torch.device("cuda", 0)
+    device = torch.device("cuda", local_rank())
+    torch.cuda.set_device(device)
+    return device
 
 
 def card_name_and_power() -> str:
