@@ -66,8 +66,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
 10. launch counts: set to 0 before each path (serving: phases 4-5,
    training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13,
    flash bench: phase 14, frontend: phase 15, training bench: phase 16,
-   resume: phase 17, data parallel: phase 18, with the launches of the
-   processes it starts)
+   resume: phase 17, data parallel: phase 18, tensorsize: phase 19, with
+   the launches of the processes they start)
    and read after it; every kernel of a path must have launched during it,
    and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
    as often as gn_grad_sums;
@@ -123,7 +123,23 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    tensors), wav2vec2-base f32 b2 a rank, 2 hardened steps, rates 0: the
    two ranks' parameters are identical, and they, their losses and the
    summed gradient's norm agree, within phase 8's tolerances, with one
-   process that sums both replicas' clipped 1/N-scaled gradients.
+   process that sums both replicas' clipped 1/N-scaled gradients;
+19. the tensorsize jobs: (a) the NVML monitor daemon (tethys_tpu_torch/
+   monitor, built with g++) runs while python -m tethys_tpu_torch.jobs.
+   whisper_dist_tensorsize --batch_size 4 --num_batches 8 --dtype bfloat16
+   and wav2vec2_dist_tensorsize --model_size base --batch_size 32
+   --num_batches 8 --dtype bfloat16 run, each in a process of its own with
+   a workspace and a result dir of its own, then whisper_dist at the
+   whisper job's flags (unprofiled); each exits 0 and every file of the
+   JAX job's list exists and parses (the profiler's nine and the four
+   /result copies), gpu_memory_mb > 0, every Wav2Vec2 value skew is
+   finite; ms/step over steps 3-7 is logged beside phases 7, 9 and 18(a),
+   the value skews of wav2vec2-base's gradients are timed batched and one
+   tensor at a time, and each job's train call runs 10 steps in this
+   process without and with the profiler, in turns (off, on, on, off); (b) each step logged as many rows and as many MB
+   as the census computed here on the CPU at the same shapes; (c) every
+   line of the daemon is the reference's, names torch's card, Mem Usage is
+   nonzero and GPU Util nonzero on some line while a job ran.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -190,6 +206,11 @@ PATH_KERNELS = {
                "gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd"),
     "data_parallel": ("gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd",
                       "dropout"),
+    # The training path's kernels but flash_fwd, which runs at rate 0 only
+    # (phase 6), and the Wav2Vec2 path's.
+    "tensorsize": ("split_heads", "merge_heads", "flash_fwd_dropout",
+                   "flash_bwd", "dropout", "gn_stats", "gn_grad_sums",
+                   "gn_apply", "gn_apply_bwd"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -1428,8 +1449,9 @@ def run_train_f32() -> None:
           2 * lr * TRAIN_F32_STEPS)
 
 
-def run_train_bf16(gpu: str) -> dict:
-    """Phase 7: the training job's loop at the bench's shape."""
+def run_train_bf16(gpu: str, measured: dict) -> dict:
+    """Phase 7: the training job's loop at the bench's shape; its step
+    times go into ``measured`` for phase 19."""
     from tethys_tpu_torch.train import jobs
     from tethys_tpu_torch.utils.device import require_cuda
 
@@ -1446,7 +1468,8 @@ def run_train_bf16(gpu: str) -> dict:
         result, _, cfg = jobs.train_whisper(
             model_type=MODEL, batch_size_per_replica=TRAIN_BATCH,
             num_batches=TRAIN_STEPS, compute_dtype="bfloat16", device=dev,
-            seed=SEED, step_hooks=(lambda i, loss, dur: step_times.append(dur),))
+            seed=SEED,
+            step_hooks=(lambda i, loss, dur, aux: step_times.append(dur),))
         jct = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         jobs.finalize_job(result, f"whisper_{MODEL}_model", jct)
@@ -1474,6 +1497,7 @@ def run_train_bf16(gpu: str) -> dict:
         f" {stats['audio_s_per_s']:.1f} audio-s/s, peak memory "
         f"{stats['peak_mem_gib']:.2f} GiB")
     log("  training " + json.dumps(stats))
+    measured["whisper_step_ms"] = stats["step_ms"]
     return stats
 
 
@@ -1628,7 +1652,7 @@ def run_w2v_bf16(gpu: str, measured: dict) -> dict:
                 batch_size_per_replica=W2V_BATCH, num_batches=W2V_STEPS,
                 compute_dtype="bfloat16", audio_length=W2V_SAMPLES,
                 device=dev, seed=SEED,
-                step_hooks=(lambda i, loss, dur: step_times.append(dur),))
+                step_hooks=(lambda i, loss, dur, aux: step_times.append(dur),))
         finally:
             sys.stdout = tee.out
         jct = time.perf_counter() - t0
@@ -2189,6 +2213,7 @@ def run_dist_cli(measured: dict, child: dict) -> None:
             f"{[k for k in rose if not grouped[0]['counts'][k]]}")
     first, last = TRAIN_WARMUP, W2V_STEPS - 2
     phase9 = measured["w2v_step_ms"][first + 1:last + 1]
+    measured["w2v_cli_ms"] = [round(runs[0]["ms"], 2), round(runs[3]["ms"], 2)]
     log(f"  18(a) wav2vec2-base b{W2V_BATCH} bf16, ms/step over steps "
         f"{first + 1}-{last} (each run a process of its own): alone "
         f"{runs[0]['ms']:.2f}, nccl world of one {runs[1]['ms']:.2f}, "
@@ -2451,6 +2476,298 @@ def run_gloo_two_ranks(child: dict) -> None:
           2 * W2V_LR * W2V_F32_STEPS)
 
 
+# Phase 19: the two tensorsize jobs, each in a process of its own, under the
+# NVML monitor daemon.  (label, module, flags, log dir, census)
+TS_STEPS = 8
+TS_WHISPER_BATCH = 4
+TS_JOBS = (
+    ("whisper-small", "tethys_tpu_torch.jobs.whisper_dist_tensorsize",
+     ("--batch_size", str(TS_WHISPER_BATCH), "--num_batches", str(TS_STEPS),
+      "--dtype", "bfloat16"), "tensor_logs"),
+    ("wav2vec2-base", "tethys_tpu_torch.jobs.wav2vec2_dist_tensorsize",
+     ("--model_size", W2V_MODEL, "--batch_size", str(W2V_BATCH),
+      "--num_batches", str(TS_STEPS), "--dtype", "bfloat16"),
+     f"tensor_logs_{W2V_MODEL}"),
+)
+TS_FILES = ("tensor_sizes.txt", "memory_usage.txt", "summary.txt",
+            "tiresias_tensorsize.txt", "skewness_analysis.txt",
+            "skewness_analysis.json", "final_summary.json",
+            "tiresias_result.json", "legacy_skewness_result.txt")
+TS_COPIES = ("tensor_summary", "tiresias", "skewness", "combined")
+# Runs ``python -m <module> <flags>`` (the module is the first argument),
+# then prints the process's launch counts on a line of their own; a run
+# past 240 s prints every thread's stack and exits.
+RUN_MODULE = (
+    "import faulthandler, json, runpy, sys\n"
+    "faulthandler.dump_traceback_later(240, exit=True)\n"
+    "sys.argv[0] = sys.argv.pop(1)\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+    "from tethys_tpu_torch.utils import kernel_lib\n"
+    "print('LAUNCHES ' + json.dumps(kernel_lib.launch_counts()))\n")
+MONITOR_RE = re.compile(r"^\s*\d+:\d+:\d+:\d+  Device (\d+): (.+?)  GPU Util: "
+                        r"(\d+)  Mem Util: (\d+) Mem Usage: (\d+)$")
+
+
+def monitor_lines(path: str) -> list:
+    """The daemon's lines so far (each ends in "\n ", as the reference's
+    printf: the blank remainder is not a line)."""
+    with open(path) as fh:
+        return [line for line in fh.read().splitlines() if line.strip()]
+
+
+def run_module(ws: str, module: str, *flags: str) -> dict:
+    """``module``'s CLI in a process of its own, in the workspace ``ws``:
+    its lines, launch counts and ms/step over steps 3-7 (the loop's
+    elapsed column, from step 2's line to step 7's, over 5)."""
+    with open(os.path.join(ws, "model.txt"), "w") as fh:
+        fh.write("chip_smoke")
+    os.makedirs(os.path.join(ws, "chip_smoke"), exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    env.update(TETHYS_WORKSPACE=ws, TETHYS_RESULT=ws, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    log(f"  {time.strftime('%H:%M:%S')} python -m {module} {' '.join(flags)}")
+    proc = subprocess.run([sys.executable, "-c", RUN_MODULE, module, *flags],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    require(proc.returncode == 0, f"{module} exited {proc.returncode}:\n"
+            + proc.stdout[-3000:] + proc.stderr[-3000:])
+    out = proc.stdout.splitlines()
+    require("Error at step" not in proc.stdout, f"a step failed in {module}")
+    steps = [ELAPSED_RE.match(line) for line in out]
+    steps = [(int(m[1]), float(m[2]), float(m[3])) for m in steps if m]
+    require([i for i, _, _ in steps] == list(range(TS_STEPS))
+            and all(np.isfinite(loss) for _, loss, _ in steps),
+            f"{module}'s step lines {steps}")
+    counts = json.loads(next(line for line in out
+                             if line.startswith("LAUNCHES "))[9:])
+    ms = (steps[7][2] - steps[2][2]) / 5 * 1e3
+    return {"out": out, "counts": counts, "ms": ms,
+            "seconds": time.perf_counter() - t0}
+
+
+def read_csv(path: str) -> list:
+    import csv
+
+    with open(path) as fh:
+        return list(csv.DictReader(fh))
+
+
+def census_mb(inventories) -> tuple:
+    """(rows, MB as the profiler writes it) of a step's static rows."""
+    rows = [row for inventory, _ in inventories for row in inventory]
+    return len(rows), f"{sum(row[3] for row in rows) / (1024 * 1024):.4f}"
+
+
+def check_tensorsize_logs(label: str, ws: str, log_dir: str,
+                          want_rows: int, want_mb: str) -> dict:
+    """Every file of the JAX job's list exists and parses; each step logged
+    the census's rows and total (phase 19(b)); gpu_memory_mb > 0."""
+    logs = os.path.join(ws, log_dir)
+    for name in TS_FILES:
+        require(os.path.exists(os.path.join(logs, name)),
+                f"{label}: no {log_dir}/{name}")
+    sizes = read_csv(os.path.join(logs, "tensor_sizes.txt"))
+    tiresias = read_csv(os.path.join(logs, "tiresias_tensorsize.txt"))
+    memory = read_csv(os.path.join(logs, "memory_usage.txt"))
+    summary = read_csv(os.path.join(logs, "summary.txt"))
+    per_step = {}
+    for row in sizes:
+        if row["tensor_type"] != "parameter":
+            per_step[row["step"]] = per_step.get(row["step"], 0) + 1
+    require([r["step"] for r in tiresias] == [str(i) for i in range(TS_STEPS)]
+            and len(summary) == len(memory) == TS_STEPS,
+            f"{label}: steps logged {[r['step'] for r in tiresias]}")
+    require(all(r["tensorsize_mb"] == want_mb for r in tiresias),
+            f"{label}: step totals {[r['tensorsize_mb'] for r in tiresias]}"
+            f" MB, the CPU census {want_mb} MB")
+    require(set(per_step.values()) == {want_rows},
+            f"{label}: rows a step {per_step}, the CPU census {want_rows}")
+    gpu_mb = [float(r["gpu_memory_mb"]) for r in memory]
+    require(all(mb > 0 for mb in gpu_mb), f"{label}: gpu_memory_mb {gpu_mb}")
+    docs = {}
+    for name in ("skewness_analysis.json", "final_summary.json",
+                 "tiresias_result.json"):
+        with open(os.path.join(logs, name)) as fh:
+            docs[name] = json.load(fh)
+    for name in ("skewness_analysis.txt", "legacy_skewness_result.txt"):
+        with open(os.path.join(logs, name)) as fh:
+            docs[name] = fh.read()
+    require(docs["skewness_analysis.txt"].startswith(
+        "=== Tensor Skewness Analysis ===") and docs[
+        "legacy_skewness_result.txt"].startswith("model,skewness\n"),
+        f"{label}: skewness_analysis.txt / legacy_skewness_result.txt")
+    result = docs["tiresias_result.json"]
+    require(result["total_steps"] == TS_STEPS
+            and f"{result['tensorsize_mb']:.4f}" == want_mb,
+            f"{label}: tiresias_result.json {result}")
+    for suffix in TS_COPIES:
+        path = os.path.join(ws, "chip_smoke", f"worker_0_{suffix}.txt")
+        require(os.path.exists(path), f"{label}: no /result copy {path}")
+        with open(path) as fh:
+            require(len(fh.read().splitlines()) >= 2, f"{label}: {path}")
+    log(f"  {label}: {TS_STEPS} steps of {want_rows} rows, {want_mb} MB a "
+        f"step (Tiresias {result['tensorsize_mb']:.2f} MB, model skewness "
+        f"{result['skewness']:.2f}); gpu_memory_mb {min(gpu_mb):.2f}-"
+        f"{max(gpu_mb):.2f}")
+    return docs
+
+
+def skew_times() -> None:
+    """Phase 19: the value skews of wav2vec2-base's ~200 gradients, as
+    tree_value_skewness takes them (all at once) and one value_skewness a
+    tensor, by CUDA events."""
+    from tethys_tpu_torch.configs import Wav2Vec2Config
+    from tethys_tpu_torch.models import wav2vec2
+    from tethys_tpu_torch.profiling import tensorsize
+
+    with torch.device("meta"):
+        model = wav2vec2.Wav2Vec2ForPreTraining(Wav2Vec2Config.from_size(
+            W2V_MODEL))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = {name: torch.randn(p.shape, generator=gen, device="cuda")
+             for name, p in model.named_parameters()}
+    batched = tensorsize.tree_value_skewness(grads, "g")
+    each = {f"g/{n}": tensorsize.value_skewness(g)
+            for n, g in grads.items() if g.numel() > 1}
+    check("19 batched gradient skews against one value_skewness a tensor",
+          max(abs(batched[k].item() - v.item()) for k, v in each.items()),
+          1e-4)
+    ms = event_ms(lambda: tensorsize.tree_value_skewness(grads, "g"), 10)
+    loop_ms = event_ms(lambda: [tensorsize.value_skewness(g)
+                                for g in grads.values() if g.numel() > 1], 10)
+    n = sum(p.numel() for p in grads.values())
+    log(f"  19 value skews of {len(each)} gradients ({n} f32): "
+        f"tree_value_skewness {ms:.4f} ms, one value_skewness a tensor "
+        f"{loop_ms:.4f} ms (device time, CUDA events)")
+
+
+def profiler_cost() -> None:
+    """Phase 19: what the profiler costs a step, in this process: each
+    tensorsize job's train call at the jobs' shapes, 10 steps, without and
+    with a TensorProfiler in turns (off, on, on, off); the median of steps
+    3-9 of the loop's step times."""
+    from tethys_tpu_torch.profiling.tensorsize import TensorProfiler
+    from tethys_tpu_torch.train import jobs
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    common = dict(num_batches=TRAIN_STEPS, compute_dtype="bfloat16",
+                  device=dev, seed=SEED, checkpointing=False)
+    runs = {
+        "whisper": lambda **kw: jobs.train_whisper(
+            model_type="small", batch_size_per_replica=TS_WHISPER_BATCH,
+            **common, **kw),
+        "wav2vec2": lambda **kw: jobs.train_wav2vec2(
+            model_type="pretraining", model_size=W2V_MODEL,
+            batch_size_per_replica=W2V_BATCH, audio_length=W2V_SAMPLES,
+            **common, **kw),
+    }
+    for flavor, train in runs.items():
+        ms = {False: [], True: []}
+        for on in (False, True, True, False):
+            times = []
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as logs:
+                profiler = (TensorProfiler(log_dir=logs, flavor=flavor,
+                                           device=dev) if on else None)
+                train(profiler=profiler, step_hooks=(
+                    lambda i, loss, dur, aux: times.append(dur),))
+                if profiler is not None:
+                    profiler.close()
+            ms[on].append(round(statistics.median(times[3:]) * 1e3, 2))
+        log(f"  19 {flavor} in this process, ms/step (median of steps "
+            f"3-{TRAIN_STEPS - 1}), off/on/on/off: {ms[False][0]}, "
+            f"{ms[True][0]}, {ms[True][1]}, {ms[False][1]}")
+
+
+def run_tensorsize(measured: dict, child: dict) -> None:
+    """Phase 19: (a) the NVML monitor daemon, then the two tensorsize jobs
+    and whisper_dist at the whisper job's flags, each in a process of its
+    own: exit 0, every artifact present and parsed, the Wav2Vec2 value
+    skews finite, ms/step beside phases 7 and 9 and phase 18(a)'s CLI,
+    and each job's train call without and with the profiler in turns;
+    (b) each step's rows and total equal the census computed here on the
+    CPU at the same shapes; (c) the daemon's lines name the card, with a
+    nonzero Mem Usage, and a nonzero GPU Util while a job ran."""
+    from tethys_tpu_torch.configs import Wav2Vec2Config, WhisperConfig
+    from tethys_tpu_torch.monitor import daemon
+    from tethys_tpu_torch.train import jobs
+
+    census = {
+        "whisper-small": census_mb(jobs.whisper_inventories(
+            WhisperConfig.from_size("small", compute_dtype="bfloat16"),
+            TS_WHISPER_BATCH)),
+        "wav2vec2-base": census_mb(jobs.wav2vec2_inventories(
+            Wav2Vec2Config.from_size(W2V_MODEL, compute_dtype="bfloat16"),
+            W2V_BATCH, W2V_SAMPLES)),
+    }
+    log(f"  19(b) the CPU census of a step (rows, MB): {census}")
+    skew_times()
+
+    binary = daemon.build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as mon_dir:
+        mon_path = os.path.join(mon_dir, "gpu.txt")
+        with open(mon_path, "w") as mon_out:
+            monitor = subprocess.Popen([str(binary)], stdout=mon_out,
+                                       stderr=subprocess.PIPE, text=True)
+        try:
+            time.sleep(0.5)
+            if monitor.poll() is not None:
+                raise AssertionError("the monitor daemon exited: "
+                                     + monitor.stderr.read())
+            runs, spans = {}, {}
+            for label, module, flags, log_dir in TS_JOBS:
+                with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+                    before = len(monitor_lines(mon_path))
+                    runs[label] = run_module(ws, module, *flags)
+                    spans[label] = (before, len(monitor_lines(mon_path)))
+                    docs = check_tensorsize_logs(label, ws, log_dir,
+                                                 *census[label])
+                if label.startswith("wav2vec2"):
+                    skews = docs["skewness_analysis.json"]["value_skewness"]
+                    require(len(skews) > 100 and all(
+                        np.isfinite(v) for v in skews.values()),
+                        f"wav2vec2 value skews {skews}")
+                    log(f"  {len(skews)} value skews, all finite: "
+                        f"input {skews['input/input_values']:.4f}, logits "
+                        f"{skews['output/logits']:.4f}")
+                add_counts(child, runs[label]["counts"])
+                log(f"  {label}: {runs[label]['ms']:.2f} ms/step over steps "
+                    f"3-7, {runs[label]['seconds']:.1f} s in its process")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+                plain = run_module(ws, "tethys_tpu_torch.jobs.whisper_dist",
+                                   *TS_JOBS[0][2])
+            add_counts(child, plain["counts"])
+            profiler_cost()
+        finally:
+            monitor.terminate()
+            monitor.wait(timeout=30)
+        lines = monitor_lines(mon_path)
+    name = torch.cuda.get_device_name(0)
+    samples = [MONITOR_RE.match(line) for line in lines]
+    require(all(samples), "monitor lines that are not the reference's: "
+            + repr([ln for ln, m in zip(lines, samples) if not m][:3]))
+    card = [m for m in samples if m[1] == "0"]
+    require(card and all(m[2] == name for m in card),
+            f"the daemon names {sorted({m[2] for m in card})}, torch {name}")
+    require(max(int(m[5]) for m in card) > 0, "Mem Usage 0 on every line")
+    during = [int(MONITOR_RE.match(lines[i])[3]) for a, b in spans.values()
+              for i in range(a, b) if MONITOR_RE.match(lines[i])[1] == "0"]
+    require(during and max(during) > 0,
+            f"GPU Util 0 on every line while a job ran ({len(during)})")
+    log(f"  19(c) the daemon: {len(lines)} lines, e.g. {lines[len(lines) // 2]!r};"
+        f" GPU Util while the jobs ran: max {max(during)}, median "
+        f"{statistics.median(during)} over {len(during)} samples")
+    phase9 = measured["w2v_step_ms"][3:8]
+    log(f"  19 ms/step over steps 3-7, bf16: whisper-small b"
+        f"{TS_WHISPER_BATCH} profiled {runs['whisper-small']['ms']:.2f}, "
+        f"unprofiled (whisper_dist, same flags) {plain['ms']:.2f}; "
+        f"wav2vec2-base b{W2V_BATCH} profiled "
+        f"{runs['wav2vec2-base']['ms']:.2f}, unprofiled: phase 18(a)'s CLI "
+        f"alone {measured['w2v_cli_ms']}, phase 9 (in this process) "
+        f"{statistics.mean(phase9):.2f}; phase 7 (whisper-base b"
+        f"{TRAIN_BATCH}) {statistics.mean(measured['whisper_step_ms'][3:8]):.2f}")
+
+
 def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -2511,7 +2828,8 @@ def main() -> int:
         ("[5] whisper-base bf16 serving", run_slice_bf16, gpu)))
     training = drive_path("training", (
         ("[6] whisper-base f32 training, card against cpu", run_train_f32),
-        ("[7] whisper-base bf16 training job", run_train_bf16, gpu)))
+        ("[7] whisper-base bf16 training job", run_train_bf16, gpu,
+         measured)))
     w2v = drive_path("wav2vec2", (
         ("[8] wav2vec2-base f32 pretraining, card against cpu", run_w2v_f32),
         ("[9] wav2vec2-base bf16 pretraining job", run_w2v_bf16, gpu,
@@ -2555,9 +2873,14 @@ def main() -> int:
          run_dist_identity),
         ("[18b] two ranks on the card over gloo against one process",
          run_gloo_two_ranks, child)), child_counts=child)
+    child = {}
+    tensorsize = drive_path("tensorsize", (
+        ("[19] the tensorsize jobs under the NVML monitor, whisper-small b"
+         f"{TS_WHISPER_BATCH} and wav2vec2-base b{W2V_BATCH} bf16",
+         run_tensorsize, measured, child),), child_counts=child)
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
               + flash_bench[k] + frontend[k] + train_bench[k] + resume[k]
-              + data_parallel[k] for k in serving}
+              + data_parallel[k] + tensorsize[k] for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")

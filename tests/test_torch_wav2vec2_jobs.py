@@ -380,9 +380,9 @@ def test_train_wav2vec2_uses_the_hardened_chain(monkeypatch):
     built = {}
     real = dp.make_train_step
 
-    def spy(loss_fn, optimizer, hardened=False):
+    def spy(loss_fn, optimizer, hardened=False, **kwargs):
         built.update(hardened=hardened, optimizer=optimizer)
-        return real(loss_fn, optimizer, hardened=hardened)
+        return real(loss_fn, optimizer, hardened=hardened, **kwargs)
 
     monkeypatch.setattr(dp, "make_train_step", spy)
     result, model, config = jobs.train_wav2vec2(

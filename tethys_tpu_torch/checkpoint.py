@@ -20,9 +20,9 @@ A save writes into a hidden temporary directory and renames it into place,
 so a save cut short leaves no half-written tag, and a tag saved again
 becomes the newest: ``latest_tag`` orders the tags by the time their save
 finished.  The optimizer's state dict carries ``KerasAdam``'s step count,
-so a restored run goes on with the same bias corrections.  The torch ->
-flax inverse of ``convert.params_from_flax`` is not ported yet (ROADMAP.md,
-queue 1 item 4).
+so a restored run goes on with the same bias corrections.  The weights
+map to the flax params tree with ``convert.flax_from_state_dict`` (the
+inverse of ``convert.params_from_flax``).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Flax parameter tree -> state_dict of the port's Whisper and Wav2Vec2 models.
+"""Flax parameter tree <-> state_dict of the port's Whisper and Wav2Vec2 models.
 
 Flax paths become module paths: ``model/encoder/layers_0/self_attn/q_proj``
 -> ``model.encoder.layers.0.self_attn.q_proj``.  Leaves:
@@ -15,18 +15,31 @@ Flax paths become module paths: ``model/encoder/layers_0/self_attn/q_proj``
 
 Values stay f32; ``load_state_dict`` casts them to the dtype the model
 holds (config.dtype).
+
+The inverse: ``flax_path(name, ndim)`` and ``flax_shape(name, shape)`` give
+a state_dict leaf's flax path and shape (a ``weight`` of rank 1 is a
+LayerNorm ``scale``, of rank 3 a Conv ``kernel``, of rank 2 a Dense
+``kernel`` unless it is an embedding's table; Dense and Conv kernels are
+transposed back), and ``flax_from_state_dict`` the whole nested tree, so
+``params_from_flax(flax_from_state_dict(sd))`` equals ``sd``.  The
+tensorsize profiler names its parameter and gradient rows with them, as the
+JAX profiler names them from the flax tree.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 _LAYER = re.compile(r"^layers_(\d+)$")
 _NAMED = ("gamma", "beta", "codevectors", "layer_weights")
+_INDEX = re.compile(r"^\d+$")
+# The port's nn.Embedding modules: their 2-D ``weight`` is flax's
+# ``embedding`` [vocab, E], kept as it is.
+_EMBEDDINGS = ("embed_tokens",)
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -73,3 +86,60 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         arr = _convert_leaf(path, value).astype(np.float32)
         state[torch_name(path)] = torch.tensor(arr)  # a contiguous copy
     return state
+
+
+def flax_module_path(name: str) -> Tuple[str, ...]:
+    """A module's dotted name -> its flax path: 'model.encoder.layers.0'
+    -> ('model', 'encoder', 'layers_0'); '' (the root) -> ()."""
+    path = []
+    for part in name.split(".") if name else ():
+        if _INDEX.match(part) and path and path[-1] == "layers":
+            path[-1] = f"layers_{part}"
+        else:
+            path.append(part)
+    return tuple(path)
+
+
+def flax_path(name: str, ndim: int) -> Tuple[str, ...]:
+    """'model.encoder.layers.0.fc1.weight' (of rank ``ndim``) -> ('model',
+    'encoder', 'layers_0', 'fc1', 'kernel'): the inverse of ``torch_name``."""
+    parts = name.split(".")
+    path = list(flax_module_path(".".join(parts[:-1])))
+    leaf = parts[-1]
+    if leaf == "weight":
+        if ndim == 1:
+            leaf = "scale"
+        elif ndim == 2 and path[-1] in _EMBEDDINGS:
+            leaf = "embedding"
+        elif ndim in (2, 3):
+            leaf = "kernel"
+        else:
+            raise ValueError(f"{name}: weight of rank {ndim}")
+    elif leaf not in ("bias",) + _NAMED:
+        raise ValueError(f"{name}: unknown leaf {leaf!r}")
+    return tuple(path) + (leaf,)
+
+
+def flax_shape(name: str, shape: Sequence[int]) -> Tuple[int, ...]:
+    """The flax shape of the state_dict leaf ``name`` of ``shape``: Dense
+    kernels [in, out], Conv kernels [k, in / groups, out]."""
+    shape = tuple(int(n) for n in shape)
+    if flax_path(name, len(shape))[-1] == "kernel":
+        return shape[::-1]
+    return shape
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> dict:
+    """state_dict of the port's model -> the flax ``params`` tree (nested
+    dict of f32 numpy arrays) that ``params_from_flax`` maps back to it."""
+    tree: dict = {}
+    for name, tensor in state.items():
+        value = tensor.detach().cpu().float().numpy()
+        path = flax_path(name, value.ndim)
+        if path[-1] == "kernel":
+            value = value.transpose(tuple(range(value.ndim))[::-1])
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(value)
+    return tree

@@ -48,6 +48,7 @@ from tethys_tpu_torch.ops.conv import conv1d_same
 from tethys_tpu_torch.ops.dropout import module_dropout
 from tethys_tpu_torch.ops.masks import padding_additive_mask
 from tethys_tpu_torch.ops.norms import LayerNorm, ReferenceGroupNorm
+from tethys_tpu_torch.profiling.capture import record
 from tethys_tpu_torch.utils.device import require_cuda
 
 Generator = Optional[torch.Generator]
@@ -243,6 +244,8 @@ class Wav2Vec2ProjectionHead(nn.Module):
 class Wav2Vec2Quantizer(nn.Module):
     """Hard (argmin) product quantizer, not Gumbel-softmax, by design."""
 
+    census_skip = ("indices",)   # the port's extra output (chip_smoke.py)
+
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         self.config = config
@@ -288,6 +291,10 @@ class Wav2Vec2Model(nn.Module):
     project_q live here, as in the flax tree (the other heads never call
     them, so flax makes no parameters for them)."""
 
+    # The quantizer's argmin indices and distances, which the JAX model
+    # does not return; chip_smoke.py compares them card against CPU.
+    census_skip = ("codevector_indices", "codevector_distances")
+
     def __init__(self, config: Wav2Vec2Config, projection_heads: bool = False):
         super().__init__()
         self.config = config
@@ -314,6 +321,7 @@ class Wav2Vec2Model(nn.Module):
             self.feature_projection(extract))
         hidden = module_dropout(hidden, cfg.hidden_dropout, self.training,
                                 generator)
+        record(self, hidden, name="feature_projection_dropout")
         result = {"extract_features": extract}
         if self.training:
             quantized = self.quantizer(hidden)
@@ -327,6 +335,8 @@ class Wav2Vec2Model(nn.Module):
 
 
 class Wav2Vec2ForPreTraining(nn.Module):
+    census_skip = Wav2Vec2Model.census_skip
+
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         self.config = config
@@ -378,6 +388,7 @@ class Wav2Vec2ForCTC(nn.Module):
         outputs = self.wav2vec2(inputs, attention_mask, generator)
         hidden = module_dropout(outputs["last_hidden_state"],
                                 cfg.hidden_dropout, self.training, generator)
+        record(self, hidden, name="dropout")
         logits = self.lm_head(hidden)
         loss = None
         if self.training and labels is not None:
@@ -416,6 +427,7 @@ class Wav2Vec2ForSequenceClassification(nn.Module):
         pooled = torch.tanh(self.projector(pooled))
         pooled = module_dropout(pooled, cfg.hidden_dropout, self.training,
                                 generator)
+        record(self, pooled, name="dropout")
         logits = self.classifier(pooled)
         loss = None
         if self.training and labels is not None:

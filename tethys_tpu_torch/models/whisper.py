@@ -64,6 +64,8 @@ from tethys_tpu_torch.ops.masks import causal_additive_mask
 from tethys_tpu_torch.ops.norms import LayerNorm
 from tethys_tpu_torch.ops.posenc import sinusoidal_table
 from tethys_tpu_torch.ops.qkv import merge_project, project_split
+from tethys_tpu_torch.profiling import capture
+from tethys_tpu_torch.profiling.capture import record
 from tethys_tpu_torch.utils.device import require_cuda
 
 Cache = Dict[str, torch.Tensor]   # {"k": [B, H, D, T_max], "v": ...}
@@ -71,12 +73,22 @@ Generator = Optional[torch.Generator]
 
 
 @functools.lru_cache(maxsize=8)
-def _positions(max_len: int, d_model: int, device: torch.device) -> torch.Tensor:
+def _cached_positions(max_len: int, d_model: int,
+                      device: torch.device) -> torch.Tensor:
     return torch.from_numpy(sinusoidal_table(max_len, d_model)).to(device)
+
+
+def _positions(max_len: int, d_model: int, device: torch.device) -> torch.Tensor:
+    if capture.active():
+        # The census's fake tensors must not stay in the cache.
+        return torch.from_numpy(sinusoidal_table(max_len, d_model))
+    return _cached_positions(max_len, d_model, device)
 
 
 class WhisperAttention(nn.Module):
     """Self, cross and cached attention sharing one set of projections."""
+
+    census_pair = True   # the JAX module returns (output, cache)
 
     def __init__(self, config: WhisperConfig, num_heads: int):
         super().__init__()
@@ -164,7 +176,9 @@ class WhisperAttention(nn.Module):
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x, layer.weight.to(dtype), bias)
+    y = F.linear(x, layer.weight.to(dtype), bias)
+    record(layer, y)
+    return y
 
 
 class WhisperFeedForward(nn.Module):
@@ -203,6 +217,8 @@ class WhisperEncoderLayer(nn.Module):
 
 
 class WhisperDecoderLayer(nn.Module):
+    census_pair = True   # the JAX layer returns (output, cache)
+
     def __init__(self, config: WhisperConfig):
         super().__init__()
         heads = config.decoder_attention_heads
@@ -245,8 +261,10 @@ class WhisperEncoder(nn.Module):
     def _conv(self, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
         dtype = self.config.dtype
         x = F.pad(x, same_pad(x.shape[-1], 3, conv.stride[0]))
-        return F.conv1d(x, conv.weight.to(dtype), conv.bias.to(dtype),
-                        conv.stride)
+        y = F.conv1d(x, conv.weight.to(dtype), conv.bias.to(dtype),
+                     conv.stride)
+        record(conv, y, channels_first=True)
+        return y
 
     def forward(self, input_features: torch.Tensor,
                 output_hidden_states: bool = False,
@@ -285,7 +303,9 @@ class WhisperDecoder(nn.Module):
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         """flax Embed with dtype=: the table is cast, then gathered."""
-        return F.embedding(ids, self.embed_tokens.weight.to(self.config.dtype))
+        x = F.embedding(ids, self.embed_tokens.weight.to(self.config.dtype))
+        record(self.embed_tokens, x)
+        return x
 
     def forward(self, input_ids: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
@@ -332,7 +352,9 @@ class WhisperForConditionalGeneration(nn.Module):
         self.lm_head = nn.Linear(config.d_model, config.vocab_size, bias=False)
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return F.linear(hidden, self.lm_head.weight.to(self.config.dtype))
+        logits = F.linear(hidden, self.lm_head.weight.to(self.config.dtype))
+        record(self.lm_head, logits)
+        return logits
 
     def forward(self, input_features: torch.Tensor,
                 decoder_input_ids: Optional[torch.Tensor] = None,
@@ -358,6 +380,8 @@ class WhisperForConditionalGeneration(nn.Module):
         enc = self.model.encoder(input_features, generator=generator)
         hidden = self.model.decoder(decoder_input_ids, enc,
                                     generator=generator)
+        record(self.model, {"last_hidden_state": hidden,
+                            "encoder_last_hidden_state": enc})
         logits = self._logits(hidden)
         loss = None
         if labels is not None:

@@ -199,8 +199,44 @@ class GradientReducer:
         return loss
 
 
+def aux_leaves(tree, path=()):
+    """(key path, value) of every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from aux_leaves(value, path + (key,))
+    else:
+        yield path, tree
+
+
+def aux_tree(leaves) -> dict:
+    """The nested dict of (key path, value) pairs (aux_leaves' inverse)."""
+    tree: dict = {}
+    for path, value in leaves:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return tree
+
+
+def replica_mean(aux: dict) -> dict:
+    """The mean over the replicas of every tensor of the nested dict
+    ``aux`` (JAX's ``pmean``), as one SUM all-reduce of their f32 values;
+    ``aux`` itself without a process group."""
+    if not mesh.group_up() or not aux:
+        return aux
+    leaves = [(path, t.detach()) for path, t in aux_leaves(aux)]
+    flat = torch.cat([t.float().reshape(-1) for _, t in leaves])
+    torch.distributed.all_reduce(flat, op=torch.distributed.ReduceOp.SUM)
+    flat /= mesh.world_size()
+    parts = flat.split([t.numel() for _, t in leaves])
+    return aux_tree((path, part.view_as(t).to(t.dtype))
+                    for (path, t), part in zip(leaves, parts))
+
+
 def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
-                    hardened: bool = False):
+                    hardened: bool = False, return_aux: bool = False,
+                    grad_aux_fn: Optional[Callable] = None):
     """step(state, batch, generator) -> (state, loss) on one replica.
 
     loss_fn(model, batch, generator) -> (scalar loss, aux).  The model and
@@ -209,13 +245,21 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
     (module doc); none of them waits on the device.  With a process group
     up the step sums the gradients and the loss over the replicas
     (``step.reducer``, a ``GradientReducer``); without one it is the
-    identity of a sum over one replica and reduces nothing."""
+    identity of a sum over one replica and reduces nothing.
+
+    With ``return_aux`` the step returns (state, loss, aux) (JAX dp.py
+    :177-192): loss_fn's aux (a dict of tensors) averaged over the
+    replicas (``replica_mean``), and with ``grad_aux_fn`` also
+    ``aux["grad_aux"] = grad_aux_fn(grads)``, where ``grads`` maps each
+    parameter's name to its gradient summed over the replicas, before the
+    optimizer's own clip; a parameter that took no gradient gives zeros,
+    as in JAX.  Every value stays on the device."""
     n_replicas = mesh.world_size()
     reducer = GradientReducer() if mesh.group_up() else None
 
     def step(state: TrainState, batch, generator: torch.Generator):
         optimizer.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(state.model, batch, generator)
+        loss, aux = loss_fn(state.model, batch, generator)
         if hardened:
             loss = torch.where(torch.isnan(loss), torch.zeros_like(loss),
                                loss) / n_replicas
@@ -227,7 +271,15 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
             clip_by_global_norm(grads, 1.0)   # per replica, before the sum
         if reducer is not None:
             loss = reducer(grads, loss)
+        if return_aux:
+            aux = dict(replica_mean(aux or {}))
+            if grad_aux_fn is not None:
+                aux["grad_aux"] = grad_aux_fn({
+                    name: torch.zeros_like(p) if p.grad is None else p.grad
+                    for name, p in state.model.named_parameters()})
         optimizer.step()
+        if return_aux:
+            return state, loss, aux
         return state, loss
 
     step.reducer = reducer

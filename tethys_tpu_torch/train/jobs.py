@@ -20,11 +20,20 @@ the replicas (``parallel/dp``), rank 0 writes the checkpoints, and
 ``collective_report=True`` writes ``<task>_<idx>_collectives.txt`` on
 every rank.  TP/SP/PP, remat, gradient accumulation and bf16 master
 weights are refused by the CLIs (jobs/) and wait in ROADMAP.md.
+
+With ``profiler`` (a ``profiling.tensorsize.TensorProfiler``) a job logs
+its parameters once and, after every step, the static rows of a step in
+the JAX job's order (``whisper_inventories``, ``wav2vec2_inventories``:
+input, activation, intra-op, output, gradient), the memory in use and,
+for Wav2Vec2 with ``profile_values``, the skewness of the input, of every
+loss aux of more than one element and of every summed gradient, computed
+on the device and fetched with the step's loss (JAX jobs.py:110-133,
+:239-277, :452-505).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -32,9 +41,14 @@ from tethys_tpu_torch import data as data_lib
 from tethys_tpu_torch import losses
 from tethys_tpu_torch.checkpoint import CheckpointManager, save_final_weights
 from tethys_tpu_torch.configs import Wav2Vec2Config, WhisperConfig
+from tethys_tpu_torch.convert import flax_path
 from tethys_tpu_torch.models import wav2vec2 as wav2vec2_lib
-from tethys_tpu_torch.models.whisper import create_whisper_model
+from tethys_tpu_torch.models.whisper import (
+    WhisperForConditionalGeneration,
+    create_whisper_model,
+)
 from tethys_tpu_torch.parallel import dp, mesh
+from tethys_tpu_torch.profiling import tensorsize
 from tethys_tpu_torch.profiling.comm import write_collective_report
 from tethys_tpu_torch.train.loop import TrainLoopResult, run_training
 from tethys_tpu_torch.utils.artifacts import write_jct
@@ -88,6 +102,85 @@ def make_whisper_job(
         prepare_batch, config)
 
 
+Inventories = List[Tuple[List[tensorsize.Row], str]]
+WHISPER_LABELS = 100      # the label length of the synthetic dataset
+
+
+def _profiler_hooks(profiler, static_inventories: Inventories):
+    """The per-step hook that drives the TensorProfiler: the static rows of
+    a step, the value skews of the step's aux, the memory in use."""
+
+    def hook(step, loss, duration, aux):
+        profiler.start_step(step)
+        for inventory, tensor_type in static_inventories:
+            profiler.log_inventory(inventory, tensor_type)
+        if aux:
+            skews = {}
+            for key, val in aux.items():
+                if key in ("grad_aux", "value_skews") and isinstance(val, dict):
+                    skews.update({k: float(v) for k, v in val.items()})
+            if skews:
+                profiler.log_value_skews(skews)
+        profiler.log_memory_usage()
+        profiler.end_step()
+
+    return hook
+
+
+def whisper_inventories(config: WhisperConfig, batch_size: int,
+                        data_seq_len: int = 3000) -> Inventories:
+    """A Whisper training step's static rows, (rows, tensor type) in the
+    JAX job's order, from shapes alone (no parameter is allocated)."""
+    spec = tensorsize.TensorSpec
+    feats = spec((batch_size, config.n_mels, data_seq_len), torch.float32)
+    labels = spec((batch_size, WHISPER_LABELS), torch.int32)
+    model = WhisperForConditionalGeneration
+    return [
+        (tensorsize.tensor_inventory(
+            {"input_features": feats, "labels": labels}, "input"), "input"),
+        (tensorsize.intermediate_inventory(model, config, feats,
+                                           labels=labels), "activation"),
+        # The intra-op tensors that no module returns; the encoder's
+        # length is the stride-2 SAME conv's ceil(T / 2).
+        (tensorsize.whisper_intra_op_inventory(
+            config, batch_size, enc_len=-(-data_seq_len // 2),
+            dec_len=WHISPER_LABELS), "activation"),
+        (tensorsize.tensor_inventory(tensorsize.eval_shape(
+            model, config, feats, labels=labels), "output"), "output"),
+        (tensorsize.tensor_inventory(tensorsize.parameter_tree(
+            _shape_only(model, config)), "gradient"), "gradient"),
+    ]
+
+
+def wav2vec2_inventories(config: Wav2Vec2Config, batch_size: int,
+                         audio_length: int = 32000,
+                         model=wav2vec2_lib.Wav2Vec2ForPreTraining
+                         ) -> Inventories:
+    """A Wav2Vec2 training step's static rows (as ``whisper_inventories``),
+    of ``model``'s training forward (for pretraining, the quantizer's
+    branch included)."""
+    audio = tensorsize.TensorSpec((batch_size, audio_length), torch.float32)
+    return [
+        (tensorsize.tensor_inventory({"input_values": audio}, "input"),
+         "input"),
+        (tensorsize.intermediate_inventory(model, config, audio,
+                                           training=True), "activation"),
+        (tensorsize.wav2vec2_intra_op_inventory(
+            config, batch_size, frames=tensorsize.conv_output_length(
+                audio_length, config.conv_stride)), "activation"),
+        (tensorsize.tensor_inventory(tensorsize.eval_shape(
+            model, config, audio, training=True), "output"), "output"),
+        (tensorsize.tensor_inventory(tensorsize.parameter_tree(
+            _shape_only(model, config)), "gradient"), "gradient"),
+    ]
+
+
+def _shape_only(model_class, config) -> torch.nn.Module:
+    """The model's parameters without their memory (the meta device)."""
+    with torch.device("meta"):
+        return model_class(config)
+
+
 def train_whisper(
     model_type: str = "small",
     batch_size_per_replica: int = 1,
@@ -102,14 +195,22 @@ def train_whisper(
     config_overrides: Optional[dict] = None,
     device=None,
     step_hooks: tuple = (),
+    profiler=None,
     resume: bool = False,
     collective_report: bool = False,
 ):
     """End-to-end Whisper training (reference train_whisper,
-    speech_jobs/whisper_dist.py:894-958).  Returns (result, model, config)."""
+    speech_jobs/whisper_dist.py:894-958).  With ``profiler``, the
+    tensorsize instrumentation of whisper_dist_tensorsize.py (module doc).
+    Returns (result, model, config)."""
     job = make_whisper_job(
         model_type, batch_size_per_replica, learning_rate, compute_dtype,
         seed, data_seq_len, config_overrides, device)
+    if profiler is not None:
+        profiler.log_model_parameters(job.state.model)
+        step_hooks = tuple(step_hooks) + (_profiler_hooks(
+            profiler, whisper_inventories(
+                job.config, batch_size_per_replica, data_seq_len)),)
     ckpt = CheckpointManager(checkpoint_dir) if checkpointing else None
     if resume and ckpt is not None:
         _resume(ckpt, job.state, f"whisper_{model_type}_")
@@ -134,11 +235,15 @@ def make_wav2vec2_job(
     real_ctc: bool = False,
     config_overrides: Optional[dict] = None,
     device=None,
+    profile_values: bool = False,
 ) -> TrainJob:
     """The model with f32 master weights (in train mode), the hardened step
     with ``wav2vec2_optimizer``, the synthetic dataset.  Each step draws its
     contrastive negatives, then its dropout seeds, from the step's CPU
-    generator."""
+    generator.  ``profile_values``: the step returns (state, loss, aux),
+    the aux the value skews of the input and of the loss aux's tensors of
+    more than one element, with the skews of the summed gradients under
+    ``grad_aux``, by flax path."""
     device = require_cuda() if device is None else torch.device(device)
     model, config = wav2vec2_lib.create_full_model(
         model_type, model_size, device=device, seed=seed, real_ctc=real_ctc,
@@ -160,12 +265,32 @@ def make_wav2vec2_job(
         outputs = model(audio, labels=labels.long(), generator=generator)
         return outputs["loss"], {}
 
+    grad_aux_fn = None
+    if profile_values:
+        base_loss_fn = loss_fn
+
+        def loss_fn(model, batch, generator):  # noqa: F811
+            loss, aux = base_loss_fn(model, batch, generator)
+            skews = {"input/input_values": tensorsize.value_skewness(batch[0])}
+            for key, val in (aux or {}).items():
+                if val.numel() > 1:
+                    skews[f"output/{key}"] = tensorsize.value_skewness(val)
+            return loss, {"value_skews": skews}
+
+        flax_names = {name: "/".join(flax_path(name, p.dim()))
+                      for name, p in model.named_parameters()}
+
+        def grad_aux_fn(grads):
+            return tensorsize.tree_value_skewness(
+                {flax_names[n]: g for n, g in grads.items()}, "gradient")
+
     def prepare_batch(batch):
         return tuple(host_to_device(torch.from_numpy(a), device)
                      for a in batch)
 
     return TrainJob(
-        dp.make_train_step(loss_fn, optimizer, hardened=True),
+        dp.make_train_step(loss_fn, optimizer, hardened=True,
+                           return_aux=profile_values, grad_aux_fn=grad_aux_fn),
         dp.TrainState(model, optimizer),
         data_lib.create_wav2vec2_dummy_dataset(batch_size_per_replica,
                                                audio_length=audio_length),
@@ -188,17 +313,29 @@ def train_wav2vec2(
     config_overrides: Optional[dict] = None,
     device=None,
     step_hooks: tuple = (),
+    profiler=None,
+    profile_values: bool = True,
     resume: bool = False,
     collective_report: bool = False,
 ):
     """End-to-end Wav2Vec2 training (reference train_wav2vec2,
     speech_jobs/wav2vec2_dist.py:1263-1376): pretraining, asr or
     classification (``make_wav2vec2_job``) through the resilient loop with
-    50-step and per-epoch checkpoints tagged ``model``.  Returns (result,
-    model, config)."""
+    50-step and per-epoch checkpoints tagged ``model``.  With ``profiler``,
+    the tensorsize and per-value skewness instrumentation of
+    wav2vec2_dist_tensorsize.py (module doc).  Returns (result, model,
+    config)."""
+    profiling = profiler is not None
     job = make_wav2vec2_job(
         model_type, model_size, batch_size_per_replica, learning_rate,
-        compute_dtype, seed, audio_length, real_ctc, config_overrides, device)
+        compute_dtype, seed, audio_length, real_ctc, config_overrides, device,
+        profile_values=profiling and profile_values)
+    if profiling:
+        profiler.log_model_parameters(job.state.model)
+        step_hooks = tuple(step_hooks) + (_profiler_hooks(
+            profiler, wav2vec2_inventories(
+                job.config, batch_size_per_replica, audio_length,
+                type(job.state.model))),)
     ckpt = CheckpointManager(checkpoint_dir) if checkpointing else None
     if resume and ckpt is not None:
         _resume(ckpt, job.state, "model_")

@@ -23,6 +23,15 @@ every N steps, and ``resilient=True`` swallows a step's exception, prints
 wav2vec2_dist.py:1367-1371).  A failure that shows only when a step's loss
 is fetched is attributed to that step, one behind the dispatch counter.
 ``steady_state_step_time`` is the mean step time after the warm-up steps.
+
+Hooks are called as ``hook(step, loss, duration, aux)`` once a step's line
+is printed, as the JAX loop's are.  A step function that returns (state,
+loss, aux) hands its aux, a nested dict of device tensors, to the hooks:
+its one-element tensors are stacked with the loss when the step is
+dispatched and fetched with it in one transfer, so they reach the hooks as
+Python floats (their dicts' keys sorted, as a JAX step's output pytree
+has them); larger tensors reach the hooks as they are.  Without aux the
+hooks get None.  A step that fails calls no hook.
 """
 
 from __future__ import annotations
@@ -31,10 +40,11 @@ import time
 from typing import Any, Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from tethys_tpu_torch.checkpoint import CheckpointManager
 from tethys_tpu_torch.parallel import mesh
-from tethys_tpu_torch.parallel.dp import step_generator
+from tethys_tpu_torch.parallel.dp import aux_leaves, aux_tree, step_generator
 
 
 class TrainLoopResult(NamedTuple):
@@ -42,6 +52,27 @@ class TrainLoopResult(NamedTuple):
     losses: list
     step_times: list
     total_steps: int
+
+
+def _pack(loss, aux):
+    """(what flush fetches, whether it is a stack, the aux's structure):
+    the loss alone, or the loss stacked with aux's one-element tensors
+    (f32) at the dispatch."""
+    if aux is None:
+        return loss, False, None
+    leaves = sorted(aux_leaves(aux), key=lambda leaf: leaf[0])
+    scalars = [t for _, t in leaves if t.numel() == 1]
+    if not scalars:
+        return loss, False, leaves
+    return torch.stack([loss.float().reshape(())]
+                       + [t.detach().float().reshape(()) for t in scalars]
+                       ), True, leaves
+
+
+def _unpack(fetched: list, leaves) -> dict:
+    values = iter(fetched[1:])
+    return aux_tree((path, next(values) if t.numel() == 1 else t)
+                    for path, t in leaves)
 
 
 class _PendingFetchError(Exception):
@@ -55,7 +86,7 @@ class _PendingFetchError(Exception):
 
 
 def run_training(
-    step_fn: Callable,               # (state, batch, generator) -> (state, loss)
+    step_fn: Callable,               # (state, batch, generator) -> (state, loss[, aux])
     dataset: Iterable,               # yields numpy batch tuples
     state: Any,
     seed: int,
@@ -66,14 +97,14 @@ def run_training(
     checkpoint_every_steps: Optional[int] = None,
     checkpoint_tag: str = "model",
     resilient: bool = False,         # Wav2Vec2's per-step exception reset
-    step_hooks: tuple = (),          # callables(step, loss, duration)
+    step_hooks: tuple = (),          # callables(step, loss, duration, aux)
 ) -> TrainLoopResult:
     losses, step_times = [], []
     replica = mesh.rank()
     step = 0
     iterator = iter(dataset)
     start_time = time.time()
-    pending = None                   # (step, loss tensor, dispatch start)
+    pending = None                   # (step, *_pack(...), dispatch start)
     last_ready = start_time
 
     def flush(entry):
@@ -81,11 +112,14 @@ def run_training(
         nonlocal last_ready
         if entry is None:
             return
-        idx, loss, p_start = entry
+        idx, fetch, stacked, leaves, p_start = entry
         try:
-            loss_value = float(loss.item())
+            # The loss, or the loss and the aux's scalars: one transfer.
+            fetched = fetch.tolist() if stacked else [float(fetch.item())]
         except Exception as e:  # noqa: BLE001 - a poisoned device result
             raise _PendingFetchError(idx, e) from e
+        loss_value = fetched[0]
+        aux = None if leaves is None else _unpack(fetched, leaves)
         now = time.time()
         # Ready-to-ready in the pipelined steady state; anchored at the
         # dispatch start after a gap (checkpoint, epoch turn).
@@ -101,7 +135,7 @@ def run_training(
         losses.append(loss_value)
         step_times.append(step_duration)
         for hook in step_hooks:
-            hook(idx, loss_value, step_duration)
+            hook(idx, loss_value, step_duration, aux)
 
     def flush_pending():
         nonlocal pending
@@ -130,11 +164,13 @@ def run_training(
                 step_start = time.time()
                 if prepare_batch is not None:
                     batch = prepare_batch(batch)
-                state, loss = step_fn(state, batch,
-                                      step_generator(seed, step, replica))
+                outputs = step_fn(state, batch,
+                                  step_generator(seed, step, replica))
+                state, loss = outputs[:2]
+                packed = _pack(loss, outputs[2] if len(outputs) == 3 else None)
                 # Register step i, then wait for step i-1: if that fetch
                 # raises, step i stays in the pipeline.
-                prev, pending = pending, (step, loss, step_start)
+                prev, pending = pending, (step, *packed, step_start)
                 step += 1
                 it += 1
                 flush(prev)              # step i-1's fetch overlaps step i
