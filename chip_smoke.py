@@ -66,8 +66,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
 10. launch counts: set to 0 before each path (serving: phases 4-5,
    training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13,
    flash bench: phase 14, frontend: phase 15, training bench: phase 16,
-   resume: phase 17, data parallel: phase 18, tensorsize: phase 19, with
-   the launches of the processes they start)
+   resume: phase 17, data parallel: phase 18, tensorsize: phase 19,
+   capacity: phase 20, with the launches of the processes they start)
    and read after it; every kernel of a path must have launched during it,
    and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
    as often as gn_grad_sums;
@@ -139,7 +139,26 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    process without and with the profiler, in turns (off, on, on, off); (b) each step logged as many rows and as many MB
    as the census computed here on the CPU at the same shapes; (c) every
    line of the daemon is the reference's, names torch's card, Mem Usage is
-   nonzero and GPU Util nonzero on some line while a job ran.
+   nonzero and GPU Util nonzero on some line while a job ran;
+20. the single-card capacity modes: (a) whisper-base b16 bf16, dropout on,
+   one step each from the same weights and generator: plain,
+   remat_layers under save_flash and none, the whole-loss remat; the
+   flash forward (flash_fwd + flash_fwd_dropout) launches once a site
+   under plain and save_flash, twice under none and the whole-loss remat,
+   flash_bwd once a site throughout; loss and every gradient within the
+   bf16 limit of plain's; peak memory and ms per step of each; (b)
+   grad_accum 2 at b16 (f32, rates 0) against the unaccumulated step,
+   loss and gradients within the bf16 limit; (c) the whisper_dist CLI at
+   whisper-large-v3 b8, --dtype bfloat16 --remat_layers --master_dtype
+   bfloat16 --grad_accum 2, 6 steps: every loss finite, ms/step, peak
+   memory, and the peak of the same batch without --remat_layers, which
+   must be higher; (d) the training bench's twin at whisper-large-v3 b4
+   --remat_layers --master_dtype bfloat16: ms/step, FLOPs, 0 < mfu <= 1;
+   (e) the wav2vec2_dist CLI at base b32 bf16 with --remat --grad_accum
+   2, then the bench's wav2vec2-base with --master_dtype bfloat16, whose
+   GroupNorm kernels launch with bf16 gamma and beta; (f) the convergence
+   twin, whisper-base b16, 20 steps under each master dtype: both curves
+   finite and falling.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -211,6 +230,9 @@ PATH_KERNELS = {
     "tensorsize": ("split_heads", "merge_heads", "flash_fwd_dropout",
                    "flash_bwd", "dropout", "gn_stats", "gn_grad_sums",
                    "gn_apply", "gn_apply_bwd"),
+    "capacity": ("split_heads", "merge_heads", "flash_fwd",
+                 "flash_fwd_dropout", "flash_bwd", "dropout", "gn_stats",
+                 "gn_grad_sums", "gn_apply", "gn_apply_bwd"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -2768,6 +2790,303 @@ def run_tensorsize(measured: dict, child: dict) -> None:
         f"{TRAIN_BATCH}) {statistics.mean(measured['whisper_step_ms'][3:8]):.2f}")
 
 
+# Phase 20: the single-card capacity modes.
+CAP_MODES = (
+    ("plain", {}, {}),
+    ("remat_layers save_flash", {"remat_layers": True}, {}),
+    ("remat_layers none", {"remat_layers": True, "remat_policy": "none"}, {}),
+    ("remat (whole loss)", {}, {"remat": True}),
+)
+CAP_V3_BATCH = 8
+CAP_V3_STEPS = 6
+CAP_V3_BENCH_BATCH = 4
+CAP_W2V_STEPS = 4
+CAP_CONVERGENCE_STEPS = 20
+
+
+def bench_whisper_batch(batch: int, n_mels: int, device):
+    """The training bench's fixed Whisper batch (30 s of features, 100
+    labels in 3..99, so no pad token): numpy seed 0."""
+    rng = np.random.default_rng(0)
+    features = rng.standard_normal((batch, n_mels, 3000), dtype=np.float32)
+    labels = rng.integers(3, 100, size=(batch, 100)).astype(np.int32)
+    return (torch.from_numpy(features).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def one_step(job, batch) -> dict:
+    """One step of ``job`` on ``batch`` with step 0's generator: its loss,
+    its gradients (on the host, taken before the optimizer runs), its
+    launch counts, its peak memory over what was allocated before it, and
+    the wall ms of 3 more steps."""
+    from tethys_tpu_torch.parallel import dp
+
+    grads = {}
+    optimizer = job.state.optimizer
+    real_step = optimizer.step
+
+    def spy():
+        grads.update({n: p.grad.detach().float().cpu() for n, p in
+                      job.state.model.named_parameters() if p.grad is not None})
+        real_step()
+
+    optimizer.step = spy
+    out = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out["counts"] = counts_around(lambda: out.update(loss=job.step_fn(
+        job.state, batch, dp.step_generator(SEED, 0))[1].item()))
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    optimizer.step = real_step
+    out["grads"] = grads
+    out["ms"] = wall_ms(lambda: job.step_fn(job.state, batch,
+                                            dp.step_generator(SEED, 1)), 3)
+    return out
+
+
+def check_grads_close(name: str, got: dict, want: dict) -> float:
+    """Every gradient within the bf16 limit of the reference's, relative
+    to its largest magnitude, but the ones that are zero up to rounding
+    (ROUNDING_ONLY), which must be finite."""
+    require(set(got) == set(want), f"{name}: gradients of {set(got) ^ set(want)}")
+    worst, worst_name = 0.0, None
+    for n, g in want.items():
+        require(bool(torch.isfinite(got[n]).all()), f"{name}: {n} not finite")
+        if n.endswith(ROUNDING_ONLY):
+            continue
+        rel = rel_err(got[n], g)
+        require(rel <= BF16_REL_LIMIT, f"{name}: gradient of {n} {rel:.3e} "
+                                       f"from the reference's")
+        if rel >= worst:
+            worst, worst_name = rel, n
+    log(f"  {name}: {len(want)} gradients, worst max_abs_err / max|ref| "
+        f"{worst:.3e} ({worst_name}; limit {BF16_REL_LIMIT})")
+    return worst
+
+
+def run_capacity_modes(gpu: str) -> None:
+    """Phase 20(a): whisper-base b16 bf16, dropout on, one step of each
+    mode from the same weights and generator: plain, remat_layers under
+    save_flash and none, the whole-loss remat.  The flash forward
+    (flash_fwd + flash_fwd_dropout) launches once a site a step under
+    plain and save_flash, twice under none and the whole-loss remat;
+    flash_bwd once a site throughout; loss and every gradient within the
+    bf16 limit of plain's (flash_bwd adds dq by atomics, so not bitwise)."""
+    import gc
+
+    from tethys_tpu_torch.train import jobs
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    runs = {}
+    for name, overrides, kw in CAP_MODES:
+        job = jobs.make_whisper_job(MODEL, 1, 1e-4, "bfloat16", seed=SEED,
+                                    device=dev, config_overrides=overrides,
+                                    **kw)
+        cfg = job.config
+        runs[name] = one_step(job, bench_whisper_batch(
+            TRAIN_BATCH, cfg.n_mels, dev))
+        del job
+        gc.collect()
+    sites = cfg.encoder_layers + cfg.decoder_layers
+    plain = runs["plain"]
+    for (name, _, _), forwards in zip(CAP_MODES, (1, 1, 2, 2)):
+        run = runs[name]
+        fwd = run["counts"]["flash_fwd"] + run["counts"]["flash_fwd_dropout"]
+        log(f"  {name}: loss {run['loss']:.6f}, flash forward {fwd} "
+            f"launches, flash_bwd {run['counts']['flash_bwd']}, peak "
+            f"{run['peak_gib']:.3f} GiB over the weights, {run['ms']:.2f} "
+            f"ms/step (whisper-base b{TRAIN_BATCH} bf16, {gpu})")
+        require(fwd == forwards * sites and run["counts"]["flash_bwd"] == sites,
+                f"{name}: flash forward {fwd}, backward "
+                f"{run['counts']['flash_bwd']}, want {forwards * sites} and "
+                f"{sites} ({sites} sites)")
+        if name != "plain":
+            check_rel(f"{name} loss against plain", torch.tensor(run["loss"]),
+                      torch.tensor(plain["loss"]))
+            check_grads_close(f"{name} against plain", run["grads"],
+                              plain["grads"])
+    log("  capacity_modes " + json.dumps({
+        name: {k: run[k] for k in ("loss", "peak_gib", "ms")}
+        | {"flash_fwd": run["counts"]["flash_fwd"]
+           + run["counts"]["flash_fwd_dropout"],
+           "flash_bwd": run["counts"]["flash_bwd"]}
+        for name, run in runs.items()} | {"sites": sites, "gpu": gpu}))
+
+
+def run_grad_accum() -> None:
+    """Phase 20(b): grad_accum 2 at b16 against the unaccumulated step,
+    every dropout rate 0 and f32 compute, so that the two differ only in
+    the order of the sums (in bf16 each microbatch's gradient is rounded
+    to bf16 before the f32 sum, which in a gradient that cancels across
+    the batch comes near the bf16 limit): loss and every gradient within
+    the bf16 limit."""
+    from tethys_tpu_torch.train import jobs
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    runs = {}
+    for accum in (1, 2):
+        job = jobs.make_whisper_job(MODEL, 1, 1e-4, "float32", seed=SEED,
+                                    device=dev, config_overrides=NO_DROPOUT,
+                                    grad_accum=accum)
+        runs[accum] = one_step(job, bench_whisper_batch(
+            TRAIN_BATCH, job.config.n_mels, dev))
+        log(f"  grad_accum {accum}: loss {runs[accum]['loss']:.6f}, peak "
+            f"{runs[accum]['peak_gib']:.3f} GiB over the weights, "
+            f"{runs[accum]['ms']:.2f} ms/step (f32)")
+        del job
+    check_rel("grad_accum 2 loss against 1", torch.tensor(runs[2]["loss"]),
+              torch.tensor(runs[1]["loss"]))
+    check_grads_close("grad_accum 2 against 1", runs[2]["grads"],
+                      runs[1]["grads"])
+
+
+def run_job_cli(module, argv) -> dict:
+    """A job CLI's main(argv) in this process, in a fresh workspace: its
+    step lines (index, loss, elapsed s), peak memory over what was
+    allocated before it, and ms/step from the elapsed column over steps
+    2 .. last-1."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tee = Tee(sys.stdout)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        os.environ["TETHYS_WORKSPACE"] = ws
+        os.environ["TETHYS_RESULT"] = ws
+        with open(os.path.join(ws, "model.txt"), "w") as fh:
+            fh.write("chip_smoke")
+        os.makedirs(os.path.join(ws, "chip_smoke"))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"  {time.strftime('%H:%M:%S')} python -m {module.__name__} "
+            + " ".join(argv))
+        t0 = time.perf_counter()
+        sys.stdout = tee
+        try:
+            module.main(argv)
+        finally:
+            sys.stdout = tee.out
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    text = "".join(tee.text)
+    require("Error at step" not in text, f"a step failed in {module.__name__}")
+    steps = [ELAPSED_RE.match(line) for line in text.splitlines()]
+    steps = [(int(m[1]), float(m[2]), float(m[3])) for m in steps if m]
+    n = int(argv[argv.index("--num_batches") + 1])
+    require([i for i, _, _ in steps] == list(range(n))
+            and all(np.isfinite(loss) for _, loss, _ in steps),
+            f"{module.__name__}'s step lines {steps}")
+    ms = ((steps[-2][2] - steps[1][2]) / (n - 3) * 1e3 if n > 3
+          else float("nan"))
+    return {"losses": [loss for _, loss, _ in steps], "peak_gib": peak,
+            "ms": ms, "seconds": seconds}
+
+
+def run_large_v3_cli(gpu: str) -> None:
+    """Phase 20(c): the whisper_dist CLI at whisper-large-v3 (full width,
+    32 + 32 layers) b8, bf16 compute on bf16 master weights, gradients
+    accumulated over 2 microbatches of 4, every layer checkpointed under
+    save_flash: every loss finite, ms/step, peak memory; then the same
+    batch without --remat_layers for its peak."""
+    from tethys_tpu_torch.jobs import whisper_dist
+
+    flags = ["--model_size", "large-v3", "--batch_size", str(CAP_V3_BATCH),
+             "--dtype", "bfloat16", "--master_dtype", "bfloat16",
+             "--grad_accum", "2"]
+    remat = run_job_cli(whisper_dist, flags + [
+        "--remat_layers", "--num_batches", str(CAP_V3_STEPS)])
+    plain = run_job_cli(whisper_dist, flags + ["--num_batches", "2"])
+    log(f"  whisper-large-v3 b{CAP_V3_BATCH} bf16 master, grad_accum 2, "
+        f"--remat_layers: {remat['ms']:.2f} ms/step (steps 2-"
+        f"{CAP_V3_STEPS - 2}), peak {remat['peak_gib']:.3f} GiB; without "
+        f"--remat_layers: peak {plain['peak_gib']:.3f} GiB; losses "
+        f"{remat['losses']} ({gpu})")
+    log("  large_v3_cli " + json.dumps({"remat_layers": remat,
+                                        "no_remat_layers": plain, "gpu": gpu}))
+    require(remat["peak_gib"] < plain["peak_gib"],
+            "--remat_layers did not lower the peak")
+
+
+def run_large_v3_bench(gpu: str) -> None:
+    """Phase 20(d): the training bench's twin at whisper-large-v3 b4
+    --remat_layers --master_dtype bfloat16: ms/step, FLOPs (the recompute
+    included) and mfu in (0, 1]."""
+    from tethys_tpu_torch.scripts import bench
+
+    (row,) = bench.main(["--family", "whisper", "--model", "large-v3",
+                         "--batch_size", str(CAP_V3_BENCH_BATCH),
+                         "--remat_layers", "--master_dtype", "bfloat16",
+                         "--steps", "5", "--warmup", "2"])
+    require(np.isfinite(row["value"]) and row["mfu"] is not None
+            and 0 < row["mfu"] <= 1, f"bench row {row}")
+    log(f"  train_bench {row['metric']} b{CAP_V3_BENCH_BATCH} --remat_layers "
+        f"--master_dtype bfloat16: {row['step_time_s'] * 1e3:.2f} ms/step, "
+        f"{row['flops_per_step']:.6e} FLOPs/step, mfu {row['mfu']} on {gpu}")
+    log("  train_bench " + json.dumps(row))
+
+
+def run_w2v_capacity(gpu: str) -> None:
+    """Phase 20(e): the wav2vec2_dist CLI at base b32 bf16 with --remat
+    --grad_accum 2, then the bench's Wav2Vec2 with --master_dtype bfloat16,
+    whose GroupNorm kernels must launch with bf16 gamma and beta."""
+    from tethys_tpu_torch.jobs import wav2vec2_dist
+    from tethys_tpu_torch.scripts import bench
+    from tethys_tpu_torch.train import jobs
+
+    cli = run_job_cli(wav2vec2_dist, [
+        "--model_size", W2V_MODEL, "--batch_size", str(W2V_BATCH), "--dtype",
+        "bfloat16", "--remat", "--grad_accum", "2", "--num_batches",
+        str(CAP_W2V_STEPS)])
+    log(f"  wav2vec2_dist --remat --grad_accum 2, base b{W2V_BATCH}: "
+        f"losses {cli['losses']}, {cli['ms']:.2f} ms/step, peak "
+        f"{cli['peak_gib']:.3f} GiB ({gpu})")
+    built = []
+    real = jobs.make_wav2vec2_job
+
+    def spy(*args, **kwargs):
+        built.append(real(*args, **kwargs))
+        return built[-1]
+
+    jobs.make_wav2vec2_job = spy
+    try:
+        rows = []
+        counts = counts_around(lambda: rows.extend(bench.main([
+            "--family", "wav2vec2", "--master_dtype", "bfloat16", "--steps",
+            "5", "--warmup", "2"])))
+    finally:
+        jobs.make_wav2vec2_job = real
+    gn = built[0].state.model.wav2vec2.feature_extractor.norm_0
+    require(gn.gamma.dtype == gn.beta.dtype == torch.bfloat16,
+            f"GroupNorm parameters {gn.gamma.dtype}")
+    gn_counts = {k: counts[k] for k in ("gn_stats", "gn_apply",
+                                        "gn_grad_sums", "gn_apply_bwd")}
+    require(all(gn_counts.values()), f"GroupNorm launches {gn_counts}")
+    (row,) = rows
+    log(f"  train_bench {row['metric']} --master_dtype bfloat16: "
+        f"{row['step_time_s'] * 1e3:.2f} ms/step, mfu {row['mfu']}, "
+        f"GroupNorm launches with bf16 weights {gn_counts} on {gpu}")
+    log("  train_bench " + json.dumps(row))
+
+
+def run_convergence() -> None:
+    """Phase 20(f): the convergence twin, whisper-base b16, 20 steps under
+    each master dtype: both curves finite and falling."""
+    from tethys_tpu_torch.scripts import convergence_check
+
+    record = convergence_check.main(["--steps", str(CAP_CONVERGENCE_STEPS)])
+    curves = (record["f32_first_last"], record["bf16_first_last"])
+    require(all(np.isfinite(v) for c in curves for v in c)
+            and all(last < first for first, last in curves),
+            f"convergence {record}")
+    log(f"  convergence: f32 {curves[0]}, bf16 {curves[1]}, max relative "
+        f"gap over the back half {record['max_rel_gap_back_half']}, verdict "
+        f"{record['verdict']}")
+
+
 def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -2878,9 +3197,23 @@ def main() -> int:
         ("[19] the tensorsize jobs under the NVML monitor, whisper-small b"
          f"{TS_WHISPER_BATCH} and wav2vec2-base b{W2V_BATCH} bf16",
          run_tensorsize, measured, child),), child_counts=child)
+    capacity = drive_path("capacity", (
+        ("[20a] whisper-base b16 bf16: plain, remat_layers save_flash and "
+         "none, whole-loss remat", run_capacity_modes, gpu),
+        ("[20b] grad_accum 2 against 1, whisper-base b16 f32, rates 0",
+         run_grad_accum),
+        ("[20c] the whisper_dist CLI at whisper-large-v3 b8, remat_layers, "
+         "bf16 master, grad_accum 2", run_large_v3_cli, gpu),
+        ("[20d] the training bench's twin at whisper-large-v3 b4, "
+         "remat_layers, bf16 master", run_large_v3_bench, gpu),
+        ("[20e] wav2vec2_dist --remat --grad_accum 2, and the bench's "
+         "wav2vec2-base with bf16 master", run_w2v_capacity, gpu),
+        ("[20f] the convergence twin, whisper-base, f32 against bf16 master",
+         run_convergence)))
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
               + flash_bench[k] + frontend[k] + train_bench[k] + resume[k]
-              + data_parallel[k] + tensorsize[k] for k in serving}
+              + data_parallel[k] + tensorsize[k] + capacity[k]
+              for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")

@@ -2,8 +2,9 @@
 bench.py: the same flags and defaults, the rows in bench.py's order with
 its keys (``flops_hlo`` and ``mfu_hlo_only`` renamed ``flops_counted`` and
 ``mfu_counted_only``), ``vs_baseline`` 1.0, the card by default (no
-fallback), the unported flags refused naming ROADMAP.md queue 1 item 7,
-and a CPU run of the plain versions at the tiny size.
+fallback), the capacity flags passed to the jobs, the unported flags
+refused naming ROADMAP.md queue 1 item 7, and a CPU run of the plain
+versions at the tiny size.
 """
 
 import ast
@@ -59,15 +60,50 @@ def test_keys_are_the_jax_rows_renamed():
     assert [renamed.get(k, k) for k in rows[0]] == KEYS
 
 
-@pytest.mark.parametrize("argv", [
-    ["--scan_layers"], ["--master_dtype", "bfloat16"], ["--remat"],
-    ["--remat_layers"], ["--remat_policy", "none"], ["--flat_opt"]])
+@pytest.mark.parametrize("argv", [["--scan_layers"], ["--flat_opt"]])
 def test_unported_flags_are_refused(capsys, argv):
     with pytest.raises(SystemExit) as exc:
         bench.main(argv + ["--device", "cpu"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and "queue 1 item 7" in err
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv,whisper,both", [
+    (["--master_dtype", "bfloat16"], {}, dict(master_dtype="bfloat16")),
+    (["--remat"], {}, dict(remat=True)),
+    (["--remat_layers"], dict(remat_layers=True), {}),
+    (["--remat_policy", "none"], dict(remat_policy="none"), {}),
+])
+def test_capacity_flags_reach_the_jobs(monkeypatch, argv, whisper, both):
+    """The capacity flags (refused until they were ported) reach the jobs
+    the bench builds where bench.py's build_family_step applies them:
+    --master_dtype and --remat to both families, --remat_layers and
+    --remat_policy to Whisper's config."""
+    seen = {}
+
+    def recording(family):
+        def build(*args, **kwargs):
+            seen[family] = kwargs
+            raise _Built
+        return build
+
+    monkeypatch.setattr(bench.jobs, "make_whisper_job", recording("whisper"))
+    monkeypatch.setattr(bench.jobs, "make_wav2vec2_job", recording("wav2vec2"))
+    args = bench.parse_args(argv + ["--device", "cpu"])
+    for family in ("whisper", "wav2vec2"):
+        with pytest.raises(_Built):
+            bench.build_family_step(args, family, torch.device("cpu"))
+    capacity = {**dict(remat=False, master_dtype="float32"), **both}
+    for family in ("whisper", "wav2vec2"):
+        assert {k: seen[family][k] for k in capacity} == capacity
+    assert "config_overrides" not in seen["wav2vec2"]
+    assert seen["whisper"]["config_overrides"] == {
+        **dict(remat_layers=False, remat_policy="save_flash"), **whisper}
 
 
 def test_without_a_card_it_raises(monkeypatch):

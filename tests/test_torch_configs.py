@@ -33,13 +33,24 @@ def test_presets_match_jax_field_for_field(size):
 
 
 def test_remat_layers_is_refused_until_ported():
-    """remat_layers=True raises, naming its ROADMAP item; remat_policy is
-    kept as a field (as in the JAX config) and the default builds."""
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        WhisperConfig(remat_layers=True)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        WhisperConfig.from_size("base", remat_layers=True)
-    cfg = WhisperConfig.from_size("base", remat_policy="nothing")
+    """remat_layers=True builds (it raised until it was ported) with either
+    policy of the JAX config; an unknown policy raises when a model is
+    built with remat_layers=True, as JAX's _remat_policy raises at use, and
+    is kept, unused, without it."""
+    kw = dict(d_model=16, encoder_attention_heads=2, decoder_attention_heads=2,
+              encoder_layers=1, decoder_layers=1, d_ff=32, vocab_size=10,
+              n_mels=8, n_ctx=8, max_target_positions=6,
+              decoder_start_token_id=9)
+    for policy in ("save_flash", "none"):
+        model, cfg = create_whisper_model(device="cpu", remat_layers=True,
+                                          remat_policy=policy, **kw)
+        assert (cfg.remat_layers, cfg.remat_policy) == (True, policy)
+    cfg = WhisperConfig.from_size("base", remat_layers=True,
+                                  remat_policy="nothing")
+    with pytest.raises(ValueError, match="unknown remat_policy: 'nothing'"):
+        WhisperForConditionalGeneration(cfg)
+    model, cfg = create_whisper_model(device="cpu", remat_policy="nothing",
+                                      **kw)
     assert (cfg.remat_layers, cfg.remat_policy) == (False, "nothing")
 
 

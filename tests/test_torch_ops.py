@@ -168,11 +168,11 @@ def test_flash_dropout_not_ported():
     undropped = flash_attention.flash_attention(q, k, v, dropout_rate=0.0,
                                                 seed=7)
     assert torch.equal(undropped, flash_attention.flash_attention(q, k, v))
-    # the backward regenerates that mask: FlashAttention's gradients equal
-    # autograd through the plain forward with the same seed.
+    # the backward regenerates that mask: the flash_fwd op's gradients
+    # equal autograd through the plain forward with the same seed.
     qs, ks, vs = (x[0].clone().requires_grad_() for x in (q, k, v))
     g = _t(rng.standard_normal((2, 24, 16)).astype(np.float32))
-    flash_attention.FlashAttention.apply(qs, ks, vs, 40, 0.1, 7).backward(g)
+    flash_attention.flash_fwd(qs, ks, vs, 40, 0.1, 7)[0].backward(g)
     qr, kr, vr = (x[0].clone().requires_grad_() for x in (q, k, v))
     o_ref, _ = flash_attention.plain_flash_fwd(qr, kr, vr, 40, 0.1, 7)
     o_ref.backward(g)
@@ -185,7 +185,7 @@ def test_flash_dropout_not_ported():
                                           (100, 640, 600), (128, 2560, 2560),
                                           (128, 2560, 2500)])
 def test_plain_flash_bwd_matches_pallas(monkeypatch, tq, tk, kv_len):
-    """dq, dk, dv of the plain backward (and of the FlashAttention Function
+    """dq, dk, dv of the plain backward (and of the flash_fwd op's autograd
     on CPU tensors) against jax.grad of the Pallas flash attention in
     interpret mode at rate 0: self (1, 2, 200, 64), cross 100 x 640, and
     128 x 2560, where the keys span two 1280-key blocks and JAX takes its

@@ -327,10 +327,7 @@ def test_step_profile_categories_and_card_only(monkeypatch):
 
 @pytest.mark.parametrize("argv,where", [
     (["--tp", "2"], "queue 1 item 7"), (["--sp", "2"], "queue 1 item 7"),
-    (["--pp", "2"], "queue 1 item 7"), (["--remat"], "queue 1 item 7"),
-    (["--remat_layers"], "queue 1 item 7"),
-    (["--grad_accum", "2"], "queue 1 item 7"),
-    (["--master_dtype", "bfloat16"], "queue 1 item 7"),
+    (["--pp", "2"], "queue 1 item 7"),
     (["--microbatches", "4"], "queue 1 item 7"),
 ])
 def test_cli_refuses_unported_flags(capsys, argv, where):
@@ -339,6 +336,35 @@ def test_cli_refuses_unported_flags(capsys, argv, where):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and where in err
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--remat"], dict(remat=True)),
+    (["--remat_layers"], dict(config_overrides={"remat_layers": True})),
+    (["--grad_accum", "2"], dict(grad_accum=2)),
+    (["--master_dtype", "bfloat16"], dict(master_dtype="bfloat16")),
+])
+def test_cli_forwards_capacity_flags(monkeypatch, argv, want):
+    """The capacity flags (refused until they were ported) reach
+    train_whisper: --remat and --grad_accum as themselves, --remat_layers
+    through config_overrides as the JAX CLI passes it, --master_dtype as
+    the master weights' dtype; the others keep their defaults."""
+    seen = {}
+
+    def train(**kwargs):
+        seen.update(kwargs)
+        raise _Stop
+
+    monkeypatch.setattr(jobs, "train_whisper", train)
+    with pytest.raises(_Stop):
+        whisper_dist.main(argv + ["--device", "cpu"])
+    defaults = dict(remat=False, grad_accum=1, master_dtype="float32",
+                    config_overrides=None)
+    assert {k: seen[k] for k in defaults} == {**defaults, **want}
 
 
 def test_cli_defaults_match_the_jax_job():

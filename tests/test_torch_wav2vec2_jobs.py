@@ -304,8 +304,6 @@ def test_job_clis_on_the_cpu(tiny_jobs, tmp_path, monkeypatch, capsys, cli,
 @pytest.mark.parametrize("cli,argv,where", [
     (wav2vec2_dist, ["--tp", "2"], "queue 1 item 7"),
     (wav2vec2_dist, ["--sp", "2"], "queue 1 item 7"),
-    (wav2vec2_dist, ["--remat"], "queue 1 item 7"),
-    (wav2vec2_dist, ["--grad_accum", "2"], "queue 1 item 7"),
 ])
 def test_clis_refuse_unported_flags(capsys, cli, argv, where):
     with pytest.raises(SystemExit) as exc:
@@ -317,6 +315,25 @@ def test_clis_refuse_unported_flags(capsys, cli, argv, where):
 
 class _Stop(Exception):
     pass
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--remat"], dict(remat=True, grad_accum=1)),
+    (["--grad_accum", "2"], dict(remat=False, grad_accum=2)),
+])
+def test_wav2vec2_dist_forwards_capacity_flags(monkeypatch, argv, want):
+    """wav2vec2_dist's --remat and --grad_accum (refused until they were
+    ported) reach train_wav2vec2, as the JAX CLI passes them."""
+    seen = {}
+
+    def train(**kwargs):
+        seen.update(kwargs)
+        raise _Stop
+
+    monkeypatch.setattr(jobs, "train_wav2vec2", train)
+    with pytest.raises(_Stop):
+        wav2vec2_dist.main(argv + ["--device", "cpu"])
+    assert {k: seen[k] for k in want} == want
 
 
 @pytest.mark.parametrize("flag", ["resume", "jax_profile"])

@@ -4,8 +4,9 @@ Field for field the same as ``tethys_tpu.configs.WhisperConfig`` (the
 reference's nonstandard "small" default: d_model 768 with 4 + 4 layers) and
 ``tethys_tpu.configs.Wav2Vec2Config`` (tiny/small/base), with ``dtype``
 resolving ``compute_dtype`` to a torch dtype.  The model computes in that
-dtype; training holds f32 master weights and serving its weights in that
-dtype (models/whisper.py, models/wav2vec2.py).
+dtype; training holds f32 master weights (bf16 under the jobs'
+``master_dtype="bfloat16"``) and serving its weights in that dtype
+(models/whisper.py, models/wav2vec2.py).
 """
 
 from __future__ import annotations
@@ -68,19 +69,18 @@ class WhisperConfig:
     # Accelerator additions (not part of the reference surface).
     compute_dtype: str = "float32"
     use_flash_attention: bool = True
-    # Per-layer rematerialization is not ported yet: True raises.
+    # Per-layer rematerialization in training: each encoder and decoder
+    # layer runs under ops/remat.checkpoint, so the backward holds only the
+    # layers' inputs and recomputes each layer's interior.
     remat_layers: bool = False
-    # The JAX config's policy for remat_layers; unused until it is ported.
+    # Its policy: "save_flash" saves the flash forward's (o, lse), so the
+    # recompute does not run the forward kernel again; "none" recomputes
+    # everything.  Another value raises when a model is built with
+    # remat_layers=True (ops/remat.check_policy).
     remat_policy: str = "save_flash"
     # "none" keeps the cross-attention caches in the compute dtype; "int8"
     # keeps them as int8 with f32 per-column scales (ops/decode.py).
     kv_quant: str = "none"
-
-    def __post_init__(self):
-        if self.remat_layers:
-            raise ValueError(
-                "remat_layers=True (per-layer rematerialization) is not "
-                "ported yet (ROADMAP.md, queue 1 item 7)")
 
     @property
     def dtype(self) -> torch.dtype:

@@ -7,8 +7,11 @@ The reference's ``--num_batches`` and ``--batch_size``, the JAX jobs'
 versions, for small runs).  ``start_distributed`` joins the job's process
 group (``parallel/mesh.initialize_distributed``: torchrun's env or a
 TF_CONFIG that names several processes) for the dist jobs.  The JAX jobs'
-parallel and capacity flags are accepted so that they can be refused, each
-with an error that names where it waits in ROADMAP.md; none is ignored.
+single-card capacity flags (``CAPACITY``: --remat, --remat_layers,
+--grad_accum, --master_dtype) are taken by the CLIs whose JAX twins take
+them; their parallel flags (``REFUSED``) are accepted so that they can be
+refused, each with an error that names where it waits in ROADMAP.md; none
+is ignored.
 """
 
 from __future__ import annotations
@@ -23,24 +26,33 @@ REFUSED = {
            "queue 1 item 7 (sequence parallelism)"),
     "pp": (dict(type=int, default=1), 1,
            "queue 1 item 7 (pipeline parallelism)"),
-    "remat": (dict(action="store_true"), False,
-              "queue 1 item 7 (activation checkpointing)"),
-    "remat_layers": (dict(action="store_true"), False,
-                     "queue 1 item 7 (per-layer remat)"),
-    "grad_accum": (dict(type=int, default=1), 1,
-                   "queue 1 item 7 (gradient accumulation)"),
-    "master_dtype": (dict(type=str, default="float32",
-                          choices=["float32", "bfloat16"]), "float32",
-                     "queue 1 item 7 (bf16 master weights)"),
     "microbatches": (dict(type=int, default=2), 2,
                      "queue 1 item 7 (pipeline microbatches)"),
+}
+# flag -> argparse keywords, with the JAX CLI's help (jobs/whisper_dist.py).
+CAPACITY = {
+    "remat": dict(action="store_true",
+                  help="checkpoint the forward pass (medium/large HBM)"),
+    "remat_layers": dict(action="store_true",
+                         help="per-layer nn.remat (holds only layer-boundary "
+                              "activations; the capacity mode for "
+                              "medium/large — stronger than --remat)"),
+    "grad_accum": dict(type=int, default=1,
+                       help="accumulate N microbatches per optimizer step "
+                            "(extension; batch_size must divide by N)"),
+    "master_dtype": dict(type=str, default="float32",
+                         choices=["float32", "bfloat16"],
+                         help="master param/Adam-moment dtype; bfloat16 is "
+                              "the single-chip capacity mode for "
+                              "medium/large (pair with --remat_layers)"),
 }
 
 
 def add_common_flags(parser: argparse.ArgumentParser,
                      num_batches_default: int, batch_size_default: int,
-                     refused=()) -> None:
-    """The shared flags, and the JAX job's unported flags in ``refused``."""
+                     refused=(), capacity=()) -> None:
+    """The shared flags, the JAX job's unported flags in ``refused`` and
+    its capacity flags in ``capacity``."""
     parser.add_argument(
         "--num_batches", type=int, default=num_batches_default,
         help=f"num_batches per replica, default is set {num_batches_default}")
@@ -61,6 +73,8 @@ def add_common_flags(parser: argparse.ArgumentParser,
         help="write a torch.profiler trace of the training run to DIR")
     for flag in refused:
         parser.add_argument(f"--{flag}", **REFUSED[flag][0])
+    for flag in capacity:
+        parser.add_argument(f"--{flag}", **CAPACITY[flag])
 
 
 def parse(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:

@@ -13,8 +13,9 @@ The reference CLI: the hardened step (NaN scrub, 1/N loss scaling, double
 clipping), the 50-step and per-epoch checkpoints, the JCT contract.
 ``--resume`` restores the newest ``model_*`` checkpoint, ``--jax_profile
 DIR`` writes a profiler trace, ``--device cpu`` runs the plain versions
-(small runs); ``--tp``, ``--sp``, ``--remat`` and ``--grad_accum`` above 1
-are refused with their ROADMAP.md item (jobs/_common.py).
+(small runs); ``--remat`` checkpoints the whole loss and ``--grad_accum N``
+accumulates N microbatches a step, as the JAX CLI's; ``--tp`` and ``--sp``
+above 1 are refused with their ROADMAP.md item (jobs/_common.py).
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="wav2vec2 Distributed Speech Recognition")
     add_common_flags(parser, num_batches_default=5, batch_size_default=1,
-                     refused=("tp", "sp", "remat", "grad_accum"))
+                     refused=("tp", "sp"), capacity=("grad_accum",))
+    parser.add_argument("--remat", action="store_true",
+                        help="checkpoint the forward pass (large-model HBM)")
     parser.add_argument(
         "--model_size", type=str, default="small",
         choices=["tiny", "small", "base"],
@@ -70,6 +73,8 @@ def main(argv=None) -> None:
             device=device,
             resume=args.resume,
             collective_report=True,
+            remat=args.remat,
+            grad_accum=args.grad_accum,
         )
     jct = time.time() - start
     jobs.finalize_job(result, f"wav2vec2_{args.model_size}_model", jct)

@@ -39,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="wav2vec2 Distributed Speech Recognition "
                     "with Tensor Profiling")
     add_common_flags(parser, num_batches_default=5, batch_size_default=1,
-                     refused=("tp", "sp", "remat", "grad_accum"))
+                     refused=("tp", "sp"))
     parser.add_argument(
         "--model_size", type=str, default="small",
         choices=["tiny", "small", "base"])

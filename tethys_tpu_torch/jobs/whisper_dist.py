@@ -9,8 +9,17 @@ and ``--model_size``, its stdout lines, JCT file and checkpoints;
 ``--resume`` restores the newest ``whisper_<size>_*`` checkpoint and
 ``--jax_profile DIR`` writes a profiler trace.  ``--device cpu`` runs the
 plain versions of every kernel on the CPU (for small runs).  The JAX job's
-parallel and capacity flags are refused with an error that names where
-they wait in ROADMAP.md (jobs/_common.py).
+single-card capacity flags are taken (jobs/_common.CAPACITY): --remat (the
+whole loss checkpointed), --remat_layers (each layer checkpointed under
+the save_flash policy), --grad_accum N and --master_dtype bfloat16; the
+large-v3 capacity run:
+
+    python -m tethys_tpu_torch.jobs.whisper_dist --model_size large-v3 \
+        --batch_size 8 --dtype bfloat16 --remat_layers \
+        --master_dtype bfloat16 --grad_accum 2
+
+Its parallel flags (--tp, --sp, --pp, --microbatches) are refused with an
+error that names where they wait in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import argparse
 import time
 
 from tethys_tpu_torch.jobs._common import (
+    CAPACITY,
     REFUSED,
     add_common_flags,
     job_device,
@@ -32,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Whisper-small Distributed Speech Recognition")
     add_common_flags(parser, num_batches_default=40, batch_size_default=1,
-                     refused=tuple(REFUSED))
+                     refused=tuple(REFUSED), capacity=tuple(CAPACITY))
     parser.add_argument("--model_size", type=str, default="small",
                         choices=["tiny", "base", "small", "medium", "large",
                                  "large-v3"],
@@ -64,6 +74,11 @@ def main(argv=None) -> None:
             device=device,
             resume=args.resume,
             collective_report=True,
+            remat=args.remat,
+            grad_accum=args.grad_accum,
+            master_dtype=args.master_dtype,
+            config_overrides=({"remat_layers": True} if args.remat_layers
+                              else None),
         )
     jct = time.time() - start
     jobs.finalize_job(result, f"whisper_{args.model_size}_model", jct)

@@ -21,7 +21,10 @@ compute dtype; serving holds the weights in the compute dtype, where every
 cast is a no-op.  LayerNorm takes its statistics in f32 and returns the
 compute dtype; the embedding table is cast before the gather.
 
-Training (``model.train()`` with a CPU ``torch.Generator``): dropout at
+Training (``model.train()`` with a CPU ``torch.Generator``): with
+``remat_layers`` each encoder and decoder layer runs under
+ops/remat.checkpoint with ``remat_policy`` (the backward keeps the layers'
+inputs and recomputes their interiors, the dropout seeds replayed); dropout at
 exactly the JAX sites -- the encoder input after the positional add, the
 decoder input after embedding and positions, the FFN after gelu
 (activation_dropout) and after fc2 (dropout), and the attention
@@ -51,6 +54,7 @@ from torch import nn
 
 from tethys_tpu_torch.configs import WhisperConfig
 from tethys_tpu_torch.losses import seq2seq_shifted_ce
+from tethys_tpu_torch.ops import remat
 from tethys_tpu_torch.ops.activations import gelu
 from tethys_tpu_torch.ops.attention import decode_attention, multi_head_attention
 from tethys_tpu_torch.ops.conv import same_pad
@@ -201,6 +205,17 @@ def _layer_norm(config: WhisperConfig) -> LayerNorm:
     return LayerNorm(config.d_model, eps=config.layer_norm_eps)
 
 
+def _run_layer(config: WhisperConfig, layer: nn.Module, *args,
+               generator: Generator):
+    """layer(*args, generator), under ``remat.checkpoint`` with the
+    config's policy when ``remat_layers`` asks for it and the layer trains
+    with gradients on (the decode path never does)."""
+    if config.remat_layers and layer.training and torch.is_grad_enabled():
+        return remat.checkpoint(layer, *args, generator=generator,
+                                policy=config.remat_policy)
+    return layer(*args, generator)
+
+
 class WhisperEncoderLayer(nn.Module):
     def __init__(self, config: WhisperConfig):
         super().__init__()
@@ -282,7 +297,7 @@ class WhisperEncoder(nn.Module):
         x = module_dropout(x, cfg.dropout, self.training, generator)
         states: List[torch.Tensor] = [x]
         for layer in self.layers:
-            x = layer(x, generator)
+            x = _run_layer(cfg, layer, x, generator=generator)
             states.append(x)
         x = self.layer_norm(x)
         return (x, states) if output_hidden_states else x
@@ -317,7 +332,8 @@ class WhisperDecoder(nn.Module):
         x = module_dropout(x, self.config.dropout, self.training, generator)
         bias = causal_additive_mask(t, device=x.device)
         for layer in self.layers:
-            x = layer(x, encoder_hidden_states, bias, generator)
+            x = _run_layer(self.config, layer, x, encoder_hidden_states, bias,
+                           generator=generator)
         return self.layer_norm(x)
 
     def precompute_cross_kv(self, encoder_hidden_states: torch.Tensor):
@@ -347,6 +363,8 @@ class WhisperForConditionalGeneration(nn.Module):
         if config.kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got "
                              f"{config.kv_quant!r}")
+        if config.remat_layers:
+            remat.check_policy(config.remat_policy, remat.LAYER_POLICIES)
         self.config = config
         self.model = WhisperModel(config)
         self.lm_head = nn.Linear(config.d_model, config.vocab_size, bias=False)

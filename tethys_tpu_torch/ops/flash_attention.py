@@ -10,8 +10,13 @@ On the [B*H, T, D] layout:
   recomputed from lse and the dropout mask regenerated from the seed.
 * bf16 CUDA tensors take the kernels' tensor-core (mma.sync) versions,
   f32 CUDA tensors their FFMA versions (exact f32 products, as the CPU).
-* ``FlashAttention`` is the autograd Function over both (the JAX
-  ``_flash`` custom_vjp); it saves q, k, v, o, lse and the seed.
+* ``flash_fwd`` is the dispatcher op ``tethys::flash_fwd`` over both, with
+  flash_attention_bwd as its autograd formula (the JAX ``_flash``
+  custom_vjp); it saves q, k, v, o, lse and the seed.
+* ``saving(SavedOutputs())`` keeps the (o, lse) of each flash call of a
+  checkpointed region's forward, and its recompute takes them back rather
+  than launch the forward again: ops/remat.py's ``save_flash`` policy,
+  where JAX offers them to the policy through checkpoint_name.
 
 ``flash_attention`` is the [B, H, T, D] entry point.  Dropout applies to
 the unnormalised probabilities after the row max and sum are taken, scaled
@@ -21,7 +26,9 @@ drawn at flat index (bh * Tq + row) * Tk + col (ops/dropout.py).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import contextvars
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -192,24 +199,88 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_len: Optional[int] = None,
     return plain_flash_bwd(q, k, v, o, lse, do, kv_len, dropout_rate, seed)
 
 
-class FlashAttention(torch.autograd.Function):
-    """o = flash attention of contiguous [BH, T, D] q, k, v; the backward
-    is flash_attention_bwd (the kernel on CUDA, the plain version on CPU)."""
+@torch.library.custom_op(
+    "tethys::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, int kv_len, float dropout_rate, "
+           "int seed) -> (Tensor, Tensor)")
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
+              dropout_rate: float, seed: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of flash_attention_fwd as one dispatcher op, so that a
+    checkpoint policy sees it whole (ops/remat.py's ``dots_saveable``
+    recomputes it, as JAX recomputes a Pallas call that is not a dot).  Its
+    backward is flash_attention_bwd."""
+    return flash_attention_fwd(q, k, v, kv_len, dropout_rate, seed)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, kv_len, dropout_rate, seed):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def _save(ctx, q, k, v, o, lse, kv_len, dropout_rate, seed):
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.kv_len, ctx.dropout_rate, ctx.seed = kv_len, dropout_rate, seed
+
+
+def _grads(ctx, do):
+    q, k, v, o, lse = ctx.saved_tensors
+    return flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.kv_len,
+                               ctx.dropout_rate, ctx.seed)
+
+
+def _flash_setup(ctx, inputs, output):
+    _save(ctx, *inputs[:3], *output, *inputs[3:])
+    ctx.mark_non_differentiable(output[1])
+
+
+flash_fwd.register_autograd(
+    lambda ctx, do, _dlse: (*_grads(ctx, do), None, None, None),
+    setup_context=_flash_setup)
+
+
+class _FlashFromSaved(torch.autograd.Function):
+    """The flash op's autograd on the (o, lse) its forward gave before: o,
+    with flash_attention_bwd as the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_len: int, dropout_rate: float, seed: int):
-        o, lse = flash_attention_fwd(q, k, v, kv_len, dropout_rate, seed)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.kv_len, ctx.dropout_rate, ctx.seed = kv_len, dropout_rate, seed
-        return o
+    def forward(ctx, q, k, v, o, lse, kv_len: int, dropout_rate: float,
+                seed: int):
+        _save(ctx, q, k, v, o, lse, kv_len, dropout_rate, seed)
+        return o.view_as(o)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.kv_len, ctx.dropout_rate,
-                                         ctx.seed)
-        return dq, dk, dv, None, None, None
+        return (*_grads(ctx, do), None, None, None, None, None)
+
+
+class SavedOutputs:
+    """The (o, lse) of every flash call in a region, in order: a forward
+    under ``saving(outputs)`` appends them, a recompute under
+    ``saving(outputs, replay=True)`` takes them back in the same order and
+    launches no forward kernel (ops/remat.py's ``save_flash``, the JAX
+    policy save_only_these_names("flash_o", "flash_lse"))."""
+
+    def __init__(self):
+        self.outputs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.replay: Optional[Iterator] = None
+
+
+# The SavedOutputs of the region running in this thread (the backward's
+# recompute runs in the autograd engine's thread), or None.
+_SAVING: contextvars.ContextVar = contextvars.ContextVar("flash_saving",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def saving(outputs: SavedOutputs, replay: bool = False):
+    outputs.replay = iter(outputs.outputs) if replay else None
+    token = _SAVING.set(outputs)
+    try:
+        yield
+    finally:
+        _SAVING.reset(token)
 
 
 def flash_attention(
@@ -232,5 +303,12 @@ def flash_attention(
     q = query.reshape(b * h, tq, d).contiguous()
     k = key.reshape(b * h, tk, d).contiguous()
     v = value.reshape(b * h, tk, d).contiguous()
-    o = FlashAttention.apply(q, k, v, kv_len, float(dropout_rate), int(seed))
+    args = (kv_len, float(dropout_rate), int(seed))
+    saved = _SAVING.get()
+    if saved is not None and saved.replay is not None:
+        o = _FlashFromSaved.apply(q, k, v, *next(saved.replay), *args)
+    else:
+        o, lse = flash_fwd(q, k, v, *args)
+        if saved is not None:
+            saved.outputs.append((o.detach(), lse))
     return o.reshape(b, h, tq, d)

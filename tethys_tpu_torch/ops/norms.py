@@ -40,11 +40,16 @@ class LayerNorm(nn.LayerNorm):
 
 
 class GroupNormFunction(torch.autograd.Function):
-    """y = gamma * (x - mu_g) * rsqrt(var_g + eps) + beta, in ``dtype``."""
+    """y = gamma * (x - mu_g) * rsqrt(var_g + eps) + beta, in ``dtype``.
+    gamma and beta enter the kernels in f32 whatever their own dtype (bf16
+    under bf16 master weights), as the JAX ``_gn_core`` computes in f32;
+    their gradients leave in that dtype."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, groups: int, eps: float,
                 dtype: torch.dtype):
+        ctx.param_dtype = gamma.dtype
+        gamma, beta = gamma.float(), beta.float()
         mean_g, _, rstd_g = group_norm.group_moments(x, groups, eps)
         y = group_norm.apply(x, gamma, beta, mean_g, rstd_g, groups, dtype)
         ctx.save_for_backward(x, mean_g, rstd_g, gamma)
@@ -58,13 +63,14 @@ class GroupNormFunction(torch.autograd.Function):
         dy = dy.contiguous()
         sums, s = group_norm.grad_sums(x, dy, mean_g, rstd_g, gamma, groups)
         dx = group_norm.apply_bwd(x, dy, gamma, mean_g, rstd_g, s, groups)
-        dgamma, dbeta = sums.sum(dim=1)
+        dgamma, dbeta = sums.sum(dim=1).to(ctx.param_dtype)
         return dx, dgamma, dbeta, None, None, None
 
 
 class ReferenceGroupNorm(nn.Module):
-    """GroupNorm over [B, T, C] with reference semantics; f32 ``gamma`` and
-    ``beta`` (the flax names), output in ``dtype``."""
+    """GroupNorm over [B, T, C] with reference semantics; ``gamma`` and
+    ``beta`` (the flax names, f32 but under bf16 master weights), output in
+    ``dtype``."""
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):

@@ -10,8 +10,9 @@
 
   ``torch.optim.Adam`` adds eps to the corrected sqrt(v_hat), which drifts
   from Keras over a trajectory, so it is not the port.  Moments live in the
-  parameter dtype; the update runs as a few multi-tensor (``_foreach``)
-  passes over all parameters.  With ``clipnorm`` each gradient is first
+  parameter dtype (bf16 under bf16 master weights, as optax keeps them);
+  the update runs as a few multi-tensor (``_foreach``) passes over all
+  parameters.  With ``clipnorm`` each gradient is first
   clipped by its own L2 norm (Keras ``Adam(clipnorm=)``,
   ``per_variable_clipnorm``).
 * ``whisper_optimizer``: Keras defaults, eps 1e-7.  ``wav2vec2_optimizer``:
@@ -31,6 +32,9 @@
   reference's double clip (quirk #8), kept.  A parameter that took no
   gradient (the frozen codevectors) is left out of both clips, of the
   all-reduce and of the update, as the JAX step's zero gradient leaves it.
+* ``remat`` and ``grad_accum`` of ``make_train_step``: the whole-loss
+  checkpoint and gradient accumulation in f32 over microbatches, each
+  drawing from ``microbatch_generator`` (JAX ``scan_grad_accum``).
 * ``GradientReducer``: the SUM all-reduce as flat buckets of about 25 MB,
   one dtype each, taken after the backward (``DistributedDataParallel``
   would average, and would start reducing before the hardened clip has
@@ -44,6 +48,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from tethys_tpu_torch.ops import remat as remat_lib
 from tethys_tpu_torch.parallel import mesh
 
 
@@ -115,18 +120,23 @@ class KerasAdam(torch.optim.Optimizer):
             vs = [self.state[p]["v"] for p in params]
             b1, b2 = group["b1"], group["b2"]
             # m + (g - m) * (1 - b1), v + (g^2 - v) * (1 - b2)
+            # Each pass's temporaries are freed before the next one's are
+            # made, so the update holds at most two parameter-sized lists.
             dm = torch._foreach_sub(grads, ms)
             torch._foreach_mul_(dm, 1.0 - b1)
             torch._foreach_add_(ms, dm)
+            del dm
             dv = torch._foreach_mul(grads, grads)
             torch._foreach_sub_(dv, vs)
             torch._foreach_mul_(dv, 1.0 - b2)
             torch._foreach_add_(vs, dv)
+            del dv
             alpha = float(_keras_alpha(group["lr"], b1, b2, count))
             denom = torch._foreach_sqrt(vs)
             torch._foreach_add_(denom, group["eps"])
             update = torch._foreach_mul(ms, -alpha)
             torch._foreach_div_(update, denom)
+            del denom
             torch._foreach_add_(params, update)
         return None
 
@@ -234,9 +244,49 @@ def replica_mean(aux: dict) -> dict:
                     for (path, t), part in zip(leaves, parts))
 
 
+def accumulate(model: torch.nn.Module, batch, generator: torch.Generator,
+               n: int, value_and_grad: Callable):
+    """Gradient accumulation over ``n`` microbatches (JAX
+    ``scan_grad_accum``): the batch's tensors split into ``n`` equal
+    chunks along the leading dim, in order (raises when it does not
+    divide).  ``value_and_grad(model, microbatch, generator)`` runs one
+    forward and backward into ``p.grad`` and returns (loss, aux);
+    microbatch i draws from ``microbatch_generator(generator, i)``.  The
+    gradients are summed in f32 whatever the parameters' dtype (a bf16
+    running sum would round each add to 8 bits), then divided by ``n`` and
+    cast back once; a parameter that took no gradient keeps none.  Returns
+    (the mean loss, the mean of each aux leaf)."""
+    lead = batch[0].shape[0]
+    if lead % n:
+        raise ValueError(f"per-replica batch {lead} is not divisible by "
+                         f"grad_accum={n}")
+    size = lead // n
+    sums, losses, auxes = {}, [], []
+    for i in range(n):
+        mb = tuple(x[i * size:(i + 1) * size] for x in batch)
+        loss, aux = value_and_grad(model, mb, microbatch_generator(generator,
+                                                                   i))
+        losses.append(loss.float())
+        auxes.append(list(aux_leaves(aux or {})))
+        for p in model.parameters():
+            if p.grad is None:
+                continue
+            if p in sums:
+                sums[p] += p.grad
+            else:
+                sums[p] = p.grad.float()
+            p.grad = None
+    for p, total in sums.items():
+        p.grad = (total / n).to(p.dtype)
+    aux = aux_tree((path, torch.stack([a[j][1] for a in auxes]).mean(0))
+                   for j, (path, _) in enumerate(auxes[0]))
+    return torch.stack(losses).sum() / n, aux
+
+
 def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                     hardened: bool = False, return_aux: bool = False,
-                    grad_aux_fn: Optional[Callable] = None):
+                    grad_aux_fn: Optional[Callable] = None,
+                    remat: bool = False, grad_accum: int = 1):
     """step(state, batch, generator) -> (state, loss) on one replica.
 
     loss_fn(model, batch, generator) -> (scalar loss, aux).  The model and
@@ -253,18 +303,43 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
     ``aux["grad_aux"] = grad_aux_fn(grads)``, where ``grads`` maps each
     parameter's name to its gradient summed over the replicas, before the
     optimizer's own clip; a parameter that took no gradient gives zeros,
-    as in JAX.  Every value stays on the device."""
+    as in JAX.  Every value stays on the device.
+
+    ``remat``: the whole loss_fn runs under ``ops/remat.checkpoint`` with
+    the ``dots_saveable`` policy (JAX's jax.checkpoint with
+    dots_with_no_batch_dims_saveable), its draws replayed in the recompute.
+    ``grad_accum=N``: the batch is split into N microbatches along its
+    leading dim (``accumulate``): the NaN scrub and 1/N run on each, the
+    loss and the aux are their means, and the global-norm clip runs once,
+    on the accumulated gradients, before the all-reduce.  N = 1 is the
+    unaccumulated step, with the same draws."""
     n_replicas = mesh.world_size()
     reducer = GradientReducer() if mesh.group_up() else None
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum={grad_accum} must be at least 1")
+    if remat:
+        inner_loss_fn = loss_fn
 
-    def step(state: TrainState, batch, generator: torch.Generator):
-        optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(state.model, batch, generator)
+        def loss_fn(model, batch, generator):  # noqa: F811
+            return remat_lib.checkpoint(inner_loss_fn, model, batch,
+                                        generator=generator,
+                                        policy="dots_saveable")
+
+    def value_and_grad(model, batch, generator):
+        loss, aux = loss_fn(model, batch, generator)
         if hardened:
             loss = torch.where(torch.isnan(loss), torch.zeros_like(loss),
                                loss) / n_replicas
         loss.backward()
-        loss = loss.detach()
+        return loss.detach(), aux
+
+    def step(state: TrainState, batch, generator: torch.Generator):
+        optimizer.zero_grad(set_to_none=True)
+        if grad_accum > 1:
+            loss, aux = accumulate(state.model, batch, generator, grad_accum,
+                                   value_and_grad)
+        else:
+            loss, aux = value_and_grad(state.model, batch, generator)
         grads = [p.grad for p in state.model.parameters()
                  if p.grad is not None]
         if hardened:
@@ -283,6 +358,7 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
         return state, loss
 
     step.reducer = reducer
+    step.remat = remat
     return step
 
 
@@ -303,3 +379,13 @@ def step_generator(seed: int, step: int, replica: int = 0) -> torch.Generator:
     if replica:
         z = _splitmix64(z ^ replica)
     return torch.Generator().manual_seed(z)
+
+
+def microbatch_generator(generator: torch.Generator,
+                         index: int) -> torch.Generator:
+    """The generator of microbatch ``index`` of a step whose generator is
+    ``generator``, a function of (seed, step, replica, index) as JAX's
+    fold_in(rng, index) is: the step generator's seed folded with the index
+    as ``step_generator`` folds the replica."""
+    return torch.Generator().manual_seed(
+        _splitmix64(generator.initial_seed() ^ index))

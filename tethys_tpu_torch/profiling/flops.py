@@ -12,10 +12,16 @@ here from the shapes instead:
     dV = P^T dO, dP = dO V^T, dK = dS^T Q, dQ = dS K = 5 products
 
 each 2*B*H*Tq*Tk*D FLOPs over the unpadded lengths (model FLOPs, not the
-kernel's padded 1536 keys).  Which sites take the flash kernels is decided
-by the gate the model uses (``ops.attention.flash_active``), on the card
-only: on the CPU the plain attention runs as ``bmm``, the counter sees it,
-and its backward makes 4 products where the flash backward makes 5.
+kernel's padded 1536 keys).  A checkpoint that runs the flash forward again
+(the whole-loss remat, ``remat_layers`` with the ``none`` policy) adds its
+2 products a site; under ``save_flash`` the forward runs once.  The
+counter sees the torch ops that a checkpoint recomputes, since it is
+active through the backward: the step's FLOPs, and the bench's MFU, count
+what runs, as XLA's cost analysis of the rematerialised JAX step does.
+Which sites take the flash kernels is decided by the gate the model uses
+(``ops.attention.flash_active``), on the card only: on the CPU the plain
+attention runs as ``bmm``, the counter sees it, and its backward makes 4
+products where the flash backward makes 5.
 
 With ``TETHYS_FUSED_QKV=1`` on the card the forward projections of Whisper
 run in csrc/qkv_proj.cu, which the counter does not see either (their
@@ -56,6 +62,19 @@ def _site_flops(batch: int, heads: int, tq: int, tk: int, head_dim: int,
     return per_matmul * matmuls
 
 
+def flash_forward_recomputes(config, *, training: bool = True,
+                             whole_loss_remat: bool = False) -> int:
+    """How many times a train step runs each flash forward again: once
+    under the whole-loss checkpoint, whose policy saves dots only, and
+    once under ``remat_layers`` with the ``none`` policy; ``save_flash``
+    saves the forward's outputs and runs it once.  The layers checkpoint
+    in training only.  (JAX's ``whisper_custom_call_flops`` counts the
+    first case only.)"""
+    layer_none = (training and getattr(config, "remat_layers", False)
+                  and getattr(config, "remat_policy", "save_flash") == "none")
+    return 1 if whole_loss_remat or layer_none else 0
+
+
 def whisper_custom_call_flops(config, batch: int, label_len: int,
                               feature_frames: int = 3000, *,
                               training: bool = True,
@@ -64,11 +83,13 @@ def whisper_custom_call_flops(config, batch: int, label_len: int,
     """FLOPs of the flash kernels in one Whisper train or eval step:
     encoder self-attention at the conv stem's output length
     (ceil(frames / 2)), decoder cross-attention (label_len x enc_len) and
-    decoder self-attention (label_len), each where the gate takes it."""
+    decoder self-attention (label_len), each where the gate takes it, with
+    the forward's recomputes (``flash_forward_recomputes``)."""
     enc_len = -(-feature_frames // 2)
     use_flash = getattr(config, "use_flash_attention", True)
     head_dim = config.d_model // config.encoder_attention_heads
-    recomp = 1 if whole_loss_remat else 0
+    recomp = flash_forward_recomputes(config, training=training,
+                                      whole_loss_remat=whole_loss_remat)
     total = 0.0
     if flash_active(use_flash, enc_len, enc_len, is_cuda):
         total += config.encoder_layers * _site_flops(
@@ -87,6 +108,7 @@ def whisper_custom_call_flops(config, batch: int, label_len: int,
 
 def wav2vec2_custom_call_flops(config, batch: int, frames: int, *,
                                training: bool = True,
+                               whole_loss_remat: bool = False,
                                is_cuda: bool = True) -> float:
     """Wav2Vec2's encoder self-attention: 0 at pretraining clip lengths
     (T ~ 100 never passes the gate, and the config asks for no flash
@@ -97,7 +119,8 @@ def wav2vec2_custom_call_flops(config, batch: int, frames: int, *,
     head_dim = config.hidden_size // config.num_attention_heads
     return config.num_hidden_layers * _site_flops(
         batch, config.num_attention_heads, frames, frames, head_dim,
-        training)
+        training, flash_forward_recomputes(
+            config, training=training, whole_loss_remat=whole_loss_remat))
 
 
 def whisper_fused_projection_flops(config, batch: int, label_len: int,
@@ -112,16 +135,20 @@ def whisper_fused_projection_flops(config, batch: int, label_len: int,
                       + config.decoder_layers * (6 * label_len + 2 * enc_len))
 
 
-def custom_call_flops(config, batch) -> float:
+def custom_call_flops(config, batch, whole_loss_remat: bool = False) -> float:
     """The FLOPs of one train step that the counter cannot see, at this
     batch's shapes: Whisper's (features, labels) or Wav2Vec2's (audio,
-    labels)."""
+    labels).  The counter sees every torch op that a checkpoint recomputes
+    (it is active through the backward), so only the kernels' recomputes
+    are added here; under grad_accum the microbatches' shapes sum to the
+    batch's, and so do their FLOPs."""
     is_cuda = batch[0].is_cuda
     if isinstance(config, WhisperConfig):
         features, labels = batch
         b, frames, label_len = features.shape[0], features.shape[-1], \
             labels.shape[1]
         total = whisper_custom_call_flops(config, b, label_len, frames,
+                                          whole_loss_remat=whole_loss_remat,
                                           is_cuda=is_cuda)
         if is_cuda and fused_qkv_enabled():
             total += whisper_fused_projection_flops(config, b, label_len,
@@ -130,7 +157,7 @@ def custom_call_flops(config, batch) -> float:
     audio = batch[0]
     return wav2vec2_custom_call_flops(
         config, audio.shape[0], config.downsampled_length(audio.shape[1]),
-        is_cuda=is_cuda)
+        whole_loss_remat=whole_loss_remat, is_cuda=is_cuda)
 
 
 def _conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride,
@@ -166,4 +193,5 @@ def step_flops(step, state, batch, generator: torch.Generator) -> StepFlops:
     with counter:
         state, loss = step(state, batch, generator)
     return StepFlops(state, loss, float(counter.get_total_flops()),
-                     custom_call_flops(state.model.config, batch))
+                     custom_call_flops(state.model.config, batch,
+                                       getattr(step, "remat", False)))

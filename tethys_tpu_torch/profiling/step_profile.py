@@ -4,10 +4,15 @@
         --batch_size 32 --dtype bfloat16
     python -m tethys_tpu_torch.profiling.step_profile --model whisper \
         --model_size base --batch_size 16 --dtype bfloat16
+    python -m tethys_tpu_torch.profiling.step_profile --model whisper \
+        --model_size large-v3 --batch_size 4 --remat_layers \
+        --master_dtype bfloat16
 
 Builds the job's step (train/jobs.make_wav2vec2_job: the hardened step on
 2 s clips by default; make_whisper_job: the plain step on 30 s inputs; the
-config's dropout), runs warm-up steps, then:
+config's dropout; the capacity modes of the jobs' CLIs: --remat,
+--grad_accum and --master_dtype, and Whisper's --remat_layers with
+--remat_policy), runs warm-up steps, then:
 - times ``--steps`` steps pipelined as the loop runs them (the host fetches
   step i-1's loss while the device runs step i), host clock, no profiler:
   wall ms per step, and the host's ms per step spent taking and uploading
@@ -98,7 +103,17 @@ def main(argv=None) -> dict:
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--grad_accum", type=int, default=1)
+    parser.add_argument("--master_dtype", default="float32",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--remat_layers", action="store_true",
+                        help="whisper only")
+    parser.add_argument("--remat_policy", default="save_flash",
+                        choices=["save_flash", "none"])
     args = parser.parse_args(argv)
+    capacity = dict(remat=args.remat, grad_accum=args.grad_accum,
+                    master_dtype=args.master_dtype)
 
     from tethys_tpu_torch.parallel.dp import step_generator
     from tethys_tpu_torch.train.jobs import make_wav2vec2_job, make_whisper_job
@@ -107,14 +122,17 @@ def main(argv=None) -> dict:
     device = require_cuda()
     if args.model == "whisper":
         batch_size = args.batch_size or 16
-        job = make_whisper_job(args.model_size, batch_size,
-                               compute_dtype=args.dtype, device=device, seed=0)
+        job = make_whisper_job(
+            args.model_size, batch_size, compute_dtype=args.dtype,
+            device=device, seed=0, config_overrides=dict(
+                remat_layers=args.remat_layers,
+                remat_policy=args.remat_policy), **capacity)
     else:
         batch_size = args.batch_size or 32
         job = make_wav2vec2_job(
             "pretraining", args.model_size, batch_size,
             compute_dtype=args.dtype, audio_length=args.audio_length,
-            device=device, seed=0)
+            device=device, seed=0, **capacity)
     batches = iter(job.dataset)
     state, count = job.state, 0
     host = collections.Counter()  # seconds of host time by stage
@@ -169,7 +187,9 @@ def main(argv=None) -> dict:
         "model": f"{args.model}-{args.model_size}", "batch": batch_size,
         **({"audio_length": args.audio_length}
            if args.model == "wav2vec2" else {}),
-        "dtype": args.dtype, "steps": args.steps, "wall_ms_per_step": wall_ms,
+        "dtype": args.dtype, **{k: v for k, v in vars(args).items()
+                                if k in capacity or k.startswith("remat")},
+        "steps": args.steps, "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "launches_per_step": launches / args.steps,
         "host_ms_per_step": host_ms,

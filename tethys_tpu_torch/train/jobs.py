@@ -18,8 +18,16 @@ from the same seed, feeds its own local batch of
 jobs.py:200-207) and keeps one replica; the step sums the gradients over
 the replicas (``parallel/dp``), rank 0 writes the checkpoints, and
 ``collective_report=True`` writes ``<task>_<idx>_collectives.txt`` on
-every rank.  TP/SP/PP, remat, gradient accumulation and bf16 master
-weights are refused by the CLIs (jobs/) and wait in ROADMAP.md.
+every rank.  TP/SP/PP are refused by the CLIs (jobs/) and wait in
+ROADMAP.md.
+
+The single-card capacity modes of the JAX jobs: ``remat`` (the whole loss
+checkpointed, parallel/dp), ``grad_accum`` (microbatches accumulated in
+f32, parallel/dp), Whisper's ``remat_layers`` and ``remat_policy`` through
+``config_overrides`` (models/whisper.py), and ``master_dtype="bfloat16"``:
+the parameters are made in f32 and cast once to bf16 (JAX's
+``astype(bfloat16)``, bit for bit), so Keras Adam keeps its moments in
+bf16 too.
 
 With ``profiler`` (a ``profiling.tensorsize.TensorProfiler``) a job logs
 its parameters once and, after every step, the static rows of a step in
@@ -40,7 +48,11 @@ import torch
 from tethys_tpu_torch import data as data_lib
 from tethys_tpu_torch import losses
 from tethys_tpu_torch.checkpoint import CheckpointManager, save_final_weights
-from tethys_tpu_torch.configs import Wav2Vec2Config, WhisperConfig
+from tethys_tpu_torch.configs import (
+    Wav2Vec2Config,
+    WhisperConfig,
+    resolve_dtype,
+)
 from tethys_tpu_torch.convert import flax_path
 from tethys_tpu_torch.models import wav2vec2 as wav2vec2_lib
 from tethys_tpu_torch.models.whisper import (
@@ -74,12 +86,18 @@ def make_whisper_job(
     data_seq_len: int = 3000,
     config_overrides: Optional[dict] = None,
     device=None,
+    remat: bool = False,
+    grad_accum: int = 1,
+    master_dtype: str = "float32",
 ) -> TrainJob:
-    """The model with f32 master weights (in train mode), the plain step
-    with ``whisper_optimizer``, the synthetic dataset."""
+    """The model with ``master_dtype`` master weights (in train mode), the
+    plain step with ``whisper_optimizer``, ``remat`` and ``grad_accum``,
+    the synthetic dataset."""
     device = require_cuda() if device is None else torch.device(device)
+    # create_whisper_model draws the weights in f32 and casts them once.
     model, config = create_whisper_model(
-        model_type, device=device, seed=seed, param_dtype=torch.float32,
+        model_type, device=device, seed=seed,
+        param_dtype=resolve_dtype(master_dtype),
         compute_dtype=compute_dtype, **(config_overrides or {}))
     model.train()
     optimizer = dp.whisper_optimizer(model.parameters(), learning_rate)
@@ -95,7 +113,8 @@ def make_whisper_job(
                 torch.from_numpy(labels).to(device))
 
     return TrainJob(
-        dp.make_train_step(loss_fn, optimizer, hardened=False),
+        dp.make_train_step(loss_fn, optimizer, hardened=False, remat=remat,
+                           grad_accum=grad_accum),
         dp.TrainState(model, optimizer),
         data_lib.create_whisper_dummy_dataset(
             batch_size_per_replica, n_mels=config.n_mels, seq_len=data_seq_len),
@@ -198,14 +217,19 @@ def train_whisper(
     profiler=None,
     resume: bool = False,
     collective_report: bool = False,
+    remat: bool = False,
+    grad_accum: int = 1,
+    master_dtype: str = "float32",
 ):
     """End-to-end Whisper training (reference train_whisper,
     speech_jobs/whisper_dist.py:894-958).  With ``profiler``, the
-    tensorsize instrumentation of whisper_dist_tensorsize.py (module doc).
-    Returns (result, model, config)."""
+    tensorsize instrumentation of whisper_dist_tensorsize.py; ``remat``,
+    ``grad_accum`` and ``master_dtype`` as in the module doc.  Returns
+    (result, model, config)."""
     job = make_whisper_job(
         model_type, batch_size_per_replica, learning_rate, compute_dtype,
-        seed, data_seq_len, config_overrides, device)
+        seed, data_seq_len, config_overrides, device, remat=remat,
+        grad_accum=grad_accum, master_dtype=master_dtype)
     if profiler is not None:
         profiler.log_model_parameters(job.state.model)
         step_hooks = tuple(step_hooks) + (_profiler_hooks(
@@ -236,18 +260,24 @@ def make_wav2vec2_job(
     config_overrides: Optional[dict] = None,
     device=None,
     profile_values: bool = False,
+    remat: bool = False,
+    grad_accum: int = 1,
+    master_dtype: str = "float32",
 ) -> TrainJob:
-    """The model with f32 master weights (in train mode), the hardened step
-    with ``wav2vec2_optimizer``, the synthetic dataset.  Each step draws its
-    contrastive negatives, then its dropout seeds, from the step's CPU
-    generator.  ``profile_values``: the step returns (state, loss, aux),
+    """The model with ``master_dtype`` master weights (in train mode), the
+    hardened step with ``wav2vec2_optimizer``, ``remat`` and
+    ``grad_accum``, the synthetic dataset.  Each step (each microbatch
+    under ``grad_accum``) draws its contrastive negatives, then its dropout
+    seeds, from its CPU generator.  ``profile_values``: the step returns
+    (state, loss, aux),
     the aux the value skews of the input and of the loss aux's tensors of
     more than one element, with the skews of the summed gradients under
     ``grad_aux``, by flax path."""
     device = require_cuda() if device is None else torch.device(device)
     model, config = wav2vec2_lib.create_full_model(
         model_type, model_size, device=device, seed=seed, real_ctc=real_ctc,
-        compute_dtype=compute_dtype, **(config_overrides or {}))
+        param_dtype=resolve_dtype(master_dtype), compute_dtype=compute_dtype,
+        **(config_overrides or {}))
     model.train()
     optimizer = dp.wav2vec2_optimizer(model.parameters(), learning_rate)
     frames = config.downsampled_length(audio_length)
@@ -290,7 +320,8 @@ def make_wav2vec2_job(
 
     return TrainJob(
         dp.make_train_step(loss_fn, optimizer, hardened=True,
-                           return_aux=profile_values, grad_aux_fn=grad_aux_fn),
+                           return_aux=profile_values, grad_aux_fn=grad_aux_fn,
+                           remat=remat, grad_accum=grad_accum),
         dp.TrainState(model, optimizer),
         data_lib.create_wav2vec2_dummy_dataset(batch_size_per_replica,
                                                audio_length=audio_length),
@@ -317,19 +348,22 @@ def train_wav2vec2(
     profile_values: bool = True,
     resume: bool = False,
     collective_report: bool = False,
+    remat: bool = False,
+    grad_accum: int = 1,
 ):
     """End-to-end Wav2Vec2 training (reference train_wav2vec2,
     speech_jobs/wav2vec2_dist.py:1263-1376): pretraining, asr or
     classification (``make_wav2vec2_job``) through the resilient loop with
     50-step and per-epoch checkpoints tagged ``model``.  With ``profiler``,
     the tensorsize and per-value skewness instrumentation of
-    wav2vec2_dist_tensorsize.py (module doc).  Returns (result, model,
-    config)."""
+    wav2vec2_dist_tensorsize.py (module doc); ``remat`` and ``grad_accum``
+    as in the module doc.  Returns (result, model, config)."""
     profiling = profiler is not None
     job = make_wav2vec2_job(
         model_type, model_size, batch_size_per_replica, learning_rate,
         compute_dtype, seed, audio_length, real_ctc, config_overrides, device,
-        profile_values=profiling and profile_values)
+        profile_values=profiling and profile_values, remat=remat,
+        grad_accum=grad_accum)
     if profiling:
         profiler.log_model_parameters(job.state.model)
         step_hooks = tuple(step_hooks) + (_profiler_hooks(
