@@ -67,7 +67,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13,
    flash bench: phase 14, frontend: phase 15, training bench: phase 16,
    resume: phase 17, data parallel: phase 18, tensorsize: phase 19,
-   capacity: phase 20, with the launches of the processes they start)
+   capacity: phase 20, parallel: phase 21 (a, b, c, e), with the launches
+   of the processes they start)
    and read after it; every kernel of a path must have launched during it,
    and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
    as often as gn_grad_sums;
@@ -158,7 +159,29 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    2, then the bench's wav2vec2-base with --master_dtype bfloat16, whose
    GroupNorm kernels launch with bf16 gamma and beta; (f) the convergence
    twin, whisper-base b16, 20 steps under each master dtype: both curves
-   finite and falling.
+   finite and falling;
+21. Whisper's tensor and sequence parallelism, each world 2 ranks sharing
+   the card over gloo (NCCL refuses two ranks on one card; the collectives
+   take CUDA tensors, and the process's are logged by (backend, device,
+   op)): (a) python -m tethys_tpu_torch.jobs.whisper_dist --model_size
+   large-v3 --tp 2 --remat_layers --batch_size 1 --num_batches 4 --dtype
+   bfloat16 --backend gloo from torchrun's env: both ranks exit 0 with one
+   finite loss a step, launch flash_fwd_dropout, flash_bwd, split_heads,
+   merge_heads and dropout, and hold at most 0.55 of the unsharded f32
+   parameters and Adam moments (peak memory logged); rank 0's whole
+   checkpoint restores with --resume into a --tp 1 run; (b) whisper-base
+   f32, rates 0, b2, 2 Keras-Adam steps over (data 1, model 2) against one
+   process: losses, gradients, their norm and the parameters within phase
+   6's tolerances; (c) whisper_dist --model_size small --sp 2 --batch_size
+   2 --num_batches 4 --dtype bfloat16 exits 0 on both ranks, then
+   whisper-small f32 steps over (data 1, seq 2) with the config's dropout
+   (attention's 0) against one process, as (b), the flash forward
+   launched at Tq 750 against Tk 1500; (d) dropout.cu on a shard of [16,
+   1500, 512] bf16 (750 rows; 256 columns) equals the slice of the whole
+   tensor's launch bit for bit, its time beside the whole's (outside the
+   path's counts); (e) greedy decoding of whisper-base f32 over (data 1,
+   model 2), kv_quant none and int8, emits one process's tokens and
+   length, decode_self and q8_cross launched on 4 of 8 heads.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -233,6 +256,9 @@ PATH_KERNELS = {
     "capacity": ("split_heads", "merge_heads", "flash_fwd",
                  "flash_fwd_dropout", "flash_bwd", "dropout", "gn_stats",
                  "gn_grad_sums", "gn_apply", "gn_apply_bwd"),
+    "parallel": ("split_heads", "merge_heads", "flash_fwd",
+                 "flash_fwd_dropout", "flash_bwd", "dropout", "decode_self",
+                 "q8_cross"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -3087,6 +3113,487 @@ def run_convergence() -> None:
         f"{record['verdict']}")
 
 
+# Phase 21: Whisper's tensor and sequence parallelism.  The machine has one
+# card and NCCL refuses two ranks on one card, so each world is 2 ranks
+# sharing it over gloo (which takes CUDA tensors): a proof of correctness,
+# of the kernels at the sharded shapes and of each rank's memory, not of
+# the collectives' speed.
+PAR_RANKS = 2
+PAR_V3_STEPS = 4
+PAR_SP_STEPS = 4
+PAR_STEPS = 2
+PAR_BATCH = 2           # rows a replica in (b), (c) and (e)
+PAR_LR = 1e-4
+PAR_DECODE_STEPS = 32
+# (kv_quant, TETHYS_FUSED_QKV) of 21(e): JAX's fused projections run under a
+# TP mesh (its Pallas call has no partitioning rule, so GSPMD runs it on
+# gathered weights); here csrc/qkv_proj.cu runs on each rank's heads.
+PAR_DECODES = (("none", False), ("int8", False), ("int8", True))
+PAR_ADAM_SHARE = 0.55   # one rank's params + Adam over the unsharded total
+# Runs ``python -m <module> <flags>`` (the module is the first argument),
+# then prints the process's launch counts, the collectives it made by
+# (backend, device, op), and, from the job's final state, its peak memory
+# and the bytes of its parameters and Adam's moments, with the seconds it
+# took to make the job, save and restore checkpoints, reach the final
+# save and end; a run past 600 s prints every thread's stack and exits.
+PAR_CLI = (
+    "import faulthandler, json, runpy, sys, time, torch\n"
+    "t0 = time.perf_counter()\n"
+    "faulthandler.dump_traceback_later(600, exit=True)\n"
+    "from tethys_tpu_torch.ops import sharding\n"
+    "from tethys_tpu_torch.train import jobs\n"
+    "from tethys_tpu_torch.utils import kernel_lib\n"
+    "from tethys_tpu_torch import checkpoint\n"
+    "seen, real = {}, jobs.finalize_job\n"
+    "def timed(name, fn):\n"
+    "    def run(*args, **kwargs):\n"
+    "        t = time.perf_counter()\n"
+    "        out = fn(*args, **kwargs)\n"
+    "        seen[name] = seen.get(name, 0) + time.perf_counter() - t\n"
+    "        return out\n"
+    "    return run\n"
+    "cm = checkpoint.CheckpointManager\n"
+    "cm.save = timed('s_checkpoint_save', cm.save)\n"
+    "cm.restore_like = timed('s_checkpoint_restore', cm.restore_like)\n"
+    "jobs.make_whisper_job = timed('s_make_job', jobs.make_whisper_job)\n"
+    "def finalize(result, *args, **kwargs):\n"
+    "    st = result.state\n"
+    "    seen['param_bytes'] = sum(p.numel() * p.element_size()\n"
+    "                              for p in st.model.parameters())\n"
+    "    seen['adam_bytes'] = sum(t.numel() * t.element_size()\n"
+    "                             for s in st.optimizer.state.values()\n"
+    "                             for t in s.values()\n"
+    "                             if torch.is_tensor(t) and t.dim())\n"
+    "    seen['peak_bytes'] = torch.cuda.max_memory_allocated()\n"
+    "    seen['s_to_finalize'] = time.perf_counter() - t0\n"
+    "    real(result, *args, **kwargs)\n"
+    "    seen['s_to_end'] = time.perf_counter() - t0\n"
+    "jobs.finalize_job = finalize\n"
+    "sys.argv[0] = sys.argv.pop(1)\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+    "print('LAUNCHES ' + json.dumps(kernel_lib.launch_counts()))\n"
+    "print('TRANSPORTS ' + json.dumps({' '.join(k): n for k, n in\n"
+    "                                  sharding.TRANSPORTS.items()}))\n"
+    "print('MEMORY ' + json.dumps(seen))\n")
+PAR_WHISPER = "tethys_tpu_torch.jobs.whisper_dist"
+# The collectives every process of the phase made, by "backend device op".
+PAR_TRANSPORTS: dict = {}
+
+
+def wait_all(procs, timeout: int) -> list:
+    """The processes' stdouts (stderr merged), killing any left running."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def par_cli(ws: str, ranks: int, *flags: str) -> list:
+    """whisper_dist with ``flags`` in ``ranks`` processes of their own on
+    the card (torchrun's env, every rank on cuda:0; ``ranks`` 1: no env, no
+    group), in the workspace ``ws``: per rank its lines, step losses,
+    launch counts, transports and memory."""
+    with open(os.path.join(ws, "model.txt"), "w") as fh:
+        fh.write("chip_smoke")
+    os.makedirs(os.path.join(ws, "chip_smoke"), exist_ok=True)
+    port = free_port()
+    log(f"  {time.strftime('%H:%M:%S')} {ranks} x python -m {PAR_WHISPER} "
+        + " ".join(flags))
+    procs = []
+    for r in range(ranks):
+        env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+        env.update(TETHYS_WORKSPACE=ws, TETHYS_RESULT=ws, PYTHONPATH=ROOT)
+        if ranks > 1:
+            env.update(WORLD_SIZE=str(ranks), RANK=str(r), LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", PAR_CLI, PAR_WHISPER, *flags], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = wait_all(procs, 900)
+    require(all(p.returncode == 0 for p in procs), "a rank failed:\n"
+            + "\n----\n".join(out[-4000:] for out in outs))
+    runs = []
+    for out in outs:
+        lines = out.splitlines()
+        require("Error at step" not in out, "a step failed")
+        steps = [ELAPSED_RE.match(line) for line in lines]
+        steps = [(int(m[1]), float(m[2]), float(m[3])) for m in steps if m]
+
+        def tagged(tag):
+            return json.loads(next(line for line in lines
+                                   if line.startswith(tag + " "))
+                              [len(tag) + 1:])
+
+        runs.append({"out": lines, "steps": steps,
+                     "losses": [loss for _, loss, _ in steps],
+                     "counts": tagged("LAUNCHES"),
+                     "transports": tagged("TRANSPORTS"),
+                     "memory": tagged("MEMORY")})
+        add_counts(PAR_TRANSPORTS, runs[-1]["transports"])
+    return runs
+
+
+def whisper_numel(model_type: str) -> int:
+    """The parameters of a whole Whisper of ``model_type`` (no memory)."""
+    from tethys_tpu_torch.configs import WhisperConfig
+    from tethys_tpu_torch.models.whisper import WhisperForConditionalGeneration
+
+    with torch.device("meta"):
+        model = WhisperForConditionalGeneration(
+            WhisperConfig.from_size(model_type))
+    return sum(p.numel() for p in model.parameters())
+
+
+def run_tp_large_v3(gpu: str, child: dict) -> None:
+    """Phase 21(a): whisper_dist --model_size large-v3 --tp 2
+    --remat_layers --batch_size 1 --num_batches 4 --dtype bfloat16 in a
+    world of 2 gloo ranks on the card: both exit 0 with one finite loss a
+    step, launch the training kernels and keep at most PAR_ADAM_SHARE of
+    the unsharded f32 parameters and Adam moments; rank 0's checkpoint
+    then restores with --resume into a --tp 1 run."""
+    import shutil
+
+    whole = whisper_numel("large-v3") * 4 * 3      # f32 params, m and v
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        log(f"  workspace {ws}: {shutil.disk_usage(ws).free / 2 ** 30:.1f} "
+            "GiB free")
+        flags = ("--model_size", "large-v3", "--remat_layers", "--batch_size",
+                 "1", "--dtype", "bfloat16")
+        t0 = time.perf_counter()
+        runs = par_cli(ws, PAR_RANKS, *flags, "--tp", "2", "--num_batches",
+                       str(PAR_V3_STEPS), "--backend", "gloo")
+        seconds = time.perf_counter() - t0
+        for r, run in enumerate(runs):
+            add_counts(child, run["counts"])
+            mem = run["memory"]
+            share = (mem["param_bytes"] + mem["adam_bytes"]) / whole
+            steps = [i for i, _, _ in run["steps"]]
+            ms = ((run["steps"][-2][2] - run["steps"][0][2])
+                  / (PAR_V3_STEPS - 2) * 1e3)
+            seconds_by = {k: round(v, 1) for k, v in mem.items()
+                          if k.startswith("s_")}
+            log(f"  21(a) rank {r} seconds: {seconds_by}, the loop "
+                f"{run['steps'][-1][2]:.1f} to its last step's line")
+            log(f"  21(a) rank {r}: losses {run['losses']}, "
+                f"{ms:.2f} ms/step over steps 1-{PAR_V3_STEPS - 2} (gloo), "
+                f"peak {mem['peak_bytes'] / 2 ** 30:.3f} GiB, params + Adam "
+                f"{(mem['param_bytes'] + mem['adam_bytes']) / 2 ** 30:.3f} "
+                f"GiB = {share:.4f} of the unsharded {whole / 2 ** 30:.3f} "
+                f"GiB; launches {run['counts']}; collectives "
+                f"{run['transports']} ({gpu})")
+            require(steps == list(range(PAR_V3_STEPS))
+                    and all(np.isfinite(run["losses"])),
+                    f"rank {r}'s step lines {run['steps']}")
+            require(f"process group: gloo, rank {r} of {PAR_RANKS}"
+                    in run["out"], f"rank {r} joined no gloo group")
+            require(share <= PAR_ADAM_SHARE, f"rank {r} holds {share:.4f} of "
+                    "the unsharded params and Adam moments")
+            rose = ("flash_fwd_dropout", "flash_bwd", "split_heads",
+                    "merge_heads", "dropout")
+            require(all(run["counts"][k] for k in rose), f"rank {r} launched "
+                    f"no {[k for k in rose if not run['counts'][k]]}")
+        require(runs[0]["losses"] == runs[1]["losses"],
+                "the two ranks logged other losses")
+        log(f"  21(a) the TP world took {seconds:.1f} s (two processes: "
+            "model made on the CPU, sharded, 4 steps, the whole checkpoint "
+            "and final weights gathered and written by rank 0)")
+        t0 = time.perf_counter()
+        (resumed,) = par_cli(ws, 1, *flags, "--num_batches", "1",
+                             "--resume")
+        add_counts(child, resumed["counts"])
+        require("Resumed from checkpoint whisper_large-v3_epoch_1"
+                in resumed["out"], "the --tp 1 run did not resume rank 0's "
+                "checkpoint")
+        require(np.isfinite(resumed["losses"]).all() and len(
+            resumed["losses"]) == 1, f"resumed losses {resumed['losses']}")
+        log(f"  21(a) --resume seconds: "
+            f"{ {k: round(v, 1) for k, v in resumed['memory'].items() if k.startswith('s_')} }")
+        log(f"  21(a) --resume into --tp 1: resumed, loss "
+            f"{resumed['losses']}, peak "
+            f"{resumed['memory']['peak_bytes'] / 2 ** 30:.3f} GiB, "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def par_rank(mode: str, rank: str, port: str, out_dir: str) -> int:
+    """A rank of phase 21(b, e) or (c) (``chip_smoke.py --par_rank MODE R
+    PORT DIR``): "tp" whisper-base f32 over (data 1, model 2): 2 Keras-Adam
+    steps, rates 0, then greedy decoding (kv_quant none and int8); "sp"
+    whisper-small f32 over (data 1, seq 2), the config's dropout and
+    activation_dropout, attention's 0."""
+    sys.path.insert(0, ROOT)
+    from tethys_tpu_torch.ops import flash_attention
+    from tethys_tpu_torch.ops import sharding
+    from tethys_tpu_torch.parallel import mesh
+    from tethys_tpu_torch.utils import kernel_lib
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = []
+    real = flash_attention.flash_fwd_cuda
+
+    def spy(q, k, *args):
+        shapes.append((q.shape[1], k.shape[1]))
+        return real(q, k, *args)
+
+    flash_attention.flash_fwd_cuda = spy
+    with torchrun_env(PAR_RANKS, int(rank), int(port)):
+        mesh.initialize_distributed(backend="gloo")
+        try:
+            dev = require_cuda()
+            if mode == "tp":
+                layout = mesh.make_2d_mesh(model_parallel=PAR_RANKS)
+                with deterministic_cudnn():
+                    out = par_steps(dev, MODEL, layout, NO_DROPOUT)
+                out["decode"] = {v: par_decode(dev, *v, layout)
+                                 for v in PAR_DECODES}
+            else:
+                layout = mesh.make_seq_mesh(seq_parallel=PAR_RANKS)
+                with deterministic_cudnn():
+                    out = par_steps(dev, "small", layout,
+                                    {"attention_dropout": 0.0})
+        finally:
+            mesh.shutdown_distributed()
+    out.update(launches=kernel_lib.launch_counts(), flash_shapes=shapes,
+               transports={" ".join(k): n
+                           for k, n in sharding.TRANSPORTS.items()})
+    if rank == "0":
+        torch.save(out, os.path.join(out_dir, "rank_0.pt"))
+    return 0
+
+
+def par_steps(device, model_type: str, layout, overrides: dict) -> dict:
+    """PAR_STEPS Keras-Adam steps of ``model_type`` in f32 from SEED on
+    PAR_BATCH rows of the synthetic dataset a replica, over ``layout`` (None:
+    one process, no group): the losses, the whole gradients of the first
+    step (what the optimizer takes) and the whole parameters after the
+    last, on the host."""
+    from tethys_tpu_torch import data
+    from tethys_tpu_torch.models.whisper import create_whisper_model
+    from tethys_tpu_torch.parallel import dp, sp, tp
+
+    model, _ = create_whisper_model(model_type, device="cpu", seed=SEED,
+                                    param_dtype=torch.float32, **overrides)
+    sharded = layout is not None and layout.axis == "model"
+    if sharded:
+        tp.shard_model(model, layout)
+    model.to(device).train()
+    opt = dp.whisper_optimizer(model.parameters(), PAR_LR)
+    step = dp.make_train_step(
+        lambda m, b, g: (m(b[0], labels=b[1], generator=g)["loss"], {}),
+        opt, layout=layout, seq_partial=sp.partial_param)
+    grads, adam_step = [], opt.step
+
+    def whole(tensors):
+        host = {n: t.detach() for n, t in tensors.items()}
+        if sharded:
+            host = tp.gather_named(host, model, layout)
+        return {n: t.float().cpu() for n, t in host.items()}
+
+    def record():
+        if not grads:
+            grads.append(whole({n: p.grad for n, p in model.named_parameters()
+                                if p.grad is not None}))
+        adam_step()
+
+    opt.step = record
+    batches = iter(data.create_whisper_dummy_dataset(PAR_BATCH))
+    state, losses = dp.TrainState(model, opt, layout), []
+    for i in range(PAR_STEPS):
+        features, labels = next(batches)
+        state, loss = step(state, (torch.from_numpy(features).to(device),
+                                   torch.from_numpy(labels).to(device)),
+                           dp.step_generator(SEED, i))
+        losses.append(loss.item())
+    return {"losses": losses, "grads": grads[0],
+            "params": whole(dict(model.named_parameters()))}
+
+
+def par_decode(device, kv_quant: str, fused: bool, layout) -> dict:
+    """Greedy decoding of whisper-base f32 from SEED on PAR_BATCH seeded
+    30 s clips, PAR_DECODE_STEPS steps, the projections fused
+    (TETHYS_FUSED_QKV=1) or not, sharded over ``layout``'s model group
+    (None: one process): tokens, length, the heads each decode kernel saw
+    and the launch counts."""
+    from tethys_tpu_torch.audio.frontend import prepare_input_features
+    from tethys_tpu_torch.models.whisper import (
+        create_whisper_model,
+        greedy_generate,
+    )
+    from tethys_tpu_torch.parallel import tp
+
+    model, _ = create_whisper_model(MODEL, device="cpu", seed=SEED,
+                                    kv_quant=kv_quant)
+    if layout is not None:
+        tp.shard_model(model, layout)
+    model.to(device)
+    with torch.inference_mode():
+        features = prepare_input_features(
+            torch.from_numpy(seeded_audio(PAR_BATCH, SEED)).to(device),
+            n_frames=3000)
+    out = {}
+    with fused_qkv(fused):
+        out["counts"] = counts_around(lambda: out.update(zip(
+            ("tokens", "length"), (t.cpu() for t in greedy_generate(
+                model, features, max_length=PAR_DECODE_STEPS)))))
+    out["heads"] = model.model.decoder.layers[0].self_attn.heads()
+    return out
+
+
+def par_world(mode: str) -> dict:
+    """Rank 0's results of a 2-rank ``par_rank`` world on the card, with
+    both ranks' outputs logged when one fails."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--par_rank", mode,
+             str(r), port, tmp], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(PAR_RANKS)]
+        outs = wait_all(procs, 600)
+        require(all(p.returncode == 0 for p in procs), f"a {mode} rank "
+                "failed:\n" + "\n----\n".join(o[-3000:] for o in outs))
+        out = torch.load(os.path.join(tmp, "rank_0.pt"))
+    add_counts(PAR_TRANSPORTS, out["transports"])
+    return out
+
+
+def check_par_steps(name: str, got: dict, want: dict) -> None:
+    """Phase 6's tolerances: losses 1e-4 relative, each gradient within
+    1e-3 of the reference's norm + 1e-6, parameters within 2 * lr *
+    steps (Keras Adam moves a weight by about lr * sign(g) a step)."""
+    log(f"  {name}: losses {got['losses']}, one process {want['losses']}")
+    check(f"{name} losses (relative)",
+          max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   want["losses"])), 1e-4)
+    require(set(got["grads"]) == set(want["grads"]),
+            f"{name}: gradients of {set(got['grads']) ^ set(want['grads'])}")
+    worst = 0.0
+    for n, g in want["grads"].items():
+        gap = (got["grads"][n] - g).norm().item()
+        bound = 1e-3 * g.norm().item() + 1e-6
+        require(gap <= bound, f"{name}: gradient of {n} {gap:.3e} > "
+                              f"{bound:.3e}")
+        worst = max(worst, gap / bound)
+    norms = [torch.linalg.vector_norm(torch.stack(
+        [g.norm() for g in run["grads"].values()])).item()
+        for run in (got, want)]
+    log(f"  {name}: summed gradient norm {norms[0]:.6e}, one process "
+        f"{norms[1]:.6e}; worst gradient gap {worst:.3f} of its bound")
+    check(f"{name} summed gradient norm (relative)",
+          abs(norms[0] - norms[1]) / norms[1], 1e-3)
+    check(f"{name} parameters after the last step",
+          max(max_err(got["params"][n], p)
+              for n, p in want["params"].items()), 2 * PAR_LR * PAR_STEPS)
+
+
+def run_tp_equality(child: dict) -> None:
+    """Phase 21(b) and (e): a 2-rank TP world of whisper-base on the card
+    (f32, rates 0, cuDNN deterministic; then greedy decoding) against one
+    process without a group."""
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    got = par_world("tp")
+    add_counts(child, got["launches"])
+    dev = require_cuda()
+    with deterministic_cudnn():
+        want = par_steps(dev, MODEL, None, NO_DROPOUT)
+    check_par_steps("21(b) TP whisper-base f32", got, want)
+    log(f"  21(b) rank 0's collectives {got['transports']}")
+    for (kv_quant, fused), run in got["decode"].items():
+        ref = par_decode(dev, kv_quant, fused, None)
+        kernels = ["decode_self"] + (["q8_cross"] if kv_quant == "int8"
+                                     else []) + (["proj_split", "merge_proj"]
+                                                 if fused else [])
+        name = f"kv_quant {kv_quant}" + (", fused projections" if fused
+                                         else "")
+        log(f"  21(e) {name}: TP tokens {run['tokens'].tolist()}, length "
+            f"{int(run['length'])}; {run['heads']} of {ref['heads']} heads a "
+            f"rank; launches {({k: run['counts'][k] for k in kernels})}")
+        require(torch.equal(run["tokens"], ref["tokens"])
+                and int(run["length"]) == int(ref["length"]),
+                f"21(e) {name}: TP tokens differ from one process's "
+                f"{ref['tokens'].tolist()}")
+        require(run["heads"] * PAR_RANKS == ref["heads"]
+                and all(run["counts"][k] for k in kernels),
+                f"21(e) {name}: heads {run['heads']}, launches "
+                f"{run['counts']}")
+
+
+def run_sp(child: dict) -> None:
+    """Phase 21(c): whisper_dist --model_size small --sp 2 --batch_size 2
+    --num_batches 4 --dtype bfloat16 in a 2-rank gloo world, then a 2-rank
+    SP world of whisper-small f32 with the config's dropout (attention's
+    0) against one process: the dropout window holds the unsharded mask
+    through whole steps."""
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        runs = par_cli(ws, PAR_RANKS, "--model_size", "small", "--sp", "2",
+                       "--batch_size", "2", "--num_batches",
+                       str(PAR_SP_STEPS), "--dtype", "bfloat16",
+                       "--backend", "gloo")
+    for r, run in enumerate(runs):
+        add_counts(child, run["counts"])
+        require([i for i, _, _ in run["steps"]] == list(range(PAR_SP_STEPS))
+                and all(np.isfinite(run["losses"])),
+                f"21(c) rank {r}'s step lines {run['steps']}")
+    require(runs[0]["losses"] == runs[1]["losses"],
+            "the two SP ranks logged other losses")
+    log(f"  21(c) whisper_dist --sp 2, small b2 bf16: losses "
+        f"{runs[0]['losses']}, peak "
+        f"{runs[0]['memory']['peak_bytes'] / 2 ** 30:.3f} GiB a rank; "
+        f"collectives {runs[0]['transports']}")
+    got = par_world("sp")
+    add_counts(child, got["launches"])
+    want = par_steps(require_cuda(), "small", None,
+                     {"attention_dropout": 0.0})
+    check_par_steps("21(c) SP whisper-small f32, dropout on", got, want)
+    encoder = sorted({s for s in got["flash_shapes"] if s[0] != s[1]})
+    log(f"  21(c) rank 0's flash forward launches at (Tq, Tk): "
+        f"{ {s: got['flash_shapes'].count(s) for s in set(got['flash_shapes'])} }")
+    require((750, 1500) in encoder, f"no flash launch at Tq 750, Tk 1500: "
+            f"{got['flash_shapes']}")
+
+
+def run_dropout_window(gpu: str) -> None:
+    """Phase 21(d): csrc/dropout.cu on a shard of [16, 1500, 512] bf16 (the
+    last 750 rows; the last 256 columns) equals the slice of the whole
+    tensor's launch bit for bit; the shards' times beside the whole's."""
+    from tethys_tpu_torch.ops import dropout
+
+    x = torch.randn(16, 1500, 512, device="cuda").bfloat16()
+    whole = dropout.dropout_cuda(x, DROPOUT_RATE, 4321)
+    shards = {
+        "rows 750-1499 of 1500": (x[:, 750:].contiguous(),
+                                  dropout.Window(row0=750, rows=1500),
+                                  whole[:, 750:]),
+        "columns 256-511 of 512": (x[..., 256:].contiguous(),
+                                   dropout.Window(col0=256, cols=512),
+                                   whole[..., 256:]),
+    }
+    whole_ms = event_ms(lambda: dropout.dropout_cuda(x, DROPOUT_RATE, 4321))
+    log(f"  dropout.cu [16, 1500, 512] bf16 whole: {whole_ms:.4f} ms ({gpu})")
+    for name, (shard, window, want) in shards.items():
+        got = dropout.dropout_cuda(shard, DROPOUT_RATE, 4321, window)
+        require(torch.equal(got, want), f"21(d) the shard ({name}) is not "
+                "the slice of the whole tensor's mask")
+        ms = event_ms(lambda: dropout.dropout_cuda(shard, DROPOUT_RATE, 4321,
+                                                   window))
+        plain = event_ms(lambda: dropout.plain_dropout(shard, DROPOUT_RATE,
+                                                       4321, window), reps=3)
+        library = event_ms(lambda: F.dropout(shard, DROPOUT_RATE))
+        log_row("dropout window", f"[16, 1500, 512] bf16, {name}", ms,
+                bound(2 * shard.numel() * 2, 0, "bf16"), plain,
+                library_ms=library)
+
+
 def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -3098,7 +3605,9 @@ def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     kernel_lib.reset_launch_counts()
     for title, fn, *args in phases:
         log(title)
+        t0 = time.perf_counter()
         fn(*args)
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
     torch.cuda.synchronize()
     counts = kernel_lib.launch_counts()
     if child_counts:
@@ -3210,9 +3719,26 @@ def main() -> int:
          "wav2vec2-base with bf16 master", run_w2v_capacity, gpu),
         ("[20f] the convergence twin, whisper-base, f32 against bf16 master",
          run_convergence)))
+    log("[21d] dropout.cu on a shard against the slice of the whole")
+    run_dropout_window(gpu)
+    child = {}
+    parallel = drive_path("parallel", (
+        ("[21a] whisper_dist --tp 2 at whisper-large-v3, remat_layers, b1 "
+         "bf16, two gloo ranks on the card", run_tp_large_v3, gpu, child),
+        ("[21b, e] TP whisper-base f32 steps and greedy decoding, two gloo "
+         "ranks against one process", run_tp_equality, child),
+        ("[21c] whisper_dist --sp 2 at whisper-small, and SP whisper-small "
+         "f32 steps with dropout against one process", run_sp, child)),
+        child_counts=child)
+    log(f"  21: the collectives of its processes (rank 0 of each TP and SP "
+        f"world, both ranks of each CLI) by backend, device and op: "
+        f"{PAR_TRANSPORTS}")
+    require(PAR_TRANSPORTS and all(k.startswith("gloo cuda ")
+                                   for k in PAR_TRANSPORTS),
+            "a collective of phase 21 ran off the card or not over gloo")
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
               + flash_bench[k] + frontend[k] + train_bench[k] + resume[k]
-              + data_parallel[k] + tensorsize[k] + capacity[k]
+              + data_parallel[k] + tensorsize[k] + capacity[k] + parallel[k]
               for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
@@ -3232,4 +3758,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo_rank"]:
         sys.exit(gloo_rank(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--par_rank"]:
+        sys.exit(par_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -5,7 +5,8 @@ where torch.cuda.is_available() is false (as on a CPU-only machine).
 These cover the kernels' branches off the main path's shapes: head
 dims 16-128, ragged sequence edges (Tq 1500 against keys padded to 1536,
 Tk 2560), misaligned flash inputs, misaligned and odd-width head splits
-and merges, dropout on odd lengths and misaligned views, the flash
+and merges, dropout on odd lengths, misaligned views and shards (their
+windows of the unsharded mask), the flash
 backward with and without dropout, caches that need more than 48 KB of
 shared memory, the GroupNorm statistics, apply and backward passes at
 ragged T and C, far-off means, misaligned views and every cluster size,
@@ -379,6 +380,27 @@ def test_dropout_exact(cuda, dtype, n, offset):
     got = dropout.fused_dropout(x, 0.1, 12345)
     assert kernel_lib.DROPOUT.launches == before + 1
     assert torch.equal(got, dropout.plain_dropout(x, 0.1, 12345))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window", [
+    ((4, 150, 512), dropout.Window(row0=150, rows=1500)),          # rows
+    ((4, 1500, 1024), dropout.Window(col0=1024, cols=2048)),       # columns
+    ((2, 7, 13), dropout.Window(row0=3, rows=11, col0=5, cols=21)),
+    ((3, 10, 11), dropout.Window(col0=1, cols=12)),    # misaligned
+])
+def test_dropout_window_is_the_slice(cuda, dtype, shape, window):
+    """A shard's launch equals the plain version on the window and the
+    slice of the unsharded kernel's output, bit for bit."""
+    rows = window.rows or shape[1]
+    cols = window.cols or shape[2]
+    whole = _randn(cuda, shape[0], rows, cols, dtype=dtype, seed=3)
+    r, c = window.row0, window.col0
+    x = whole[:, r:r + shape[1], c:c + shape[2]].contiguous()
+    got = dropout.dropout_cuda(x, 0.1, 77, window)
+    assert torch.equal(got, dropout.plain_dropout(x, 0.1, 77, window))
+    assert torch.equal(got, dropout.dropout_cuda(whole, 0.1, 77)[
+        :, r:r + shape[1], c:c + shape[2]])
 
 
 def test_dropout_backward_is_the_same_mask(cuda):

@@ -302,8 +302,10 @@ def test_job_clis_on_the_cpu(tiny_jobs, tmp_path, monkeypatch, capsys, cli,
 
 
 @pytest.mark.parametrize("cli,argv,where", [
-    (wav2vec2_dist, ["--tp", "2"], "queue 1 item 7"),
-    (wav2vec2_dist, ["--sp", "2"], "queue 1 item 7"),
+    (wav2vec2_dist, ["--tp", "2"], "queue 1 item 7.1 (Wav2Vec2 --tp and --sp, "
+     "the next slice)"),
+    (wav2vec2_dist, ["--sp", "2"], "queue 1 item 7.1 (Wav2Vec2 --tp and --sp, "
+     "the next slice)"),
 ])
 def test_clis_refuse_unported_flags(capsys, cli, argv, where):
     with pytest.raises(SystemExit) as exc:

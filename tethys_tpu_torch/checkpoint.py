@@ -23,6 +23,13 @@ finished.  The optimizer's state dict carries ``KerasAdam``'s step count,
 so a restored run goes on with the same bias corrections.  The weights
 map to the flax params tree with ``convert.flax_from_state_dict`` (the
 inverse of ``convert.params_from_flax``).
+
+Under tensor parallelism (a state whose ``layout`` has a model group) a
+checkpoint and the final weights are still whole: the ranks of the first
+model group gather the parameters and Adam's moments (parallel/tp.py) and
+rank 0 writes them, so a TP checkpoint has a DP checkpoint's format; a
+restore reads the whole state and each rank loads its slices, so any
+checkpoint restores into any layout.
 """
 
 from __future__ import annotations
@@ -55,15 +62,16 @@ class CheckpointManager:
     def save(self, tag: str, state) -> str:
         """Writes ``tag`` on rank 0, then waits for every rank."""
         path = self._path(tag)
+        dicts = whole_state_dicts(state)
         if mesh.rank() == 0:
-            self._write(path, tag, state)
+            self._write(path, tag, *dicts)
         mesh.barrier()
         return path
 
-    def _write(self, path: str, tag: str, state) -> None:
+    def _write(self, path: str, tag: str, model_sd, optimizer_sd) -> None:
         tmp = tempfile.mkdtemp(prefix=f".{tag}.", dir=self.directory)
-        torch.save(state.model.state_dict(), os.path.join(tmp, _MODEL))
-        torch.save(state.optimizer.state_dict(), os.path.join(tmp, _OPTIMIZER))
+        torch.save(model_sd, os.path.join(tmp, _MODEL))
+        torch.save(optimizer_sd, os.path.join(tmp, _OPTIMIZER))
         os.utime(tmp)           # the time the save finished
         old = None
         if os.path.exists(path):
@@ -85,9 +93,17 @@ class CheckpointManager:
         """Loads ``tag`` into the live ``state`` (its model and optimizer,
         on their device; the optimizer's moments take their parameter's
         dtype) and returns it.  Under a process group rank 0 reads ``tag``
-        and every rank loads what it broadcasts."""
+        and every rank loads what it broadcasts (its slices, under tensor
+        parallelism)."""
         model_sd, optimizer_sd = mesh.broadcast_object(
             self.restore(tag) if mesh.rank() == 0 else None)
+        layout = _tp_layout(state)
+        if layout is not None:
+            from tethys_tpu_torch.parallel import tp
+
+            model_sd = tp.shard_params(model_sd, layout)
+            optimizer_sd = tp.shard_optimizer_state(
+                optimizer_sd, state.optimizer, state.model, layout)
         state.model.load_state_dict(model_sd)
         state.optimizer.load_state_dict(optimizer_sd)
         return state
@@ -107,14 +123,47 @@ class CheckpointManager:
         return max(tags, key=lambda t: os.path.getmtime(self._path(t)))
 
 
+def _tp_layout(state):
+    """The state's layout when its parameters are sharded over a model
+    group, else None."""
+    layout = getattr(state, "layout", None)
+    if layout is not None and layout.axis == "model" and layout.inner > 1:
+        return layout
+    return None
+
+
+def whole_state_dicts(state, with_optimizer: bool = True
+                      ) -> Optional[Tuple[dict, Optional[dict]]]:
+    """(model, optimizer) state dicts of the whole, unsharded state (the
+    optimizer's None without ``with_optimizer``), on rank 0; None
+    elsewhere.  Under tensor parallelism the ranks of the first model
+    group gather them (a collective every one of them must reach)."""
+    layout = _tp_layout(state)
+    dicts = None
+    if layout is None and mesh.rank() == 0:
+        dicts = (state.model.state_dict(), state.optimizer.state_dict()
+                 if with_optimizer else None)
+    elif layout is not None and layout.data_rank == 0:
+        from tethys_tpu_torch.parallel import tp
+
+        dicts = (tp.gather_params(state.model, layout),
+                 tp.gather_optimizer_state(state.optimizer, state.model,
+                                           layout)
+                 if with_optimizer else None)
+    return dicts if mesh.rank() == 0 else None
+
+
 def save_final_weights(model: torch.nn.Module, name: str,
-                       cache_dir: Optional[str] = None) -> Optional[str]:
+                       cache_dir: Optional[str] = None,
+                       state_dict: Optional[dict] = None) -> Optional[str]:
     """Final weights-only save into ``<workspace>/model_cache/<name>``, on
-    rank 0 alone (None on the others)."""
+    rank 0 alone (None on the others): ``state_dict`` when given (the
+    whole model's, from ``whole_state_dicts``), else the model's own."""
     if mesh.rank() != 0:
         return None
     cache_dir = cache_dir or os.path.join(workspace_dir(), "model_cache")
     path = os.path.abspath(os.path.join(cache_dir, name))
     os.makedirs(path, exist_ok=True)
-    torch.save(model.state_dict(), os.path.join(path, "model.pt"))
+    torch.save(model.state_dict() if state_dict is None else state_dict,
+               os.path.join(path, "model.pt"))
     return path

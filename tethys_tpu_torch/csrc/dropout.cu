@@ -1,19 +1,37 @@
-// Dropout y = keep ? x * scale : 0, scale = 1 / (1 - rate), on a flat
-// contiguous tensor; the backward is the same launch on dy with the same
-// seed.
+// Dropout y = keep ? x * scale : 0, scale = 1 / (1 - rate), on a contiguous
+// tensor that may be one shard of a larger one; the backward is the same
+// launch on dy with the same seed and window.
 //
 // Replaces tethys_tpu/ops/pallas_dropout.py::_kernel (launched by _run, via
 // fused_dropout and module_dropout).  The TPU kernel seeded the core's PRNG
-// per 512-row block; here the mask is Philox at the element's flat index
-// (philox.cuh), so it does not depend on the launch shape and the plain
-// torch version draws the same bits.
+// per 512-row block; here the mask is Philox at the element's flat index in
+// the UNSHARDED tensor (philox.cuh), so it depends neither on the launch
+// shape nor on how a tensor is sharded: a shard's mask is the slice of the
+// whole tensor's mask, as the JAX package's dropout gathers a sharded input
+// and draws at the global index (pallas_dropout.py:78-127).
+//
+// The window.  The shard is a run of segments, each `seg_len` contiguous
+// elements of x; segment s starts at the unsharded flat index
+//   (s / seg_per_outer) * outer_stride + (s % seg_per_outer) * row_stride
+//   + base.
+// A whole tensor is one segment at base 0 (every element at its own flat
+// index: the bits the kernel drew before it took a window); a shard of rows
+// along T (sequence parallelism) is one segment per outer index; a shard of
+// columns (a column-parallel product's output) one segment per row.  The
+// wrapper (ops/dropout.py) folds a window into that form.
 //
 // What bounds it on an H100: device memory.  It reads and writes each
 // element once, so its floor is 2 * bytes / 3.35 TB/s; the Philox rounds
 // (about 100 integer operations per four elements) stay under that at bf16.
-// The design: each thread takes one group of four consecutive elements
-// (one Philox call, its four outputs one per element), moved as one 16-byte
-// (f32) or 8-byte (bf16) vector when both pointers allow it.
+// The design: each thread takes one group of four consecutive elements of a
+// segment: one Philox call, its four outputs one per element, when the
+// group's first unsharded index is a multiple of 4 (every window of the
+// training paths), else the two calls that cover it; moved as one 16-byte
+// (f32) or 8-byte (bf16) vector when the group is whole and both pointers
+// allow it.  The whole tensor takes the kernel it took before windows
+// (no segment arithmetic); a shard takes a second kernel, whose segment
+// arithmetic is 32-bit when the group count allows (a 64-bit division
+// costs more than the element's bytes at bf16).
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -30,62 +48,141 @@ struct Vec4<__nv_bfloat16> {
   using type = uint2;
 };
 
+struct Window {
+  long long seg_len;        // contiguous elements of x per segment
+  long long seg_per_outer;  // segments per outer index
+  long long outer_stride;   // unsharded elements per outer index
+  long long row_stride;     // unsharded elements between a segment and the next
+  long long base;           // unsharded index of segment 0's first element
+};
+
+// Four elements of x at i0 (len of them, 1 .. 4) whose keep bits are
+// lanes 0 .. 3 of `bits`; one 16-byte (f32) or 8-byte (bf16) vector when
+// whole and aligned.
+template <typename T>
+__device__ __forceinline__ void apply4(const T* __restrict__ x,
+                                       T* __restrict__ y, long long i0,
+                                       int len, const uint32_t bits[4],
+                                       uint32_t threshold, float scale,
+                                       bool vectors) {
+  using V = typename Vec4<T>::type;
+  if (vectors && len == 4) {
+    alignas(16) T v[4];
+    *reinterpret_cast<V*>(v) = *reinterpret_cast<const V*>(x + i0);
+#pragma unroll
+    for (int lane = 0; lane < 4; ++lane) {
+      const bool keep = bits[lane] >= threshold;
+      v[lane] = tethys::from_f32<T>(
+          keep ? tethys::to_f32<T>(v[lane]) * scale : 0.f);
+    }
+    *reinterpret_cast<V*>(y + i0) = *reinterpret_cast<const V*>(v);
+  } else {
+    for (int lane = 0; lane < len; ++lane) {
+      const bool keep = bits[lane] >= threshold;
+      y[i0 + lane] = tethys::from_f32<T>(
+          keep ? tethys::to_f32<T>(x[i0 + lane]) * scale : 0.f);
+    }
+  }
+}
+
+// The whole tensor: group g is elements 4g .. 4g + 3 and Philox counter g.
 template <typename T>
 __global__ void __launch_bounds__(256)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
                    uint32_t seed, uint32_t threshold, float scale,
                    bool vectors) {
-  using V = typename Vec4<T>::type;
   const long long groups = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        g < groups; g += stride) {
     const uint4 r = tethys::philox4x32_10((uint64_t)g, seed);
-    const long long i0 = 4 * g;
-    if (vectors && i0 + 4 <= n) {
-      alignas(16) T v[4];
-      *reinterpret_cast<V*>(v) = *reinterpret_cast<const V*>(x + i0);
+    const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
+    apply4(x, y, 4 * g, (int)min(4LL, n - 4 * g), bits, threshold, scale,
+           vectors);
+  }
+}
+
+// A shard: group g is elements 4k .. 4k + 3 of segment s (g = s * per_seg
+// + k), whose first unsharded index is n0; one Philox call when n0 % 4 is
+// 0, two otherwise.  Index is 32-bit when the group count fits.
+template <typename T, typename Index>
+__global__ void __launch_bounds__(256)
+    dropout_window_kernel(const T* __restrict__ x, T* __restrict__ y,
+                          long long n, Window w, uint32_t seed,
+                          uint32_t threshold, float scale, bool vectors) {
+  const Index per_seg = (Index)((w.seg_len + 3) / 4);
+  const Index groups = (Index)(n / w.seg_len) * per_seg;
+  const Index per_outer = (Index)w.seg_per_outer;
+  const Index stride = (Index)(gridDim.x * blockDim.x);
+  for (Index g = (Index)(blockIdx.x * blockDim.x + threadIdx.x); g < groups;
+       g += stride) {
+    const Index s = g / per_seg, k = g - s * per_seg;
+    const long long i0 = (long long)s * w.seg_len + 4LL * k;
+    const Index outer = s / per_outer;
+    const uint64_t n0 = (uint64_t)((long long)outer * w.outer_stride +
+                                   (long long)(s - outer * per_outer) *
+                                       w.row_stride +
+                                   w.base + 4LL * k);
+    const uint32_t off = (uint32_t)(n0 & 3);
+    const uint4 r0 = tethys::philox4x32_10(n0 >> 2, seed);
+    const uint4 r1 = off ? tethys::philox4x32_10((n0 >> 2) + 1, seed) : r0;
+    uint32_t bits[4];
 #pragma unroll
-      for (int lane = 0; lane < 4; ++lane) {
-        const bool keep = tethys::philox_lane(r, lane) >= threshold;
-        v[lane] = tethys::from_f32<T>(
-            keep ? tethys::to_f32<T>(v[lane]) * scale : 0.f);
-      }
-      *reinterpret_cast<V*>(y + i0) = *reinterpret_cast<const V*>(v);
-    } else {
-      for (int lane = 0; lane < 4 && i0 + lane < n; ++lane) {
-        const bool keep = tethys::philox_lane(r, lane) >= threshold;
-        y[i0 + lane] = tethys::from_f32<T>(
-            keep ? tethys::to_f32<T>(x[i0 + lane]) * scale : 0.f);
-      }
+    for (int lane = 0; lane < 4; ++lane) {
+      const int t = (int)off + lane;
+      bits[lane] = t < 4 ? tethys::philox_lane(r0, t)
+                         : tethys::philox_lane(r1, t - 4);
     }
+    apply4(x, y, i0, (int)min(4LL, w.seg_len - 4LL * k), bits, threshold,
+           scale, vectors);
   }
 }
 
 template <typename T>
-int launch(const void* x, void* y, long long n, uint32_t seed,
-           uint32_t threshold, float scale, cudaStream_t stream) {
+int launch(const void* x, void* y, long long n, const Window& w,
+           uint32_t seed, uint32_t threshold, float scale,
+           cudaStream_t stream) {
+  const bool whole = w.seg_len == n && w.base == 0;
+  // Whole groups sit at multiples of 4 elements of x when every segment
+  // does.
   const bool vectors = ((uintptr_t)x % (4 * sizeof(T))) == 0 &&
-                       ((uintptr_t)y % (4 * sizeof(T))) == 0;
-  const long long groups = (n + 3) / 4;
+                       ((uintptr_t)y % (4 * sizeof(T))) == 0 &&
+                       (whole || w.seg_len % 4 == 0);
+  const long long groups = (n / w.seg_len) * ((w.seg_len + 3) / 4);
   long long blocks = (groups + 255) / 256;
   if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond this
-  dropout_kernel<T><<<(int)blocks, 256, 0, stream>>>(
-      (const T*)x, (T*)y, n, seed, threshold, scale, vectors);
+  if (whole)
+    dropout_kernel<T><<<(int)blocks, 256, 0, stream>>>(
+        (const T*)x, (T*)y, n, seed, threshold, scale, vectors);
+  else if (groups + 132 * 32 * 256 < (1LL << 32))
+    dropout_window_kernel<T, uint32_t><<<(int)blocks, 256, 0, stream>>>(
+        (const T*)x, (T*)y, n, w, seed, threshold, scale, vectors);
+  else
+    dropout_window_kernel<T, unsigned long long>
+        <<<(int)blocks, 256, 0, stream>>>((const T*)x, (T*)y, n, w, seed,
+                                          threshold, scale, vectors);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, y: n contiguous f32 (is_bf16 = 0) or bf16 elements; y may not alias x.
-// threshold = uint32(rate * 2^32) and scale = 1 / (1 - rate) as the
-// wrapper computes them.
+// The window (see above): seg_len divides n, seg_per_outer >= 1; a whole
+// tensor is seg_len = n, seg_per_outer = 1, strides 0, base 0.
+// threshold = uint32(rate * 2^32) and scale = 1 / (1 - rate) as the wrapper
+// computes them.
 TETHYS_EXPORT int tethys_dropout(const void* x, void* y, long long n,
-                                 uint32_t seed, uint32_t threshold,
-                                 float scale, int is_bf16, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+                                 long long seg_len, long long seg_per_outer,
+                                 long long outer_stride, long long row_stride,
+                                 long long base, uint32_t seed,
+                                 uint32_t threshold, float scale, int is_bf16,
+                                 void* stream) {
+  if (n <= 0 || seg_len <= 0 || n % seg_len || seg_per_outer <= 0 ||
+      outer_stride < 0 || row_stride < 0 || base < 0)
+    return (int)cudaErrorInvalidValue;
+  const Window w{seg_len, seg_per_outer, outer_stride, row_stride, base};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, y, n, seed, threshold, scale, s);
-  return launch<float>(x, y, n, seed, threshold, scale, s);
+    return launch<__nv_bfloat16>(x, y, n, w, seed, threshold, scale, s);
+  return launch<float>(x, y, n, w, seed, threshold, scale, s);
 }

@@ -4,31 +4,47 @@ The reference's ``--num_batches`` and ``--batch_size``, the JAX jobs'
 ``--dtype``, ``--resume`` (restore the job's newest checkpoint) and
 ``--jax_profile DIR`` (a profiler trace of the run, utils/tracing.py), and
 ``--device`` (cuda: the kernels on the process's GPU; cpu: the plain
-versions, for small runs).  ``start_distributed`` joins the job's process
-group (``parallel/mesh.initialize_distributed``: torchrun's env or a
-TF_CONFIG that names several processes) for the dist jobs.  The JAX jobs'
+versions, for small runs); the CLIs with parallel flags also take
+``--backend`` (the process group's: nccl on the card and gloo on the CPU
+by default; gloo lets several ranks share one card).
+``start_distributed`` joins the job's process group
+(``parallel/mesh.initialize_distributed``: torchrun's env or a TF_CONFIG
+that names several processes) for the dist jobs.  The JAX jobs'
 single-card capacity flags (``CAPACITY``: --remat, --remat_layers,
 --grad_accum, --master_dtype) are taken by the CLIs whose JAX twins take
-them; their parallel flags (``REFUSED``) are accepted so that they can be
-refused, each with an error that names where it waits in ROADMAP.md; none
-is ignored.
+them, and Whisper's --tp and --sp (``PARALLEL``) by whisper_dist; the
+parallel flags a CLI does not take yet (``REFUSED``) are accepted so that
+they can be refused, each with an error that names where it waits in
+ROADMAP.md; none is ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 
+# flag -> argparse keywords, with the JAX CLI's help (jobs/whisper_dist.py).
+PARALLEL = {
+    "tp": dict(type=int, default=1,
+               help="tensor-parallel degree over a 2-D (data, model) mesh "
+                    "(extension; reference is DP-only)"),
+    "sp": dict(type=int, default=1,
+               help="sequence-parallel degree over a (data, seq) mesh: "
+                    "encoder time axis sharded (extension)"),
+}
 # flag -> (argparse keywords, the value that is supported, where it waits)
 REFUSED = {
-    "tp": (dict(type=int, default=1), 1,
-           "queue 1 item 7 (tensor parallelism)"),
-    "sp": (dict(type=int, default=1), 1,
-           "queue 1 item 7 (sequence parallelism)"),
+    "tp": (PARALLEL["tp"], 1,
+           "queue 1 item 7.1 (Wav2Vec2 --tp and --sp, the next slice)"),
+    "sp": (PARALLEL["sp"], 1,
+           "queue 1 item 7.1 (Wav2Vec2 --tp and --sp, the next slice)"),
     "pp": (dict(type=int, default=1), 1,
-           "queue 1 item 7 (pipeline parallelism)"),
+           "queue 1 item 7.2 (Whisper pipeline parallelism)"),
     "microbatches": (dict(type=int, default=2), 2,
-                     "queue 1 item 7 (pipeline microbatches)"),
+                     "queue 1 item 7.2 (pipeline microbatches)"),
 }
+# The tensorsize jobs: their JAX twins take no parallel flag.
+TENSORSIZE_WHERE = ("queue 1 item 7 (the JAX tensorsize jobs take no "
+                    "parallel flag)")
 # flag -> argparse keywords, with the JAX CLI's help (jobs/whisper_dist.py).
 CAPACITY = {
     "remat": dict(action="store_true",
@@ -50,9 +66,11 @@ CAPACITY = {
 
 def add_common_flags(parser: argparse.ArgumentParser,
                      num_batches_default: int, batch_size_default: int,
-                     refused=(), capacity=()) -> None:
-    """The shared flags, the JAX job's unported flags in ``refused`` and
-    its capacity flags in ``capacity``."""
+                     refused=(), capacity=(), parallel=(),
+                     where=None) -> None:
+    """The shared flags, the JAX job's unported flags in ``refused`` (each
+    refusal naming ``where``, default REFUSED's), its capacity flags in
+    ``capacity`` and its parallel flags in ``parallel``."""
     parser.add_argument(
         "--num_batches", type=int, default=num_batches_default,
         help=f"num_batches per replica, default is set {num_batches_default}")
@@ -75,14 +93,31 @@ def add_common_flags(parser: argparse.ArgumentParser,
         parser.add_argument(f"--{flag}", **REFUSED[flag][0])
     for flag in capacity:
         parser.add_argument(f"--{flag}", **CAPACITY[flag])
+    for flag in parallel:
+        parser.add_argument(f"--{flag}", **PARALLEL[flag])
+    if parallel:
+        parser.add_argument(
+            "--backend", type=str, default=None, choices=["nccl", "gloo"],
+            help="process group backend (default: nccl on the card, gloo on "
+                 "the CPU; gloo lets several ranks share one card)")
+    parser.tethys_refused = {flag: (REFUSED[flag][1], where or REFUSED[flag][2])
+                             for flag in refused}
+    parser.tethys_parallel = tuple(parallel)
 
 
 def parse(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse, refusing every unported flag set to another value than the
-    supported one (exit code 2, the ROADMAP item in the message)."""
+    """Parse; refuse --tp, --sp and --pp together (JAX's error) where the
+    CLI takes a parallel flag, then every unported flag set to another
+    value than the supported one (exit code 2, the ROADMAP item in the
+    message)."""
     args = parser.parse_args(argv)
-    for flag, (_, supported, where) in REFUSED.items():
-        value = getattr(args, flag, supported)
+    refused = getattr(parser, "tethys_refused", {})
+    parallel = getattr(parser, "tethys_parallel", ())
+    if parallel and sum(getattr(args, f, 1) > 1
+                        for f in ("tp", "sp", "pp")) > 1:
+        parser.error("--tp, --sp and --pp are mutually exclusive")
+    for flag, (supported, where) in refused.items():
+        value = getattr(args, flag)
         if value != supported:
             parser.error(f"--{flag} {value} is not ported yet (ROADMAP.md, "
                          f"{where})")
@@ -95,7 +130,8 @@ def start_distributed(args: argparse.Namespace) -> int:
     replicas."""
     from tethys_tpu_torch.parallel import mesh
 
-    mesh.initialize_distributed(device=args.device)
+    mesh.initialize_distributed(device=args.device,
+                                backend=getattr(args, "backend", None))
     if mesh.group_up():
         import torch.distributed as dist
 

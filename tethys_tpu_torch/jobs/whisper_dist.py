@@ -18,8 +18,17 @@ large-v3 capacity run:
         --batch_size 8 --dtype bfloat16 --remat_layers \
         --master_dtype bfloat16 --grad_accum 2
 
-Its parallel flags (--tp, --sp, --pp, --microbatches) are refused with an
-error that names where they wait in ROADMAP.md.
+Tensor and sequence parallelism (the JAX CLI's --tp N and --sp N, mutually
+exclusive): the world of processes is laid out (data, model) or (data, seq),
+one replica a model or seq group, the global batch the per-replica batch
+times the data replicas; on one card the ranks share it over gloo:
+
+    torchrun --nproc_per_node 2 -m tethys_tpu_torch.jobs.whisper_dist \
+        --model_size large-v3 --tp 2 --remat_layers --batch_size 1 \
+        --num_batches 4 --dtype bfloat16 --backend gloo
+
+--pp and --microbatches are refused with an error that names where they
+wait in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import time
 
 from tethys_tpu_torch.jobs._common import (
     CAPACITY,
-    REFUSED,
+    PARALLEL,
     add_common_flags,
     job_device,
     parse,
@@ -42,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Whisper-small Distributed Speech Recognition")
     add_common_flags(parser, num_batches_default=40, batch_size_default=1,
-                     refused=tuple(REFUSED), capacity=tuple(CAPACITY))
+                     refused=("pp", "microbatches"), capacity=tuple(CAPACITY),
+                     parallel=tuple(PARALLEL))
     parser.add_argument("--model_size", type=str, default="small",
                         choices=["tiny", "base", "small", "medium", "large",
                                  "large-v3"],
@@ -56,10 +66,11 @@ def main(argv=None) -> None:
     from tethys_tpu_torch.train import jobs
     from tethys_tpu_torch.utils import artifacts
 
-    n_replicas = start_distributed(args)
+    start_distributed(args)
+    layout = jobs.whisper_layout(args.tp, args.sp)
     device = job_device(args)
     print(f"batch size per replica: {args.batch_size}, "
-          f"global batch size: {args.batch_size * n_replicas}")
+          f"global batch size: {args.batch_size * layout.data}")
     print(f"num_batches: {args.num_batches}")
     print("Whisper-small distributed training starting...")
     artifacts.start_side_captures()
@@ -79,6 +90,9 @@ def main(argv=None) -> None:
             master_dtype=args.master_dtype,
             config_overrides=({"remat_layers": True} if args.remat_layers
                               else None),
+            tensor_parallel=args.tp,
+            seq_parallel=args.sp,
+            layout=layout,
         )
     jct = time.time() - start
     jobs.finalize_job(result, f"whisper_{args.model_size}_model", jct)

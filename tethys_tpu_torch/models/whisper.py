@@ -41,6 +41,28 @@ through the decode kernel (ops/decode.py) and attends to the cross caches
 (plain, or the int8 kernel).  The loop makes no host sync, unless
 ``early_stop_chunk`` asks for one read of the done flag every C steps
 (also ``make_chunked_greedy``).
+
+Tensor parallelism (``parallel/tp.shard_model``, the JAX package's
+Megatron shardings over the "model" axis): each sharded module holds its
+slice of the parameters and a ``tp`` ``Shard`` (ops/sharding.py).  q/k/v
+and fc1 are column-parallel (a rank projects its H / tp heads and d_ff / tp
+columns), out_proj and fc2 row-parallel: the partial products are summed
+over the group, then the replicated bias is added once.  The conv stem's
+output channels are sharded and gathered after each conv; the embedding
+is sharded over the vocab (a rank looks up the ids in its range, the rows
+summed over the group) and the lm_head's logits are gathered over the
+vocab before the loss or the argmax.  Serving under tensor parallelism
+keeps H / tp heads in every cache; the decode kernels see fewer heads.
+
+Sequence parallelism (parallel/sp.py): under ``ops.sharding.seq_axis_rules``
+the encoder runs its stem whole, splits the [B, T, D] rows over the seq
+group, runs every layer on its rows (attention: local queries against K
+and V gathered over the group, whose backward sums the partial dk, dv) and
+gathers the rows before the final LayerNorm; the decoder and the loss run
+whole.  A shard's dropout draws the bits of its rows (or columns) of the
+unsharded tensor (ops/dropout.Window), so a sharded step drops what the
+unsharded one drops; the flash kernels' mask keeps local coordinates, as
+the JAX kernel's does.
 """
 
 from __future__ import annotations
@@ -63,7 +85,8 @@ from tethys_tpu_torch.ops.decode import (
     decode_self_attention,
     quantize_kv_cols,
 )
-from tethys_tpu_torch.ops.dropout import module_dropout
+from tethys_tpu_torch.ops import sharding
+from tethys_tpu_torch.ops.dropout import Window, module_dropout
 from tethys_tpu_torch.ops.masks import causal_additive_mask
 from tethys_tpu_torch.ops.norms import LayerNorm
 from tethys_tpu_torch.ops.posenc import sinusoidal_table
@@ -93,6 +116,7 @@ class WhisperAttention(nn.Module):
     """Self, cross and cached attention sharing one set of projections."""
 
     census_pair = True   # the JAX module returns (output, cache)
+    tp: Optional[sharding.Shard] = None
 
     def __init__(self, config: WhisperConfig, num_heads: int):
         super().__init__()
@@ -111,28 +135,48 @@ class WhisperAttention(nn.Module):
         layer = getattr(self, name)
         return layer.weight, layer.bias, scale
 
+    def heads(self) -> int:
+        """The heads this rank holds: all of them, H / tp under tensor
+        parallelism."""
+        return self.q_proj.weight.shape[0] // self.head_dim
+
     def _out(self, attn: torch.Tensor) -> torch.Tensor:
         weight, bias, _ = self._proj("out_proj")
-        return merge_project(attn, weight, bias)
+        if self.tp is None:
+            return merge_project(attn, weight, bias)
+        # Row-parallel: the partial products summed, the bias added once.
+        y = sharding.reduce_from_group(merge_project(attn, weight, None),
+                                       self.tp)
+        return y + bias.to(y.dtype)
 
     def forward(self, hidden_states: torch.Tensor,
                 key_value_states: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
-                generator: Generator = None) -> torch.Tensor:
+                generator: Generator = None,
+                seq: Optional[sharding.SeqShard] = None) -> torch.Tensor:
         """Full-sequence self-attention (key_value_states None) or
-        cross-attention; [B, Tq, E] -> [B, Tq, E]."""
+        cross-attention; [B, Tq, E] -> [B, Tq, E].  With ``seq`` (the
+        encoder under sequence parallelism) the queries are this rank's
+        rows and the keys and values every rank's."""
         scaling = self.head_dim ** -0.5
+        heads = self.heads()
+        hidden_states = sharding.copy_to_group(hidden_states, self.tp)
         if key_value_states is None:
             q, k, v = project_split(
                 hidden_states, [self._proj("q_proj", scaling),
                                 self._proj("k_proj"), self._proj("v_proj")],
-                self.num_heads)
+                heads)
+            if seq is not None:
+                k = seq.gather(k, dim=2, reduce_grad=True)
+                v = seq.gather(v, dim=2, reduce_grad=True)
         else:
+            key_value_states = sharding.copy_to_group(key_value_states,
+                                                      self.tp)
             (q,) = project_split(hidden_states, [self._proj("q_proj", scaling)],
-                                 self.num_heads)
+                                 heads)
             k, v = project_split(key_value_states,
                                  [self._proj("k_proj"), self._proj("v_proj")],
-                                 self.num_heads)
+                                 heads)
         attn = multi_head_attention(
             q, k, v, bias=bias, dropout_rate=self.config.attention_dropout,
             generator=generator, training=self.training,
@@ -146,7 +190,7 @@ class WhisperAttention(nn.Module):
         f32 per-column scales [B, H, 1, Tk]."""
         k, v = project_split(kv_source,
                              [self._proj("k_proj"), self._proj("v_proj")],
-                             self.num_heads)
+                             self.heads())
         k_t, v_t = k.transpose(2, 3).contiguous(), v.transpose(2, 3).contiguous()
         if self.config.kv_quant == "int8":
             return (*quantize_kv_cols(k_t), *quantize_kv_cols(v_t))
@@ -158,7 +202,7 @@ class WhisperAttention(nn.Module):
         q, k, v = project_split(
             hidden_states, [self._proj("q_proj", self.head_dim ** -0.5),
                             self._proj("k_proj"), self._proj("v_proj")],
-            self.num_heads)
+            self.heads())
         attn, _, _ = decode_self_attention(q, k, v, cache["k"], cache["v"],
                                            index)
         return self._out(attn)
@@ -170,7 +214,7 @@ class WhisperAttention(nn.Module):
         (k, v) pair, or the int8 (k8, sk, v8, sv), which takes no bias."""
         (q,) = project_split(
             hidden_states, [self._proj("q_proj", self.head_dim ** -0.5)],
-            self.num_heads)
+            self.heads())
         if len(cross_kv) == 4:
             if bias is not None:
                 raise ValueError("int8 cross-KV decode carries no attention bias")
@@ -186,19 +230,35 @@ def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class WhisperFeedForward(nn.Module):
+    tp: Optional[sharding.Shard] = None
+
     def __init__(self, config: WhisperConfig):
         super().__init__()
         self.config = config
         self.fc1 = nn.Linear(config.d_model, config.d_ff)
         self.fc2 = nn.Linear(config.d_ff, config.d_model)
 
-    def forward(self, x: torch.Tensor, generator: Generator = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Generator = None,
+                seq: Optional[sharding.SeqShard] = None) -> torch.Tensor:
         cfg = self.config
+        rows = Window() if seq is None else seq.window()
+        cols = rows
+        if self.tp is not None:   # fc1 column-parallel: this rank's columns
+            start, _ = sharding.shard_range(cfg.d_ff, self.tp.size,
+                                            self.tp.rank)
+            cols = rows._replace(col0=start, cols=cfg.d_ff)
+        x = sharding.copy_to_group(x, self.tp)
         x = gelu(_linear(self.fc1, x, cfg.dtype))
-        x = module_dropout(x, cfg.activation_dropout, self.training, generator)
-        x = _linear(self.fc2, x, cfg.dtype)
-        return module_dropout(x, cfg.dropout, self.training, generator)
+        x = module_dropout(x, cfg.activation_dropout, self.training, generator,
+                           cols)
+        if self.tp is None:
+            x = _linear(self.fc2, x, cfg.dtype)
+        else:   # fc2 row-parallel: partial products summed, the bias once
+            x = sharding.reduce_from_group(
+                F.linear(x, self.fc2.weight.to(cfg.dtype)), self.tp)
+            x = x + self.fc2.bias.to(cfg.dtype)
+            record(self.fc2, x)
+        return module_dropout(x, cfg.dropout, self.training, generator, rows)
 
 
 def _layer_norm(config: WhisperConfig) -> LayerNorm:
@@ -224,11 +284,13 @@ class WhisperEncoderLayer(nn.Module):
         self.final_layer_norm = _layer_norm(config)
         self.feed_forward = WhisperFeedForward(config)
 
-    def forward(self, x: torch.Tensor, generator: Generator = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                seq: Optional[sharding.SeqShard] = None,
+                generator: Generator = None) -> torch.Tensor:
+        """``seq``: x holds this rank's rows (sequence parallelism)."""
         x = x + self.self_attn(self.self_attn_layer_norm(x),
-                               generator=generator)
-        return x + self.feed_forward(self.final_layer_norm(x), generator)
+                               generator=generator, seq=seq)
+        return x + self.feed_forward(self.final_layer_norm(x), generator, seq)
 
 
 class WhisperDecoderLayer(nn.Module):
@@ -264,6 +326,8 @@ class WhisperDecoderLayer(nn.Module):
 
 
 class WhisperEncoder(nn.Module):
+    tp: Optional[sharding.Shard] = None
+
     def __init__(self, config: WhisperConfig):
         super().__init__()
         self.config = config
@@ -273,13 +337,18 @@ class WhisperEncoder(nn.Module):
             WhisperEncoderLayer(config) for _ in range(config.encoder_layers))
         self.layer_norm = _layer_norm(config)
 
-    def _conv(self, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    def _conv(self, conv: nn.Conv1d, x: torch.Tensor,
+              sharded_next: bool) -> torch.Tensor:
+        """gelu(conv(x)); under tensor parallelism this rank's output
+        channels, gathered (``sharded_next``: the next conv reads them, so
+        each rank's gradient is partial and is summed)."""
         dtype = self.config.dtype
         x = F.pad(x, same_pad(x.shape[-1], 3, conv.stride[0]))
         y = F.conv1d(x, conv.weight.to(dtype), conv.bias.to(dtype),
                      conv.stride)
         record(conv, y, channels_first=True)
-        return y
+        return sharding.gather_from_group(gelu(y), 1, self.tp,
+                                          self.config.d_model, sharded_next)
 
     def forward(self, input_features: torch.Tensor,
                 output_hidden_states: bool = False,
@@ -289,21 +358,30 @@ class WhisperEncoder(nn.Module):
         every layer (before the final LayerNorm)."""
         cfg = self.config
         x = input_features.to(cfg.dtype)
-        x = gelu(self._conv(self.conv1, x))
-        x = gelu(self._conv(self.conv2, x))
+        x = self._conv(self.conv1, x, True)
+        x = self._conv(self.conv2, x, False)
         x = x.transpose(1, 2)                               # [B, T, E]
         pe = _positions(cfg.n_ctx, cfg.d_model, x.device)
         x = x + pe[: x.shape[1]].to(x.dtype)
         x = module_dropout(x, cfg.dropout, self.training, generator)
+        rules = sharding.current_seq_rules()
+        seq = None if rules is None else sharding.SeqShard(rules, x.shape[1])
+        if seq is not None:
+            x = seq.split(x)
         states: List[torch.Tensor] = [x]
         for layer in self.layers:
-            x = _run_layer(cfg, layer, x, generator=generator)
+            x = _run_layer(cfg, layer, x, seq, generator=generator)
+            x = sharding.seq_constrain(x, seq)
             states.append(x)
+        if seq is not None:
+            x = seq.gather(x)
         x = self.layer_norm(x)
         return (x, states) if output_hidden_states else x
 
 
 class WhisperDecoder(nn.Module):
+    tp: Optional[sharding.Shard] = None
+
     def __init__(self, config: WhisperConfig):
         super().__init__()
         self.config = config
@@ -317,8 +395,20 @@ class WhisperDecoder(nn.Module):
         return _positions(cfg.max_target_positions, cfg.d_model, device)
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
-        """flax Embed with dtype=: the table is cast, then gathered."""
-        x = F.embedding(ids, self.embed_tokens.weight.to(self.config.dtype))
+        """flax Embed with dtype=: the table is cast, then gathered.  Under
+        tensor parallelism a rank holds a range of the vocab: it looks up
+        the ids in its range, zeros the others, and the group sums."""
+        table = self.embed_tokens.weight.to(self.config.dtype)
+        if self.tp is None:
+            x = F.embedding(ids, table)
+        else:
+            start, stop = sharding.shard_range(
+                self.config.vocab_size, self.tp.size, self.tp.rank)
+            local = ids - start
+            inside = (local >= 0) & (local < stop - start)
+            x = F.embedding(torch.where(inside, local, 0), table)
+            x = sharding.reduce_from_group(
+                torch.where(inside[..., None], x, 0.0), self.tp)
         record(self.embed_tokens, x)
         return x
 
@@ -358,6 +448,8 @@ class WhisperModel(nn.Module):
 
 
 class WhisperForConditionalGeneration(nn.Module):
+    tp: Optional[sharding.Shard] = None
+
     def __init__(self, config: WhisperConfig):
         super().__init__()
         if config.kv_quant not in ("none", "int8"):
@@ -370,9 +462,13 @@ class WhisperForConditionalGeneration(nn.Module):
         self.lm_head = nn.Linear(config.d_model, config.vocab_size, bias=False)
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """[B, T, vocab]; under tensor parallelism each rank's columns of
+        the vocab, gathered."""
+        hidden = sharding.copy_to_group(hidden, self.tp)
         logits = F.linear(hidden, self.lm_head.weight.to(self.config.dtype))
         record(self.lm_head, logits)
-        return logits
+        return sharding.gather_from_group(logits, -1, self.tp,
+                                          self.config.vocab_size)
 
     def forward(self, input_features: torch.Tensor,
                 decoder_input_ids: Optional[torch.Tensor] = None,
@@ -468,11 +564,13 @@ def create_whisper_model(model_type: str = "small", *, device=None,
 
 
 def init_kv_caches(config: WhisperConfig, batch: int, max_length: int,
-                   device) -> Tuple[Cache, ...]:
+                   device, tp: int = 1) -> Tuple[Cache, ...]:
     """Zeroed self-attention caches per decoder layer, transposed
-    [B, H, D, T_max] as in the JAX model."""
+    [B, H, D, T_max] as in the JAX model (H / tp heads under tensor
+    parallelism)."""
     head_dim = config.d_model // config.decoder_attention_heads
-    shape = (batch, config.decoder_attention_heads, head_dim, max_length)
+    shape = (batch, config.decoder_attention_heads // tp, head_dim,
+             max_length)
     return tuple(
         {"k": torch.zeros(shape, dtype=config.dtype, device=device),
          "v": torch.zeros(shape, dtype=config.dtype, device=device)}
@@ -492,7 +590,8 @@ def _greedy_loop(model: WhisperForConditionalGeneration,
 
     encoder_hidden = model.encode(input_features)
     cross_kvs = model.precompute_cross_kv(encoder_hidden)
-    caches = init_kv_caches(cfg, batch, max_length, device)
+    caches = init_kv_caches(cfg, batch, max_length, device,
+                            model.tp.size if model.tp else 1)
 
     tokens = torch.full((batch, max_length + 1), cfg.pad_token_id,
                         dtype=torch.int32, device=device)

@@ -19,11 +19,21 @@ tensor's dtype.
 Seeds are 31-bit ints drawn on the host from an explicit CPU
 ``torch.Generator`` (``seed_from_generator``, the JAX ``seed_from_rng``),
 so no dropout site waits on the device.
+
+A shard of a tensor takes a ``Window``: where it lies in the unsharded
+tensor on the last two dims (its first row and the unsharded row count,
+its first column and the unsharded width).  Its elements draw their bits
+at their flat index in the unsharded tensor, so a shard's mask is the
+slice of the whole tensor's mask and a sharded model drops exactly what
+the unsharded one drops (the JAX dropout gathers the shard and draws at
+the global index, pallas_dropout.py:78-127).  The default window is the
+tensor itself: every element at its own flat index, the bits drawn
+before windows existed.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,63 +91,132 @@ def philox_bits(seed: int, numel: int, device=None) -> torch.Tensor:
     return torch.stack(words, dim=-1).reshape(-1)[:numel]
 
 
-def keep_mask(seed: int, shape, rate: float, device=None) -> torch.Tensor:
-    """Bool keep mask of a contiguous tensor of ``shape``."""
+class Window(NamedTuple):
+    """Where a shard lies in the unsharded tensor, on its last two dims:
+    its first row ``row0`` of ``rows`` unsharded rows (dim -2) and its
+    first column ``col0`` of ``cols`` unsharded columns (dim -1).  A zero
+    ``rows`` or ``cols`` is the shard's own size: ``Window()`` is the whole
+    tensor."""
+    row0: int = 0
+    rows: int = 0
+    col0: int = 0
+    cols: int = 0
+
+
+def window_segments(shape, window: Window) -> Tuple[int, int, int, int, int]:
+    """The window as csrc/dropout.cu takes it: (seg_len, seg_per_outer,
+    outer_stride, row_stride, base), where segment s of ``seg_len``
+    contiguous elements starts at the unsharded index (s // seg_per_outer)
+    * outer_stride + (s % seg_per_outer) * row_stride + base.  Raises when
+    the shard does not fit in the unsharded tensor."""
+    shape = tuple(int(n) for n in shape)
+    cols_l = shape[-1] if shape else 1
+    rows_l = shape[-2] if len(shape) >= 2 else 1
     numel = int(np.prod(shape))
-    bits = philox_bits(seed, numel, device)
+    rows = window.rows or rows_l
+    cols = window.cols or cols_l
+    if (window.row0 < 0 or window.col0 < 0 or window.row0 + rows_l > rows
+            or window.col0 + cols_l > cols):
+        raise ValueError(f"dropout: a shard {shape} does not fit the window "
+                         f"{tuple(window)}")
+    base = window.row0 * cols + window.col0
+    if cols_l != cols:                          # a shard of columns
+        return cols_l, rows_l, rows * cols, cols, base
+    if rows_l != rows:                          # a shard of rows
+        return rows_l * cols_l, 1, rows * cols, 0, base
+    return max(numel, 1), 1, 0, 0, 0            # the whole tensor
+
+
+def window_indices(shape, window: Window, device=None) -> torch.Tensor:
+    """The unsharded flat index (int64) of each element of a contiguous
+    shard of ``shape``."""
+    seg_len, per_outer, outer_stride, row_stride, base = window_segments(
+        shape, window)
+    numel = int(np.prod(shape))
+    seg = torch.arange(max(numel // seg_len, 1), dtype=torch.int64,
+                       device=device)
+    start = (seg // per_outer) * outer_stride + (seg % per_outer) * row_stride
+    idx = (start[:, None] + base
+           + torch.arange(seg_len, dtype=torch.int64, device=device))
+    return idx.reshape(-1)[:numel]
+
+
+def keep_mask(seed: int, shape, rate: float, device=None,
+              window: Window = Window()) -> torch.Tensor:
+    """Bool keep mask of a contiguous tensor of ``shape``, a shard at
+    ``window`` of a larger one (default: the tensor itself)."""
+    numel = int(np.prod(shape))
+    if window == Window():
+        bits = philox_bits(seed, numel, device)
+    else:
+        idx = window_indices(shape, window, device)
+        ctr = idx >> 2
+        zero = torch.zeros_like(ctr)
+        words = torch.stack(philox4x32_10(
+            (ctr & _MASK32, ctr >> 32, zero, zero),
+            (int(seed) & _MASK32, 0)), dim=-1)
+        bits = words.gather(-1, (idx & 3)[:, None])[:, 0]
     return (bits >= dropout_threshold(rate)).reshape(shape)
 
 
-def plain_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def plain_dropout(x: torch.Tensor, rate: float, seed: int,
+                  window: Window = Window()) -> torch.Tensor:
     """What the kernel computes, in plain torch."""
-    keep = keep_mask(seed, x.shape, rate, x.device)
+    keep = keep_mask(seed, x.shape, rate, x.device, window)
     scaled = (x.float() * dropout_scale(rate)).to(x.dtype)
     return torch.where(keep, scaled, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))
 
 
-def dropout_cuda(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def dropout_cuda(x: torch.Tensor, rate: float, seed: int,
+                 window: Window = Window()) -> torch.Tensor:
     check_kernel_inputs("dropout", x)
     if x.dtype not in _DTYPES:
         raise ValueError(f"dropout: unsupported dtype {x.dtype}")
     if not 0.0 < rate < 1.0 or not 0 <= seed < 2 ** 32:
         raise ValueError(f"dropout: rate {rate} or seed {seed} out of range")
+    segments = window_segments(x.shape, window)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     with torch.cuda.device(x.device):
         kernel_lib.DROPOUT(
-            x.data_ptr(), y.data_ptr(), x.numel(), int(seed),
+            x.data_ptr(), y.data_ptr(), x.numel(), *segments, int(seed),
             dropout_threshold(rate), dropout_scale(rate),
             int(x.dtype == torch.bfloat16), kernel_lib.stream_handle(x))
     return y
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, seed: int,
+             window: Window) -> torch.Tensor:
     if x.is_cuda:
-        return dropout_cuda(x, rate, seed)
+        return dropout_cuda(x, rate, seed, window)
     cpu_or_raise("dropout", x)
-    return plain_dropout(x, rate, seed)
+    return plain_dropout(x, rate, seed, window)
 
 
 class FusedDropout(torch.autograd.Function):
-    """y = dropout(x); dx = dropout(dy) with the same seed (same mask)."""
+    """y = dropout(x); dx = dropout(dy) with the same seed and window (the
+    same mask)."""
 
     @staticmethod
-    def forward(ctx, x, rate: float, seed: int):
-        ctx.rate, ctx.seed = rate, seed
-        return _dropout(x.contiguous(), rate, seed)
+    def forward(ctx, x, rate: float, seed: int, window: Window):
+        ctx.rate, ctx.seed, ctx.window = rate, seed, window
+        return _dropout(x.contiguous(), rate, seed, window)
 
     @staticmethod
     def backward(ctx, dy):
-        return _dropout(dy.contiguous(), ctx.rate, ctx.seed), None, None
+        return (_dropout(dy.contiguous(), ctx.rate, ctx.seed, ctx.window),
+                None, None, None)
 
 
-def fused_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    """Dropout of any tensor; the identity at rate 0."""
+def fused_dropout(x: torch.Tensor, rate: float, seed: int,
+                  window: Window = Window()) -> torch.Tensor:
+    """Dropout of any tensor, a shard at ``window`` of a larger one
+    (default: the tensor itself); the identity at rate 0."""
     if rate <= 0.0:
         return x
-    return FusedDropout.apply(x, float(rate), int(seed))
+    return FusedDropout.apply(x, float(rate), int(seed), Window(*window))
 
 
 def seed_from_generator(generator: torch.Generator) -> int:
@@ -149,11 +228,13 @@ def seed_from_generator(generator: torch.Generator) -> int:
 
 
 def module_dropout(x: torch.Tensor, rate: float, training: bool,
-                   generator: Optional[torch.Generator]) -> torch.Tensor:
+                   generator: Optional[torch.Generator],
+                   window: Window = Window()) -> torch.Tensor:
     """Dropout at a module site: the identity unless training with a
-    nonzero rate, then ``fused_dropout`` with a seed from ``generator``."""
+    nonzero rate, then ``fused_dropout`` with a seed from ``generator``
+    (and ``window`` when ``x`` is a shard)."""
     if not training or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    return fused_dropout(x, rate, seed_from_generator(generator))
+    return fused_dropout(x, rate, seed_from_generator(generator), window)

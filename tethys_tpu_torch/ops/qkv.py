@@ -25,7 +25,7 @@ fails raises, and ``ROUTE_LAUNCHES`` counts the launches of each.
 from __future__ import annotations
 
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -254,11 +254,15 @@ def project_split(
 
 
 def merge_project(attn: torch.Tensor, weight: torch.Tensor,
-                  bias: torch.Tensor) -> torch.Tensor:
-    """[B, H, T, d] -> [B, T, E_out]."""
+                  bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, H, T, d] -> [B, T, E_out]; ``bias`` None adds none (a
+    row-parallel product, whose bias is added after the group's sum)."""
     if fused_qkv_enabled():
+        if bias is None:
+            bias = torch.zeros(weight.shape[0], dtype=attn.dtype,
+                               device=attn.device)
         if _needs_grad(attn, weight, bias):
             return MergeProject.apply(attn, weight, bias)
         return _merge_project_fused(attn, weight, bias)
     return F.linear(merge_heads(attn), weight.to(attn.dtype),
-                    bias.to(attn.dtype))
+                    None if bias is None else bias.to(attn.dtype))

@@ -41,7 +41,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 from torch.utils.checkpoint import CheckpointPolicy
 
-from tethys_tpu_torch.ops import flash_attention
+from tethys_tpu_torch.ops import flash_attention, sharding
 
 POLICIES = ("save_flash", "none", "dots_saveable")
 # The values of WhisperConfig.remat_policy, as the JAX config's.
@@ -72,6 +72,9 @@ def checkpoint(fn: Callable, *args, generator: Optional[torch.Generator],
     check_policy(policy)
     state = None if generator is None else generator.get_state()
     flash = flash_attention.SavedOutputs()
+    # The recompute runs in the autograd engine's thread: it gets the
+    # forward's sequence-parallel rules back (ops/sharding.py).
+    seq_rules = sharding.current_seq_rules()
     calls = 0
 
     def run(*inner_args):
@@ -82,10 +85,11 @@ def checkpoint(fn: Callable, *args, generator: Optional[torch.Generator],
         if replaying and generator is not None:
             draws = torch.Generator(device=generator.device)
             draws.set_state(state)
-        if policy != "save_flash":
-            return fn(*inner_args, draws)
-        with flash_attention.saving(flash, replay=replaying):
-            return fn(*inner_args, draws)
+        with sharding.seq_axis_rules(seq_rules):
+            if policy != "save_flash":
+                return fn(*inner_args, draws)
+            with flash_attention.saving(flash, replay=replaying):
+                return fn(*inner_args, draws)
 
     kwargs = {}
     if policy == "dots_saveable":

@@ -39,6 +39,18 @@
   one dtype each, taken after the backward (``DistributedDataParallel``
   would average, and would start reducing before the hardened clip has
   seen the replica's whole gradient).
+* ``layout`` of ``make_train_step`` (parallel/mesh: ``make_2d_mesh``,
+  ``make_seq_mesh``): a replica is one model or seq group, so the replica
+  count is the data group's size, and the gradients, the logged loss and
+  ``replica_mean`` reduce over the data group only (JAX's partial-manual
+  shard_map, "data" manual).  Under sequence parallelism the step runs
+  inside ``ops.sharding.seq_axis_rules`` and first sums the partial
+  gradients (``seq_partial`` names them, parallel/sp.py) over the seq
+  group, then broadcasts the others from the group's first rank: each
+  rank computed them whole, but the flash backward's dq atomics do not
+  give every rank the same bits, and the replicas' copies of the
+  parameters must stay equal.  Without a layout: one replica a rank
+  (``make_data_mesh``).
 """
 
 from __future__ import annotations
@@ -49,12 +61,16 @@ import numpy as np
 import torch
 
 from tethys_tpu_torch.ops import remat as remat_lib
+from tethys_tpu_torch.ops import sharding
 from tethys_tpu_torch.parallel import mesh
 
 
 class TrainState(NamedTuple):
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    # The (data, model|seq) layout the state is sharded or replicated over
+    # (parallel/mesh.Layout); None: one replica a rank.
+    layout: Any = None
 
 
 def _keras_alpha(lr: float, b1: float, b2: float, count: int) -> np.float32:
@@ -160,7 +176,9 @@ BUCKET_BYTES = 25 * 2 ** 20
 
 
 class GradientReducer:
-    """SUM all-reduce of one replica's gradients over the process group.
+    """SUM all-reduce of one replica's gradients over a process group
+    (``group``: the world's by default; the data group under a layout), or
+    with ``src`` (a global rank of the group) their broadcast from it.
 
     The gradients are packed in order into flat buckets, one dtype each, a
     new bucket begun once one holds ``BUCKET_BYTES``; each bucket is
@@ -170,7 +188,9 @@ class GradientReducer:
     (buckets and loss), for the collective report.  Nothing here waits for
     the device: NCCL queues the all-reduce behind the backward."""
 
-    def __init__(self):
+    def __init__(self, group=None, src: Optional[int] = None):
+        self.group = group
+        self.src = src
         self.bytes_per_step = 0
 
     @staticmethod
@@ -191,21 +211,26 @@ class GradientReducer:
         return out
 
     def __call__(self, grads: List[torch.Tensor],
-                 loss: torch.Tensor) -> torch.Tensor:
-        """Sums ``grads`` in place over the replicas; returns the SUM of
-        the replicas' ``loss``."""
+                 loss: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """Sums ``grads`` in place over the group; returns the SUM of the
+        ranks' ``loss`` (None for None)."""
         dist = torch.distributed
         moved = 0
-        for bucket in self.buckets(grads):
+        for bucket in self.buckets(grads) if grads else ():
             flat = torch.cat([g.reshape(-1) for g in bucket])
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            if self.src is None:
+                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+            else:
+                dist.broadcast(flat, self.src, group=self.group)
             torch._foreach_copy_(bucket, [
                 part.view_as(g) for part, g in
                 zip(flat.split([g.numel() for g in bucket]), bucket)])
             moved += flat.numel() * flat.element_size()
-        loss = loss.clone()
-        dist.all_reduce(loss, op=dist.ReduceOp.SUM)
-        self.bytes_per_step = moved + loss.numel() * loss.element_size()
+        if loss is not None:
+            loss = loss.clone()
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=self.group)
+            moved += loss.numel() * loss.element_size()
+        self.bytes_per_step = moved
         return loss
 
 
@@ -229,16 +254,19 @@ def aux_tree(leaves) -> dict:
     return tree
 
 
-def replica_mean(aux: dict) -> dict:
-    """The mean over the replicas of every tensor of the nested dict
-    ``aux`` (JAX's ``pmean``), as one SUM all-reduce of their f32 values;
-    ``aux`` itself without a process group."""
-    if not mesh.group_up() or not aux:
+def replica_mean(aux: dict, layout: Optional[mesh.Layout] = None) -> dict:
+    """The mean over the replicas (the data group of ``layout``, default
+    one replica a rank) of every tensor of the nested dict ``aux`` (JAX's
+    ``pmean``), as one SUM all-reduce of their f32 values; ``aux`` itself
+    without a process group."""
+    layout = layout or mesh.make_data_mesh()
+    if layout.data_group is None or not aux:
         return aux
     leaves = [(path, t.detach()) for path, t in aux_leaves(aux)]
     flat = torch.cat([t.float().reshape(-1) for _, t in leaves])
-    torch.distributed.all_reduce(flat, op=torch.distributed.ReduceOp.SUM)
-    flat /= mesh.world_size()
+    torch.distributed.all_reduce(flat, op=torch.distributed.ReduceOp.SUM,
+                                 group=layout.data_group)
+    flat /= layout.data
     parts = flat.split([t.numel() for _, t in leaves])
     return aux_tree((path, part.view_as(t).to(t.dtype))
                     for (path, t), part in zip(leaves, parts))
@@ -286,7 +314,9 @@ def accumulate(model: torch.nn.Module, batch, generator: torch.Generator,
 def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                     hardened: bool = False, return_aux: bool = False,
                     grad_aux_fn: Optional[Callable] = None,
-                    remat: bool = False, grad_accum: int = 1):
+                    remat: bool = False, grad_accum: int = 1,
+                    layout: Optional[mesh.Layout] = None,
+                    seq_partial: Optional[Callable[[str], bool]] = None):
     """step(state, batch, generator) -> (state, loss) on one replica.
 
     loss_fn(model, batch, generator) -> (scalar loss, aux).  The model and
@@ -312,9 +342,31 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
     leading dim (``accumulate``): the NaN scrub and 1/N run on each, the
     loss and the aux are their means, and the global-norm clip runs once,
     on the accumulated gradients, before the all-reduce.  N = 1 is the
-    unaccumulated step, with the same draws."""
-    n_replicas = mesh.world_size()
-    reducer = GradientReducer() if mesh.group_up() else None
+    unaccumulated step, with the same draws.
+
+    ``layout`` and ``seq_partial``: the module doc.  ``step.collective_bytes``
+    holds the bytes the last step handed to each kind of collective (the
+    gradient reduces and, under a layout, the model's own)."""
+    layout = layout or mesh.make_data_mesh()
+    n_replicas = layout.data
+    if hardened and layout.inner > 1:
+        raise ValueError(
+            "the hardened step over a model or seq group (a clip of the "
+            "sharded or partial gradients) is not ported yet (ROADMAP.md, "
+            "queue 1 item 7.1: Wav2Vec2 --tp/--sp)")
+    seq = None
+    if layout.axis == "seq" and layout.inner > 1:
+        if seq_partial is None:
+            raise ValueError("a seq layout needs seq_partial (parallel/sp)")
+        seq = sharding.Shard(layout.inner_group, layout.inner,
+                             layout.inner_rank)
+    reducer = (None if layout.data_group is None
+               else GradientReducer(layout.data_group))
+    seq_reducer = seq_broadcast = None
+    if seq is not None:
+        seq_reducer = GradientReducer(seq.group)
+        seq_broadcast = GradientReducer(
+            seq.group, src=layout.data_rank * layout.inner)
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be at least 1")
     if remat:
@@ -335,19 +387,36 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
 
     def step(state: TrainState, batch, generator: torch.Generator):
         optimizer.zero_grad(set_to_none=True)
-        if grad_accum > 1:
-            loss, aux = accumulate(state.model, batch, generator, grad_accum,
-                                   value_and_grad)
-        else:
-            loss, aux = value_and_grad(state.model, batch, generator)
+        before = dict(sharding.BYTES)
+        with sharding.seq_axis_rules(seq):
+            if grad_accum > 1:
+                loss, aux = accumulate(state.model, batch, generator,
+                                       grad_accum, value_and_grad)
+            else:
+                loss, aux = value_and_grad(state.model, batch, generator)
+        if seq_reducer is not None:
+            named = [(n, p.grad) for n, p in state.model.named_parameters()
+                     if p.grad is not None]
+            # The encoder layers' partial sums; every other gradient as
+            # the group's first rank computed it.
+            seq_reducer([g for n, g in named if seq_partial(n)], None)
+            seq_broadcast([g for n, g in named if not seq_partial(n)], None)
         grads = [p.grad for p in state.model.parameters()
                  if p.grad is not None]
         if hardened:
             clip_by_global_norm(grads, 1.0)   # per replica, before the sum
         if reducer is not None:
             loss = reducer(grads, loss)
+        moved = {kind: n - before.get(kind, 0)
+                 for kind, n in sharding.BYTES.items()
+                 if n > before.get(kind, 0)}
+        for r in (seq_reducer, seq_broadcast, reducer):
+            if r is not None:
+                kind = "all-reduce" if r.src is None else "broadcast"
+                moved[kind] = moved.get(kind, 0) + r.bytes_per_step
+        step.collective_bytes = moved
         if return_aux:
-            aux = dict(replica_mean(aux or {}))
+            aux = dict(replica_mean(aux or {}, layout))
             if grad_aux_fn is not None:
                 aux["grad_aux"] = grad_aux_fn({
                     name: torch.zeros_like(p) if p.grad is None else p.grad
@@ -359,6 +428,7 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
 
     step.reducer = reducer
     step.remat = remat
+    step.collective_bytes = {}
     return step
 
 

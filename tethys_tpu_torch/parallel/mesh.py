@@ -13,6 +13,16 @@ and fall back to one process without it.
 ``job_identity()`` reproduces job_name.py's ``<task_type>_<index>`` naming
 (reference job_name.py:1-15) from TF_CONFIG when present, else from the
 rank (0 in a single process).
+
+The 2-D layouts (the JAX meshes of parallel/tp.py and sp.py): over a world
+of n processes, ``make_2d_mesh(model_parallel)`` and
+``make_seq_mesh(seq_parallel)`` lay the ranks out as JAX reshapes its
+devices to (n // inner, inner): rank r has data coordinate r // inner and
+inner ("model" or "seq") coordinate r % inner.  A replica is one inner
+group, the unit that holds a whole set of parameters; the gradients and
+the logged loss are summed over the data group only.  ``make_data_mesh()``
+is the layout of plain data parallelism (inner 1).  Without a process
+group every layout is a world of one, and has no groups.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ from __future__ import annotations
 import datetime
 import json
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -150,3 +160,75 @@ def shutdown_distributed() -> None:
     """Destroy the process group, if one is up."""
     if group_up():
         torch.distributed.destroy_process_group()
+
+
+class Layout(NamedTuple):
+    """This process's place in a (data, inner) layout of the world.
+
+    ``axis`` names the inner axis as the JAX mesh does ("model" for tensor
+    parallelism, "seq" for sequence parallelism, "data" when there is none,
+    inner 1).  ``data_group`` and ``inner_group`` are the process groups of
+    this rank's data and inner groups, None where the group holds one
+    rank (its collectives are the identity)."""
+    axis: str
+    data: int                 # data replicas (the data group's size)
+    inner: int                # ranks of one replica
+    data_rank: int            # this rank's data coordinate, r // inner
+    inner_rank: int           # this rank's inner coordinate, r % inner
+    data_group: Any = None
+    inner_group: Any = None
+
+
+def _new_groups(rank_lists: List[List[int]], me: int):
+    """Every rank makes every group, in the same order (as
+    ``torch.distributed.new_group`` requires); returns this rank's."""
+    mine = None
+    for ranks in rank_lists:
+        group = torch.distributed.new_group(ranks)
+        if me in ranks:
+            mine = group
+    return mine
+
+
+def _layout(axis: str, inner: int) -> Layout:
+    n, me = world_size(), rank()
+    if n % inner != 0:
+        name = {"model": "tp", "seq": "seq"}.get(axis, axis)
+        raise ValueError(f"{n} devices not divisible by {name}={inner}")
+    data = n // inner
+    data_group = inner_group = None
+    if group_up():
+        world = torch.distributed.group.WORLD
+        # A group that spans the world is the world's own (a world of one
+        # included, whose SUM over one rank the data-parallel step keeps).
+        if inner == 1:
+            data_group = world
+        elif data > 1:
+            data_group = _new_groups(
+                [[d * inner + i for d in range(data)] for i in range(inner)],
+                me)
+        if data == 1:
+            inner_group = world if inner > 1 else None
+        elif inner > 1:
+            inner_group = _new_groups(
+                [[d * inner + i for i in range(inner)] for d in range(data)],
+                me)
+    return Layout(axis, data, inner, me // inner, me % inner, data_group,
+                  inner_group)
+
+
+def make_data_mesh() -> Layout:
+    """Plain data parallelism: one replica a rank."""
+    return _layout("data", 1)
+
+
+def make_2d_mesh(model_parallel: int = 2) -> Layout:
+    """The (data, model) layout of tensor parallelism (JAX
+    ``tp.make_2d_mesh``)."""
+    return _layout("model", model_parallel)
+
+
+def make_seq_mesh(seq_parallel: int = 4) -> Layout:
+    """The (data, seq) layout of sequence parallelism (JAX
+    ``sp.make_seq_mesh``)."""
+    return _layout("seq", seq_parallel)

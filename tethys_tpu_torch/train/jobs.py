@@ -18,7 +18,17 @@ from the same seed, feeds its own local batch of
 jobs.py:200-207) and keeps one replica; the step sums the gradients over
 the replicas (``parallel/dp``), rank 0 writes the checkpoints, and
 ``collective_report=True`` writes ``<task>_<idx>_collectives.txt`` on
-every rank.  TP/SP/PP are refused by the CLIs (jobs/) and wait in
+every rank.
+
+Whisper's tensor and sequence parallelism (``tensor_parallel``,
+``seq_parallel``, mutually exclusive as in JAX): the world is laid out
+(data, model) or (data, seq) (parallel/mesh); each data replica feeds its
+``batch_size_per_replica`` rows, every rank of a replica the same ones
+with the same generator (the loop's replica is the data coordinate).
+Under tensor parallelism the whole model is made on the CPU from the seed
+and each rank moves its shards to the card (parallel/tp.shard_model); the
+checkpoints and final weights are gathered whole (checkpoint.py).  PP and
+Wav2Vec2's TP and SP are refused by the CLIs (jobs/) and wait in
 ROADMAP.md.
 
 The single-card capacity modes of the JAX jobs: ``remat`` (the whole loss
@@ -47,7 +57,11 @@ import torch
 
 from tethys_tpu_torch import data as data_lib
 from tethys_tpu_torch import losses
-from tethys_tpu_torch.checkpoint import CheckpointManager, save_final_weights
+from tethys_tpu_torch.checkpoint import (
+    CheckpointManager,
+    save_final_weights,
+    whole_state_dicts,
+)
 from tethys_tpu_torch.configs import (
     Wav2Vec2Config,
     WhisperConfig,
@@ -59,7 +73,7 @@ from tethys_tpu_torch.models.whisper import (
     WhisperForConditionalGeneration,
     create_whisper_model,
 )
-from tethys_tpu_torch.parallel import dp, mesh
+from tethys_tpu_torch.parallel import dp, mesh, sp, tp
 from tethys_tpu_torch.profiling import tensorsize
 from tethys_tpu_torch.profiling.comm import write_collective_report
 from tethys_tpu_torch.train.loop import TrainLoopResult, run_training
@@ -77,6 +91,22 @@ class TrainJob(NamedTuple):
     config: Union[WhisperConfig, Wav2Vec2Config]
 
 
+def whisper_layout(tensor_parallel: int = 1,
+                   seq_parallel: int = 1) -> mesh.Layout:
+    """The layout of a Whisper job (JAX jobs.py:181-197): (data, model)
+    under ``tensor_parallel``, (data, seq) under ``seq_parallel``, else one
+    replica a rank."""
+    if tensor_parallel > 1 and seq_parallel > 1:
+        raise ValueError(
+            "tensor_parallel / seq_parallel / pipeline_parallel are "
+            "mutually exclusive")
+    if tensor_parallel > 1:
+        return mesh.make_2d_mesh(model_parallel=tensor_parallel)
+    if seq_parallel > 1:
+        return mesh.make_seq_mesh(seq_parallel=seq_parallel)
+    return mesh.make_data_mesh()
+
+
 def make_whisper_job(
     model_type: str = "small",
     batch_size_per_replica: int = 1,
@@ -89,16 +119,26 @@ def make_whisper_job(
     remat: bool = False,
     grad_accum: int = 1,
     master_dtype: str = "float32",
+    tensor_parallel: int = 1,
+    seq_parallel: int = 1,
+    layout: Optional[mesh.Layout] = None,
 ) -> TrainJob:
     """The model with ``master_dtype`` master weights (in train mode), the
     plain step with ``whisper_optimizer``, ``remat`` and ``grad_accum``,
-    the synthetic dataset."""
+    the synthetic dataset; over ``layout``, by default
+    ``whisper_layout(tensor_parallel, seq_parallel)``."""
+    layout = layout or whisper_layout(tensor_parallel, seq_parallel)
     device = require_cuda() if device is None else torch.device(device)
-    # create_whisper_model draws the weights in f32 and casts them once.
+    sharded = layout.axis == "model" and layout.inner > 1
+    # create_whisper_model draws the weights in f32 and casts them once;
+    # under tensor parallelism on the CPU, and each rank moves its shards.
     model, config = create_whisper_model(
-        model_type, device=device, seed=seed,
+        model_type, device="cpu" if sharded else device, seed=seed,
         param_dtype=resolve_dtype(master_dtype),
         compute_dtype=compute_dtype, **(config_overrides or {}))
+    if sharded:
+        tp.check_divides(config, layout.inner, f"whisper {model_type}")
+        model = tp.shard_model(model, layout).to(device)
     model.train()
     optimizer = dp.whisper_optimizer(model.parameters(), learning_rate)
 
@@ -114,8 +154,9 @@ def make_whisper_job(
 
     return TrainJob(
         dp.make_train_step(loss_fn, optimizer, hardened=False, remat=remat,
-                           grad_accum=grad_accum),
-        dp.TrainState(model, optimizer),
+                           grad_accum=grad_accum, layout=layout,
+                           seq_partial=sp.partial_param),
+        dp.TrainState(model, optimizer, layout),
         data_lib.create_whisper_dummy_dataset(
             batch_size_per_replica, n_mels=config.n_mels, seq_len=data_seq_len),
         prepare_batch, config)
@@ -220,16 +261,22 @@ def train_whisper(
     remat: bool = False,
     grad_accum: int = 1,
     master_dtype: str = "float32",
+    tensor_parallel: int = 1,
+    seq_parallel: int = 1,
+    layout: Optional[mesh.Layout] = None,
 ):
     """End-to-end Whisper training (reference train_whisper,
     speech_jobs/whisper_dist.py:894-958).  With ``profiler``, the
     tensorsize instrumentation of whisper_dist_tensorsize.py; ``remat``,
-    ``grad_accum`` and ``master_dtype`` as in the module doc.  Returns
-    (result, model, config)."""
+    ``grad_accum``, ``master_dtype``, ``tensor_parallel`` and
+    ``seq_parallel`` as in the module doc.  Returns (result, model,
+    config)."""
     job = make_whisper_job(
         model_type, batch_size_per_replica, learning_rate, compute_dtype,
         seed, data_seq_len, config_overrides, device, remat=remat,
-        grad_accum=grad_accum, master_dtype=master_dtype)
+        grad_accum=grad_accum, master_dtype=master_dtype,
+        tensor_parallel=tensor_parallel, seq_parallel=seq_parallel,
+        layout=layout)
     if profiler is not None:
         profiler.log_model_parameters(job.state.model)
         step_hooks = tuple(step_hooks) + (_profiler_hooks(
@@ -242,7 +289,8 @@ def train_whisper(
         job.step_fn, job.dataset, job.state, seed,
         num_epochs=num_epochs, max_iterations=num_batches,
         prepare_batch=job.prepare_batch, checkpoint_manager=ckpt,
-        checkpoint_tag=f"whisper_{model_type}", step_hooks=step_hooks)
+        checkpoint_tag=f"whisper_{model_type}", step_hooks=step_hooks,
+        replica=job.state.layout.data_rank)
     if collective_report:
         _emit_collective_report(job.step_fn)
     return result, job.state.model, job.config
@@ -398,14 +446,16 @@ def _resume(ckpt: CheckpointManager, state: dp.TrainState,
 
 
 def _emit_collective_report(step_fn) -> None:
-    """``<task>_<idx>_collectives.txt`` from the bytes the step's last
-    all-reduce moved, when a process group is up (the JAX job's
-    ``_emit_collective_report``, tethys_tpu/train/jobs.py:78-99)."""
-    if step_fn.reducer is None:
+    """``<task>_<idx>_collectives.txt`` from the bytes the step's last run
+    handed to each kind of collective (the gradient reduces and, under
+    tensor or sequence parallelism, the model's own), when it moved any
+    (the JAX job's ``_emit_collective_report``, tethys_tpu/train/
+    jobs.py:78-99)."""
+    if not step_fn.collective_bytes:
         return
     task_type, task_index = mesh.job_identity()
-    path = write_collective_report(
-        {"all-reduce": step_fn.reducer.bytes_per_step}, task_type, task_index)
+    path = write_collective_report(step_fn.collective_bytes, task_type,
+                                   task_index)
     if path:
         print(f"collective report: {path}")
 
@@ -420,8 +470,10 @@ def finalize_job(result: TrainLoopResult, name: str, jct_seconds: float,
     print("jct:", jct_seconds)
     task_type, task_index = mesh.job_identity()
     write_jct(jct_seconds, task_type, task_index, single=single)
+    whole = whole_state_dicts(result.state, with_optimizer=False)
     try:
-        save_final_weights(result.state.model, name)
+        save_final_weights(result.state.model, name,
+                           state_dict=whole and whole[0])
     except Exception as e:  # noqa: BLE001 — missing volume must not kill job
         print(f"final weight save failed: {e}")
     mesh.shutdown_distributed()

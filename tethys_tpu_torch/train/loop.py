@@ -13,7 +13,8 @@ fetched with ``.item()`` and printed, so the host waits for the device
 only once per step and the printed step times are the device's steady
 state.  The pending step is flushed before every checkpoint.  Each step's
 dropout seeds come from a CPU generator made from (seed, step) and the
-replica's rank (``dp.step_generator``).  Every process prints its own
+replica (``dp.step_generator``): the rank's data coordinate, so the ranks
+of one model or seq group draw the same seeds in the same order.  Every process prints its own
 lines, as the JAX loop does; under a process group the loss they print is
 the SUM over the replicas, the same on every rank.
 
@@ -98,9 +99,10 @@ def run_training(
     checkpoint_tag: str = "model",
     resilient: bool = False,         # Wav2Vec2's per-step exception reset
     step_hooks: tuple = (),          # callables(step, loss, duration, aux)
+    replica: Optional[int] = None,   # the data coordinate; default the rank
 ) -> TrainLoopResult:
     losses, step_times = [], []
-    replica = mesh.rank()
+    replica = mesh.rank() if replica is None else replica
     step = 0
     iterator = iter(dataset)
     start_time = time.time()

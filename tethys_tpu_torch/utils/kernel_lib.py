@@ -103,7 +103,8 @@ FLASH_BWD = Kernel(
     "tethys_tpu/ops/pallas_attention.py:380 _bwd_dkv_dq_kernel, "
     ":259 _bwd_dq_kernel, :308 _bwd_dkv_kernel")
 DROPOUT = Kernel(
-    "dropout", "tethys_dropout", (_P, _P, _L, _U, _U, _F, _I, _P),
+    "dropout", "tethys_dropout",
+    (_P, _P, _L, _L, _L, _L, _L, _L, _U, _U, _F, _I, _P),
     "tethys_tpu_torch/csrc/dropout.cu",
     "tethys_tpu/ops/pallas_dropout.py:29")
 DECODE_SELF = Kernel(
