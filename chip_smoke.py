@@ -172,14 +172,16 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    checkpoint restores with --resume into a --tp 1 run; (b) whisper-base
    f32, rates 0, b2, 2 Keras-Adam steps over (data 1, model 2) against one
    process: losses, gradients, their norm and the parameters within phase
-   6's tolerances; (c) whisper_dist --model_size small --sp 2 --batch_size
-   2 --num_batches 4 --dtype bfloat16 exits 0 on both ranks, then
-   whisper-small f32 steps over (data 1, seq 2) with the config's dropout
-   (attention's 0) against one process, as (b), the flash forward
-   launched at Tq 750 against Tk 1500; (d) dropout.cu on a shard of [16,
-   1500, 512] bf16 (750 rows; 256 columns) equals the slice of the whole
-   tensor's launch bit for bit, its time beside the whole's (outside the
-   path's counts); (e) greedy decoding of whisper-base f32 over (data 1,
+   6's tolerances; then the same with dropout and activation_dropout 0.1
+   (attention's 0), fc1's columns launching dropout_window; (c)
+   whisper_dist --model_size small --sp 2 --batch_size 2 --num_batches 4
+   --dtype bfloat16 exits 0 on both ranks, then whisper-small f32 steps
+   over (data 1, seq 2) with the config's dropout (attention's 0) against
+   one process, as (b), the flash forward launched at Tq 750 against Tk
+   1500 and dropout_window launched by every rank; (d) dropout.cu on a
+   shard of [16, 1500, 512] bf16 (750 rows; 256 columns) equals its plain
+   version and the slice of the whole tensor's launch bit for bit, its
+   time beside the whole's (outside the path's counts); (e) greedy decoding of whisper-base f32 over (data 1,
    model 2), kv_quant none and int8, emits one process's tokens and
    length, decode_self and q8_cross launched on 4 of 8 heads.
 
@@ -257,8 +259,8 @@ PATH_KERNELS = {
                  "flash_fwd_dropout", "flash_bwd", "dropout", "gn_stats",
                  "gn_grad_sums", "gn_apply", "gn_apply_bwd"),
     "parallel": ("split_heads", "merge_heads", "flash_fwd",
-                 "flash_fwd_dropout", "flash_bwd", "dropout", "decode_self",
-                 "q8_cross"),
+                 "flash_fwd_dropout", "flash_bwd", "dropout",
+                 "dropout_window", "decode_self", "q8_cross"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -3129,6 +3131,11 @@ PAR_DECODE_STEPS = 32
 # TP mesh (its Pallas call has no partitioning rule, so GSPMD runs it on
 # gathered weights); here csrc/qkv_proj.cu runs on each rank's heads.
 PAR_DECODES = (("none", False), ("int8", False), ("int8", True))
+# The rates of 21(b)'s second TP run: fc1's columns take activation
+# dropout on their window (whisper's rate is 0, so 21(a) draws none); the
+# flash mask keeps local coordinates (heads), as JAX's does, so attention's
+# is 0.
+PAR_TP_DROPOUT = {"attention_dropout": 0.0, "activation_dropout": DROPOUT_RATE}
 PAR_ADAM_SHARE = 0.55   # one rank's params + Adam over the unsharded total
 # Runs ``python -m <module> <flags>`` (the module is the first argument),
 # then prints the process's launch counts, the collectives it made by
@@ -3295,6 +3302,8 @@ def run_tp_large_v3(gpu: str, child: dict) -> None:
                     in run["out"], f"rank {r} joined no gloo group")
             require(share <= PAR_ADAM_SHARE, f"rank {r} holds {share:.4f} of "
                     "the unsharded params and Adam moments")
+            # Not dropout_window: whisper's activation_dropout is 0, so the
+            # TP path drops whole tensors only (21(b) runs fc1's columns).
             rose = ("flash_fwd_dropout", "flash_bwd", "split_heads",
                     "merge_heads", "dropout")
             require(all(run["counts"][k] for k in rose), f"rank {r} launched "
@@ -3350,8 +3359,13 @@ def par_rank(mode: str, rank: str, port: str, out_dir: str) -> int:
             dev = require_cuda()
             if mode == "tp":
                 layout = mesh.make_2d_mesh(model_parallel=PAR_RANKS)
+                window = kernel_lib.DROPOUT_WINDOW.launches
                 with deterministic_cudnn():
                     out = par_steps(dev, MODEL, layout, NO_DROPOUT)
+                    out["dropout"] = par_steps(dev, MODEL, layout,
+                                               PAR_TP_DROPOUT)
+                out["dropout"]["window_launches"] = (
+                    kernel_lib.DROPOUT_WINDOW.launches - window)
                 out["decode"] = {v: par_decode(dev, *v, layout)
                                  for v in PAR_DECODES}
             else:
@@ -3377,7 +3391,7 @@ def par_steps(device, model_type: str, layout, overrides: dict) -> dict:
     last, on the host."""
     from tethys_tpu_torch import data
     from tethys_tpu_torch.models.whisper import create_whisper_model
-    from tethys_tpu_torch.parallel import dp, sp, tp
+    from tethys_tpu_torch.parallel import dp, tp
 
     model, _ = create_whisper_model(model_type, device="cpu", seed=SEED,
                                     param_dtype=torch.float32, **overrides)
@@ -3388,7 +3402,7 @@ def par_steps(device, model_type: str, layout, overrides: dict) -> dict:
     opt = dp.whisper_optimizer(model.parameters(), PAR_LR)
     step = dp.make_train_step(
         lambda m, b, g: (m(b[0], labels=b[1], generator=g)["loss"], {}),
-        opt, layout=layout, seq_partial=sp.partial_param)
+        opt, layout=layout)
     grads, adam_step = [], opt.step
 
     def whole(tensors):
@@ -3505,6 +3519,14 @@ def run_tp_equality(child: dict) -> None:
     with deterministic_cudnn():
         want = par_steps(dev, MODEL, None, NO_DROPOUT)
     check_par_steps("21(b) TP whisper-base f32", got, want)
+    with deterministic_cudnn():
+        want = par_steps(dev, MODEL, None, PAR_TP_DROPOUT)
+    check_par_steps("21(b) TP whisper-base f32, dropout and "
+                    "activation_dropout on", got["dropout"], want)
+    log(f"  21(b) rank 0's dropouts on fc1's columns: "
+        f"{got['dropout']['window_launches']} launches")
+    require(got["dropout"]["window_launches"] > 0, "21(b) the TP steps with "
+            "activation_dropout launched no dropout on a shard")
     log(f"  21(b) rank 0's collectives {got['transports']}")
     for (kv_quant, fused), run in got["decode"].items():
         ref = par_decode(dev, kv_quant, fused, None)
@@ -3544,6 +3566,9 @@ def run_sp(child: dict) -> None:
         require([i for i, _, _ in run["steps"]] == list(range(PAR_SP_STEPS))
                 and all(np.isfinite(run["losses"])),
                 f"21(c) rank {r}'s step lines {run['steps']}")
+        # The encoder layers' dropouts draw the rank's rows of the mask.
+        require(run["counts"]["dropout_window"] > 0, f"21(c) rank {r} "
+                f"launched no dropout on a shard: {run['counts']}")
     require(runs[0]["losses"] == runs[1]["losses"],
             "the two SP ranks logged other losses")
     log(f"  21(c) whisper_dist --sp 2, small b2 bf16: losses "
@@ -3552,6 +3577,8 @@ def run_sp(child: dict) -> None:
         f"collectives {runs[0]['transports']}")
     got = par_world("sp")
     add_counts(child, got["launches"])
+    require(got["launches"]["dropout_window"] > 0, "21(c) the SP world "
+            f"launched no dropout on a shard: {got['launches']}")
     want = par_steps(require_cuda(), "small", None,
                      {"attention_dropout": 0.0})
     check_par_steps("21(c) SP whisper-small f32, dropout on", got, want)
@@ -3562,14 +3589,18 @@ def run_sp(child: dict) -> None:
             f"{got['flash_shapes']}")
 
 
-def run_dropout_window(gpu: str) -> None:
+def run_dropout_window(gpu: str, results: dict) -> None:
     """Phase 21(d): csrc/dropout.cu on a shard of [16, 1500, 512] bf16 (the
-    last 750 rows; the last 256 columns) equals the slice of the whole
-    tensor's launch bit for bit; the shards' times beside the whole's."""
+    last 750 rows; the last 256 columns) equals its plain version and the
+    slice of the whole tensor's launch, bit for bit; the shards' times
+    beside the whole's.  The row shard is the kernel table's
+    dropout_window entry."""
     from tethys_tpu_torch.ops import dropout
 
     x = torch.randn(16, 1500, 512, device="cuda").bfloat16()
     whole = dropout.dropout_cuda(x, DROPOUT_RATE, 4321)
+    require(torch.equal(whole, dropout.plain_dropout(x, DROPOUT_RATE, 4321)),
+            "21(d) the whole tensor's launch is not its plain version")
     shards = {
         "rows 750-1499 of 1500": (x[:, 750:].contiguous(),
                                   dropout.Window(row0=750, rows=1500),
@@ -3582,16 +3613,28 @@ def run_dropout_window(gpu: str) -> None:
     log(f"  dropout.cu [16, 1500, 512] bf16 whole: {whole_ms:.4f} ms ({gpu})")
     for name, (shard, window, want) in shards.items():
         got = dropout.dropout_cuda(shard, DROPOUT_RATE, 4321, window)
+        plain = dropout.plain_dropout(shard, DROPOUT_RATE, 4321, window)
+        require(torch.equal(got, plain), f"21(d) the shard ({name}) is not "
+                "its plain version")
         require(torch.equal(got, want), f"21(d) the shard ({name}) is not "
                 "the slice of the whole tensor's mask")
+        log(f"  dropout_window {name}: max_abs_err "
+            f"{max_err(got, plain):.3e} against its plain version "
+            "(tolerance 0)")
         ms = event_ms(lambda: dropout.dropout_cuda(shard, DROPOUT_RATE, 4321,
                                                    window))
-        plain = event_ms(lambda: dropout.plain_dropout(shard, DROPOUT_RATE,
-                                                       4321, window), reps=3)
+        plain_ms = event_ms(lambda: dropout.plain_dropout(
+            shard, DROPOUT_RATE, 4321, window), reps=3)
         library = event_ms(lambda: F.dropout(shard, DROPOUT_RATE))
-        log_row("dropout window", f"[16, 1500, 512] bf16, {name}", ms,
-                bound(2 * shard.numel() * 2, 0, "bf16"), plain,
-                library_ms=library)
+        # phase 3's dropout bound: 2 bytes in and out, one f32 product each
+        bound_ms = bound(2 * shard.numel() * 2, shard.numel(), "f32")
+        log_row("dropout_window", f"[16, 1500, 512] bf16, {name}", ms,
+                bound_ms, plain_ms, library_ms=library)
+        if "rows" in name:
+            results["dropout_window"] = {
+                "max_abs_err": max_err(got, plain), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms[0],
+                "bound_by": bound_ms[1], "library_ms": library}
 
 
 def drive_path(name: str, phases, child_counts: dict = None) -> dict:
@@ -3720,7 +3763,7 @@ def main() -> int:
         ("[20f] the convergence twin, whisper-base, f32 against bf16 master",
          run_convergence)))
     log("[21d] dropout.cu on a shard against the slice of the whole")
-    run_dropout_window(gpu)
+    run_dropout_window(gpu, results)
     child = {}
     parallel = drive_path("parallel", (
         ("[21a] whisper_dist --tp 2 at whisper-large-v3, remat_layers, b1 "

@@ -151,6 +151,30 @@ def train(spec, layout, optimizer=None, **overrides):
     return losses, state
 
 
+def port_dp(spec, replicas: int, overrides):
+    """The port's data-parallel step over ``replicas`` replicas, in one
+    process: each replica's loss and gradient with its own generator, the
+    two summed (as GradientReducer sums them), then SGD."""
+    model = WhisperForConditionalGeneration(
+        WhisperConfig(**{**spec["config"], **overrides}))
+    model.load_state_dict(spec["state_dict"])
+    model.train()
+    opt = torch.optim.SGD(model.parameters(), lr=spec["lr"])
+    losses = []
+    for i, (features, labels) in enumerate(spec["batches"]):
+        opt.zero_grad(set_to_none=True)
+        rows, total = len(features) // replicas, 0.0
+        for r in range(replicas):
+            mine = slice(r * rows, (r + 1) * rows)
+            loss, _ = loss_fn(model, (features[mine], labels[mine]),
+                              dp.step_generator(spec["seed"], i, r))
+            loss.backward()
+            total += loss.item()
+        opt.step()
+        losses.append(total)
+    return losses, {k: v.detach() for k, v in model.state_dict().items()}
+
+
 def _whole(state):
     """The whole parameters of a state (gathered under tensor
     parallelism)."""
@@ -161,7 +185,8 @@ def _whole(state):
 
 def rank_tp(workdir: str) -> None:
     """A rank of the (data 2, model 2) world: its shard shapes, greedy
-    tokens, 2 SGD steps plain and under remat_layers, one Keras-Adam step
+    tokens, 2 SGD steps plain, under remat_layers and with the spec's
+    dropout rates (attention's 0), one Keras-Adam step
     from the plain state, checkpointed, then tokens and steps with the
     fused projections (TETHYS_FUSED_QKV=1)."""
     mesh.initialize_distributed(timeout_s=60, device="cpu")
@@ -173,9 +198,11 @@ def rank_tp(workdir: str) -> None:
                                      max_length=spec["max_length"])
     losses, state = train(spec, layout)
     remat_losses, remat_state = train(spec, layout, remat_layers=True)
+    dropout_losses, dropped = train(spec, layout, **spec["dropout"])
     out = {"shapes": shapes, "tokens": tokens, "length": int(length),
            "losses": losses, "params": _whole(state),
            "remat_losses": remat_losses, "remat_params": _whole(remat_state),
+           "dropout_losses": dropout_losses, "dropout_params": _whole(dropped),
            "layout": (layout.data, layout.inner, layout.data_rank,
                       layout.inner_rank)}
 

@@ -388,16 +388,23 @@ def test_dropout_exact(cuda, dtype, n, offset):
     ((4, 1500, 1024), dropout.Window(col0=1024, cols=2048)),       # columns
     ((2, 7, 13), dropout.Window(row0=3, rows=11, col0=5, cols=21)),
     ((3, 10, 11), dropout.Window(col0=1, cols=12)),    # misaligned
+    # More row segments than the grid's y and outer indices than its z.
+    ((1, 600000, 4), dropout.Window(col0=4, cols=12)),
+    ((70000, 1, 4), dropout.Window(row0=1, rows=2)),
 ])
 def test_dropout_window_is_the_slice(cuda, dtype, shape, window):
     """A shard's launch equals the plain version on the window and the
-    slice of the unsharded kernel's output, bit for bit."""
+    slice of the unsharded kernel's output, bit for bit, and counts as a
+    launch on a window."""
     rows = window.rows or shape[1]
     cols = window.cols or shape[2]
     whole = _randn(cuda, shape[0], rows, cols, dtype=dtype, seed=3)
     r, c = window.row0, window.col0
     x = whole[:, r:r + shape[1], c:c + shape[2]].contiguous()
+    kernel_lib.reset_launch_counts()
     got = dropout.dropout_cuda(x, 0.1, 77, window)
+    assert (kernel_lib.DROPOUT_WINDOW.launches,
+            kernel_lib.DROPOUT.launches) == (1, 0)
     assert torch.equal(got, dropout.plain_dropout(x, 0.1, 77, window))
     assert torch.equal(got, dropout.dropout_cuda(whole, 0.1, 77)[
         :, r:r + shape[1], c:c + shape[2]])

@@ -26,10 +26,7 @@ import optax
 
 from tethys_tpu.models.whisper import create_whisper_model
 from tethys_tpu.parallel import sp as jax_sp
-from tethys_tpu_torch.configs import WhisperConfig
 from tethys_tpu_torch.convert import params_from_flax
-from tethys_tpu_torch.models.whisper import WhisperForConditionalGeneration
-from tethys_tpu_torch.parallel import dp
 
 import _torch_parallel_ranks as ranks_lib
 
@@ -66,30 +63,6 @@ def _jax_tiny(n_rows: int):
     return model, params, batches
 
 
-def _port_dp(spec, replicas: int, overrides):
-    """The port's data-parallel step over ``replicas`` replicas, in one
-    process: each replica's loss and gradient with its own generator, the
-    two summed (as GradientReducer sums them), then SGD."""
-    model = WhisperForConditionalGeneration(
-        WhisperConfig(**{**spec["config"], **overrides}))
-    model.load_state_dict(spec["state_dict"])
-    model.train()
-    opt = torch.optim.SGD(model.parameters(), lr=spec["lr"])
-    losses = []
-    for i, (features, labels) in enumerate(spec["batches"]):
-        opt.zero_grad(set_to_none=True)
-        rows, total = len(features) // replicas, 0.0
-        for r in range(replicas):
-            mine = slice(r * rows, (r + 1) * rows)
-            loss, _ = ranks_lib.loss_fn(model, (features[mine], labels[mine]),
-                                        dp.step_generator(spec["seed"], i, r))
-            loss.backward()
-            total += loss.item()
-        opt.step()
-        losses.append(total)
-    return losses, {k: v.detach() for k, v in model.state_dict().items()}
-
-
 @pytest.mark.parametrize("world,degree", [(4, 2), (3, 3)])
 def test_sp_world_matches_jax(tmp_path, world, degree):
     data = world // degree
@@ -119,7 +92,7 @@ def test_sp_world_matches_jax(tmp_path, world, degree):
             want_losses.append(float(loss))
         want = params_from_flax(jax.device_get(state.params))
         if data > 1:
-            dp_losses, dp_params = _port_dp(spec, data, DROPOUT)
+            dp_losses, dp_params = ranks_lib.port_dp(spec, data, DROPOUT)
     finally:
         ranks_lib.wait(procs)
     ranks = [torch.load(tmp_path / f"rank_{r}.pt") for r in range(world)]

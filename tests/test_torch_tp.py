@@ -17,6 +17,10 @@ tier-1's time:
   test_sp.py's tolerance; SGD, as tests/test_tp.py, keeps the comparison
   proportional to the gradients);
 * the same steps under ``remat_layers`` equal them;
+* with module dropout on (dropout and activation_dropout 0.1; attention's
+  0, whose flash mask keeps local coordinates as JAX's does) they equal
+  the port's data-parallel step over the same 2 replicas, computed in one
+  process: fc1's column shards draw their columns of the unsharded mask;
 * a checkpoint of a Keras-Adam step, written by rank 0 whole, restores
   into a data-parallel run, Adam's moments whole;
 * with TETHYS_FUSED_QKV=1 (the fused projections on each rank's heads;
@@ -53,6 +57,7 @@ TINY = dict(
     decoder_start_token_id=63,
 )
 NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
+DROPOUT = dict(dropout=0.1, attention_dropout=0.0, activation_dropout=0.1)
 LR = 1e-2
 MAX_LENGTH = 12
 
@@ -97,7 +102,7 @@ def test_tp_world_matches_jax(tmp_path):
                 "batches": [tuple(torch.from_numpy(a) for a in b)
                             for b in batches],
                 "generate": torch.from_numpy(feats),
-                "max_length": MAX_LENGTH},
+                "max_length": MAX_LENGTH, "dropout": DROPOUT},
                tmp_path / "spec.pt")
     world = ranks_lib.torchrun_world(tmp_path, 4, "tp")
     try:
@@ -121,6 +126,8 @@ def test_tp_world_matches_jax(tmp_path):
                                jax.random.PRNGKey(i))
             want_losses.append(float(loss))
         want_params = params_from_flax(jax.device_get(state.params))
+        dp_losses, dp_params = ranks_lib.port_dp(
+            torch.load(tmp_path / "spec.pt"), 2, DROPOUT)
     finally:
         ranks_lib.wait(world)
     ranks = [torch.load(tmp_path / f"rank_{r}.pt") for r in range(4)]
@@ -148,12 +155,15 @@ def test_tp_world_matches_jax(tmp_path):
         assert r["length"] == int(want_len)
         _close(r["losses"], want_losses, rtol=1e-5, atol=0)
         assert r["remat_losses"] == r["losses"]
+        _close(r["dropout_losses"], dp_losses, rtol=1e-5, atol=0)
+        assert r["dropout_losses"][0] != r["losses"][0]   # it dropped
         assert torch.equal(r["fused_tokens"], r["tokens"])
         _close(r["fused_losses"], want_losses, rtol=1e-5, atol=0)
     for r in (ranks[0], ranks[2]):   # the two model groups
         for name, p in r["params"].items():
             _close(p, want_params[name], msg=name)
             _close(r["remat_params"][name], p, rtol=1e-6, atol=1e-7, msg=name)
+            _close(r["dropout_params"][name], dp_params[name], msg=name)
             _close(r["fused_params"][name], want_params[name], msg=name)
 
     # Rank 0's whole checkpoint restores into a data-parallel run.

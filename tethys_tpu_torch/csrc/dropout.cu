@@ -23,15 +23,20 @@
 // What bounds it on an H100: device memory.  It reads and writes each
 // element once, so its floor is 2 * bytes / 3.35 TB/s; the Philox rounds
 // (about 100 integer operations per four elements) stay under that at bf16.
-// The design: each thread takes one group of four consecutive elements of a
-// segment: one Philox call, its four outputs one per element, when the
-// group's first unsharded index is a multiple of 4 (every window of the
-// training paths), else the two calls that cover it; moved as one 16-byte
+// The design: thread (x, y) of block (bx, by, bz) takes groups of four
+// consecutive elements of a segment, the segments of one outer index along
+// y and the outer indices along z, each dimension a grid-stride loop, so a
+// segment's start is computed once per segment and no group divides.  The
+// block is 256 threads, as wide in x as the segment has groups (32 at
+// least), so a shard of short rows fills its warps.  A group is one Philox
+// call, its four outputs one per element, when its first unsharded index is
+// a multiple of 4, else the two calls that cover it; moved as one 16-byte
 // (f32) or 8-byte (bf16) vector when the group is whole and both pointers
-// allow it.  The whole tensor takes the kernel it took before windows
-// (no segment arithmetic); a shard takes a second kernel, whose segment
-// arithmetic is 32-bit when the group count allows (a 64-bit division
-// costs more than the element's bytes at bf16).
+// allow it.  The kernel is compiled twice: for windows whose every group
+// starts at a multiple of 4 (the whole tensor and every window of the
+// training paths) and for the rest.  One kernel for both held a second
+// Philox call's registers (48 a thread against 28-29 for sm_90a), which
+// cost the whole tensor a third of its time on an H100.
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -77,64 +82,52 @@ __device__ __forceinline__ void apply4(const T* __restrict__ x,
     }
     *reinterpret_cast<V*>(y + i0) = *reinterpret_cast<const V*>(v);
   } else {
-    for (int lane = 0; lane < len; ++lane) {
-      const bool keep = bits[lane] >= threshold;
-      y[i0 + lane] = tethys::from_f32<T>(
-          keep ? tethys::to_f32<T>(x[i0 + lane]) * scale : 0.f);
-    }
-  }
-}
-
-// The whole tensor: group g is elements 4g .. 4g + 3 and Philox counter g.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
-                   uint32_t seed, uint32_t threshold, float scale,
-                   bool vectors) {
-  const long long groups = (n + 3) / 4;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       g < groups; g += stride) {
-    const uint4 r = tethys::philox4x32_10((uint64_t)g, seed);
-    const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
-    apply4(x, y, 4 * g, (int)min(4LL, n - 4 * g), bits, threshold, scale,
-           vectors);
-  }
-}
-
-// A shard: group g is elements 4k .. 4k + 3 of segment s (g = s * per_seg
-// + k), whose first unsharded index is n0; one Philox call when n0 % 4 is
-// 0, two otherwise.  Index is 32-bit when the group count fits.
-template <typename T, typename Index>
-__global__ void __launch_bounds__(256)
-    dropout_window_kernel(const T* __restrict__ x, T* __restrict__ y,
-                          long long n, Window w, uint32_t seed,
-                          uint32_t threshold, float scale, bool vectors) {
-  const Index per_seg = (Index)((w.seg_len + 3) / 4);
-  const Index groups = (Index)(n / w.seg_len) * per_seg;
-  const Index per_outer = (Index)w.seg_per_outer;
-  const Index stride = (Index)(gridDim.x * blockDim.x);
-  for (Index g = (Index)(blockIdx.x * blockDim.x + threadIdx.x); g < groups;
-       g += stride) {
-    const Index s = g / per_seg, k = g - s * per_seg;
-    const long long i0 = (long long)s * w.seg_len + 4LL * k;
-    const Index outer = s / per_outer;
-    const uint64_t n0 = (uint64_t)((long long)outer * w.outer_stride +
-                                   (long long)(s - outer * per_outer) *
-                                       w.row_stride +
-                                   w.base + 4LL * k);
-    const uint32_t off = (uint32_t)(n0 & 3);
-    const uint4 r0 = tethys::philox4x32_10(n0 >> 2, seed);
-    const uint4 r1 = off ? tethys::philox4x32_10((n0 >> 2) + 1, seed) : r0;
-    uint32_t bits[4];
 #pragma unroll
-    for (int lane = 0; lane < 4; ++lane) {
-      const int t = (int)off + lane;
-      bits[lane] = t < 4 ? tethys::philox_lane(r0, t)
-                         : tethys::philox_lane(r1, t - 4);
+    for (int lane = 0; lane < 4; ++lane) {  // constant lanes: bits in registers
+      if (lane < len) {
+        const bool keep = bits[lane] >= threshold;
+        y[i0 + lane] = tethys::from_f32<T>(
+            keep ? tethys::to_f32<T>(x[i0 + lane]) * scale : 0.f);
+      }
     }
-    apply4(x, y, i0, (int)min(4LL, w.seg_len - 4LL * k), bits, threshold,
-           scale, vectors);
+  }
+}
+
+// Segment (z, j) (outer index z, segment j of it) holds elements
+// (z * seg_per_outer + j) * seg_len .. + seg_len - 1 of x; its group k is
+// elements 4k .. 4k + 3 of it, whose first unsharded index is n0.
+// kAligned: every n0 is a multiple of 4 (the whole tensor and every window
+// whose offsets and segments are), so no group takes a second Philox call.
+template <typename T, bool kAligned>
+__global__ void __launch_bounds__(256)
+    dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
+                   long long outers, Window w, uint32_t seed,
+                   uint32_t threshold, float scale, bool vectors) {
+  const long long per_seg = (w.seg_len + 3) / 4;
+  for (long long z = blockIdx.z; z < outers; z += gridDim.z) {
+    for (long long j = (long long)blockIdx.y * blockDim.y + threadIdx.y;
+         j < w.seg_per_outer; j += (long long)gridDim.y * blockDim.y) {
+      const long long x0 = (z * w.seg_per_outer + j) * w.seg_len;
+      const long long u0 = z * w.outer_stride + j * w.row_stride + w.base;
+      for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+           k < per_seg; k += (long long)gridDim.x * blockDim.x) {
+        const uint64_t n0 = (uint64_t)(u0 + 4 * k);
+        const uint32_t off = (uint32_t)(n0 & 3);
+        const uint4 r0 = tethys::philox4x32_10(n0 >> 2, seed);
+        uint32_t bits[4] = {r0.x, r0.y, r0.z, r0.w};
+        if (!kAligned && off) {
+          const uint4 r1 = tethys::philox4x32_10((n0 >> 2) + 1, seed);
+#pragma unroll
+          for (int lane = 0; lane < 4; ++lane) {
+            const int t = (int)off + lane;
+            bits[lane] = t < 4 ? tethys::philox_lane(r0, t)
+                               : tethys::philox_lane(r1, t - 4);
+          }
+        }
+        apply4(x, y, x0 + 4 * k, (int)min(4LL, w.seg_len - 4 * k), bits,
+               threshold, scale, vectors);
+      }
+    }
   }
 }
 
@@ -142,33 +135,41 @@ template <typename T>
 int launch(const void* x, void* y, long long n, const Window& w,
            uint32_t seed, uint32_t threshold, float scale,
            cudaStream_t stream) {
-  const bool whole = w.seg_len == n && w.base == 0;
+  const long long segments = n / w.seg_len;
+  const long long outers = segments / w.seg_per_outer;
   // Whole groups sit at multiples of 4 elements of x when every segment
   // does.
   const bool vectors = ((uintptr_t)x % (4 * sizeof(T))) == 0 &&
                        ((uintptr_t)y % (4 * sizeof(T))) == 0 &&
-                       (whole || w.seg_len % 4 == 0);
-  const long long groups = (n / w.seg_len) * ((w.seg_len + 3) / 4);
-  long long blocks = (groups + 255) / 256;
-  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond this
-  if (whole)
-    dropout_kernel<T><<<(int)blocks, 256, 0, stream>>>(
-        (const T*)x, (T*)y, n, seed, threshold, scale, vectors);
-  else if (groups + 132 * 32 * 256 < (1LL << 32))
-    dropout_window_kernel<T, uint32_t><<<(int)blocks, 256, 0, stream>>>(
-        (const T*)x, (T*)y, n, w, seed, threshold, scale, vectors);
+                       (segments == 1 || w.seg_len % 4 == 0);
+  const bool aligned = w.base % 4 == 0 &&
+                       (segments == 1 || (w.row_stride % 4 == 0 &&
+                                          w.outer_stride % 4 == 0));
+  const long long per_seg = (w.seg_len + 3) / 4;
+  int tx = 32;
+  while (tx < 256 && tx < per_seg) tx *= 2;
+  const dim3 block(tx, 256 / tx);
+  long long gx = (per_seg + tx - 1) / tx;
+  long long gy = (w.seg_per_outer + block.y - 1) / block.y;
+  if (gx > 132 * 32) gx = 132 * 32;  // grid-stride beyond these
+  if (gy > 65535) gy = 65535;
+  const dim3 grid((unsigned)gx, (unsigned)gy,
+                  (unsigned)(outers < 65535 ? outers : 65535));
+  if (aligned)
+    dropout_kernel<T, true><<<grid, block, 0, stream>>>(
+        (const T*)x, (T*)y, outers, w, seed, threshold, scale, vectors);
   else
-    dropout_window_kernel<T, unsigned long long>
-        <<<(int)blocks, 256, 0, stream>>>((const T*)x, (T*)y, n, w, seed,
-                                          threshold, scale, vectors);
+    dropout_kernel<T, false><<<grid, block, 0, stream>>>(
+        (const T*)x, (T*)y, outers, w, seed, threshold, scale, vectors);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, y: n contiguous f32 (is_bf16 = 0) or bf16 elements; y may not alias x.
-// The window (see above): seg_len divides n, seg_per_outer >= 1; a whole
-// tensor is seg_len = n, seg_per_outer = 1, strides 0, base 0.
+// The window (see above): seg_len divides n, seg_per_outer divides the
+// segment count; a whole tensor is seg_len = n, seg_per_outer = 1, strides
+// 0, base 0.
 // threshold = uint32(rate * 2^32) and scale = 1 / (1 - rate) as the wrapper
 // computes them.
 TETHYS_EXPORT int tethys_dropout(const void* x, void* y, long long n,
@@ -178,7 +179,8 @@ TETHYS_EXPORT int tethys_dropout(const void* x, void* y, long long n,
                                  uint32_t threshold, float scale, int is_bf16,
                                  void* stream) {
   if (n <= 0 || seg_len <= 0 || n % seg_len || seg_per_outer <= 0 ||
-      outer_stride < 0 || row_stride < 0 || base < 0)
+      (n / seg_len) % seg_per_outer || outer_stride < 0 || row_stride < 0 ||
+      base < 0)
     return (int)cudaErrorInvalidValue;
   const Window w{seg_len, seg_per_outer, outer_stride, row_stride, base};
   cudaStream_t s = (cudaStream_t)stream;

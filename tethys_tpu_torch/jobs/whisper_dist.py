@@ -63,14 +63,17 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = parse(build_parser(), argv)
 
+    from tethys_tpu_torch.parallel import mesh
     from tethys_tpu_torch.train import jobs
     from tethys_tpu_torch.utils import artifacts
 
     start_distributed(args)
-    layout = jobs.whisper_layout(args.tp, args.sp)
     device = job_device(args)
+    # One replica a model or seq group (a world they do not divide is
+    # refused when the job lays it out).
+    replicas = mesh.world_size() // max(args.tp, args.sp)
     print(f"batch size per replica: {args.batch_size}, "
-          f"global batch size: {args.batch_size * layout.data}")
+          f"global batch size: {args.batch_size * replicas}")
     print(f"num_batches: {args.num_batches}")
     print("Whisper-small distributed training starting...")
     artifacts.start_side_captures()
@@ -92,7 +95,6 @@ def main(argv=None) -> None:
                               else None),
             tensor_parallel=args.tp,
             seq_parallel=args.sp,
-            layout=layout,
         )
     jct = time.time() - start
     jobs.finalize_job(result, f"whisper_{args.model_size}_model", jct)

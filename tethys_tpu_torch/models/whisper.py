@@ -449,6 +449,10 @@ class WhisperModel(nn.Module):
 
 class WhisperForConditionalGeneration(nn.Module):
     tp: Optional[sharding.Shard] = None
+    # The submodules that run on a rank's rows under sequence parallelism:
+    # their parameters' gradients are partial sums over the seq group
+    # (parallel/dp.py).
+    seq_sharded = ("model.encoder.layers",)
 
     def __init__(self, config: WhisperConfig):
         super().__init__()

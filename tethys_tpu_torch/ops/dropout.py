@@ -179,8 +179,10 @@ def dropout_cuda(x: torch.Tensor, rate: float, seed: int,
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
+    whole = segments == (x.numel(), 1, 0, 0, 0)
+    kernel = kernel_lib.DROPOUT if whole else kernel_lib.DROPOUT_WINDOW
     with torch.cuda.device(x.device):
-        kernel_lib.DROPOUT(
+        kernel(
             x.data_ptr(), y.data_ptr(), x.numel(), *segments, int(seed),
             dropout_threshold(rate), dropout_scale(rate),
             int(x.dtype == torch.bfloat16), kernel_lib.stream_handle(x))

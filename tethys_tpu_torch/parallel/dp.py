@@ -45,12 +45,12 @@
   ``replica_mean`` reduce over the data group only (JAX's partial-manual
   shard_map, "data" manual).  Under sequence parallelism the step runs
   inside ``ops.sharding.seq_axis_rules`` and first sums the partial
-  gradients (``seq_partial`` names them, parallel/sp.py) over the seq
-  group, then broadcasts the others from the group's first rank: each
-  rank computed them whole, but the flash backward's dq atomics do not
-  give every rank the same bits, and the replicas' copies of the
-  parameters must stay equal.  Without a layout: one replica a rank
-  (``make_data_mesh``).
+  gradients over the seq group (those of the submodules the model names
+  in its ``seq_sharded``, which run on a rank's rows), then broadcasts
+  the others from the group's first rank: each rank computed them whole,
+  but the flash backward's dq atomics do not give every rank the same
+  bits, and the replicas' copies of the parameters must stay equal.
+  Without a layout: one replica a rank (``make_data_mesh``).
 """
 
 from __future__ import annotations
@@ -311,12 +311,22 @@ def accumulate(model: torch.nn.Module, batch, generator: torch.Generator,
     return torch.stack(losses).sum() / n, aux
 
 
+def seq_sharded_prefixes(model: torch.nn.Module) -> tuple:
+    """The name prefixes of the parameters whose gradients are partial
+    sums over a seq group: those of the submodules the model declares in
+    its ``seq_sharded``.  Raises for a model that declares none."""
+    names = getattr(model, "seq_sharded", ())
+    if not names:
+        raise ValueError(f"{type(model).__name__} declares no seq_sharded "
+                         "submodules: it has no sequence parallelism")
+    return tuple(f"{name}." for name in names)
+
+
 def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                     hardened: bool = False, return_aux: bool = False,
                     grad_aux_fn: Optional[Callable] = None,
                     remat: bool = False, grad_accum: int = 1,
-                    layout: Optional[mesh.Layout] = None,
-                    seq_partial: Optional[Callable[[str], bool]] = None):
+                    layout: Optional[mesh.Layout] = None):
     """step(state, batch, generator) -> (state, loss) on one replica.
 
     loss_fn(model, batch, generator) -> (scalar loss, aux).  The model and
@@ -344,9 +354,9 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
     on the accumulated gradients, before the all-reduce.  N = 1 is the
     unaccumulated step, with the same draws.
 
-    ``layout`` and ``seq_partial``: the module doc.  ``step.collective_bytes``
-    holds the bytes the last step handed to each kind of collective (the
-    gradient reduces and, under a layout, the model's own)."""
+    ``layout``: the module doc.  ``step.collective_bytes`` holds the bytes
+    the last step handed to each kind of collective (the gradient reduces
+    and, under a layout, the model's own)."""
     layout = layout or mesh.make_data_mesh()
     n_replicas = layout.data
     if hardened and layout.inner > 1:
@@ -356,8 +366,6 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
             "queue 1 item 7.1: Wav2Vec2 --tp/--sp)")
     seq = None
     if layout.axis == "seq" and layout.inner > 1:
-        if seq_partial is None:
-            raise ValueError("a seq layout needs seq_partial (parallel/sp)")
         seq = sharding.Shard(layout.inner_group, layout.inner,
                              layout.inner_rank)
     reducer = (None if layout.data_group is None
@@ -395,12 +403,14 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
             else:
                 loss, aux = value_and_grad(state.model, batch, generator)
         if seq_reducer is not None:
+            partial = seq_sharded_prefixes(state.model)
             named = [(n, p.grad) for n, p in state.model.named_parameters()
                      if p.grad is not None]
-            # The encoder layers' partial sums; every other gradient as
-            # the group's first rank computed it.
-            seq_reducer([g for n, g in named if seq_partial(n)], None)
-            seq_broadcast([g for n, g in named if not seq_partial(n)], None)
+            # The row-sharded submodules' partial sums; every other
+            # gradient as the group's first rank computed it.
+            seq_reducer([g for n, g in named if n.startswith(partial)], None)
+            seq_broadcast([g for n, g in named if not n.startswith(partial)],
+                          None)
         grads = [p.grad for p in state.model.parameters()
                  if p.grad is not None]
         if hardened:

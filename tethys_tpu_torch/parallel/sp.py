@@ -9,8 +9,9 @@ installs): the stem runs whole on every rank, the layers on the rank's
 rows (attention against K and V gathered over the group), and the rows are
 gathered before the final LayerNorm, the decoder and the loss.
 
-So a parameter of an encoder layer has a partial gradient on each rank
-(its rows' share), summed over the seq group once; every other parameter
+So a parameter of an encoder layer (the model's ``seq_sharded``
+submodules) has a partial gradient on each rank (its rows' share), summed
+over the seq group once (parallel/dp.py); every other parameter
 (the stem, the final LayerNorm, the decoder) has the whole gradient on
 every rank and is not summed over the seq group: it is broadcast from the
 group's first rank, since the flash backward's atomics leave the ranks'
@@ -24,16 +25,7 @@ from __future__ import annotations
 from tethys_tpu_torch.parallel import dp
 from tethys_tpu_torch.parallel.mesh import Layout, make_seq_mesh
 
-__all__ = ["make_seq_mesh", "partial_param", "init_sp_state",
-           "make_sp_train_step"]
-
-_PARTIAL_PREFIXES = ("model.encoder.layers.",)
-
-
-def partial_param(name: str) -> bool:
-    """Whether a parameter's gradient is a partial sum on each seq rank:
-    the Whisper encoder layers', which see only the rank's rows."""
-    return name.startswith(_PARTIAL_PREFIXES)
+__all__ = ["make_seq_mesh", "init_sp_state", "make_sp_train_step"]
 
 
 def init_sp_state(model, optimizer, layout: Layout) -> dp.TrainState:
@@ -49,4 +41,4 @@ def make_sp_train_step(loss_fn, optimizer, layout: Layout,
     return dp.make_train_step(loss_fn, optimizer, hardened=hardened,
                               return_aux=return_aux, grad_aux_fn=grad_aux_fn,
                               remat=remat, grad_accum=grad_accum,
-                              layout=layout, seq_partial=partial_param)
+                              layout=layout)

@@ -73,7 +73,7 @@ from tethys_tpu_torch.models.whisper import (
     WhisperForConditionalGeneration,
     create_whisper_model,
 )
-from tethys_tpu_torch.parallel import dp, mesh, sp, tp
+from tethys_tpu_torch.parallel import dp, mesh, tp
 from tethys_tpu_torch.profiling import tensorsize
 from tethys_tpu_torch.profiling.comm import write_collective_report
 from tethys_tpu_torch.train.loop import TrainLoopResult, run_training
@@ -121,13 +121,12 @@ def make_whisper_job(
     master_dtype: str = "float32",
     tensor_parallel: int = 1,
     seq_parallel: int = 1,
-    layout: Optional[mesh.Layout] = None,
 ) -> TrainJob:
     """The model with ``master_dtype`` master weights (in train mode), the
     plain step with ``whisper_optimizer``, ``remat`` and ``grad_accum``,
-    the synthetic dataset; over ``layout``, by default
-    ``whisper_layout(tensor_parallel, seq_parallel)``."""
-    layout = layout or whisper_layout(tensor_parallel, seq_parallel)
+    the synthetic dataset; over ``whisper_layout(tensor_parallel,
+    seq_parallel)``."""
+    layout = whisper_layout(tensor_parallel, seq_parallel)
     device = require_cuda() if device is None else torch.device(device)
     sharded = layout.axis == "model" and layout.inner > 1
     # create_whisper_model draws the weights in f32 and casts them once;
@@ -154,8 +153,7 @@ def make_whisper_job(
 
     return TrainJob(
         dp.make_train_step(loss_fn, optimizer, hardened=False, remat=remat,
-                           grad_accum=grad_accum, layout=layout,
-                           seq_partial=sp.partial_param),
+                           grad_accum=grad_accum, layout=layout),
         dp.TrainState(model, optimizer, layout),
         data_lib.create_whisper_dummy_dataset(
             batch_size_per_replica, n_mels=config.n_mels, seq_len=data_seq_len),
@@ -263,7 +261,6 @@ def train_whisper(
     master_dtype: str = "float32",
     tensor_parallel: int = 1,
     seq_parallel: int = 1,
-    layout: Optional[mesh.Layout] = None,
 ):
     """End-to-end Whisper training (reference train_whisper,
     speech_jobs/whisper_dist.py:894-958).  With ``profiler``, the
@@ -275,8 +272,7 @@ def train_whisper(
         model_type, batch_size_per_replica, learning_rate, compute_dtype,
         seed, data_seq_len, config_overrides, device, remat=remat,
         grad_accum=grad_accum, master_dtype=master_dtype,
-        tensor_parallel=tensor_parallel, seq_parallel=seq_parallel,
-        layout=layout)
+        tensor_parallel=tensor_parallel, seq_parallel=seq_parallel)
     if profiler is not None:
         profiler.log_model_parameters(job.state.model)
         step_hooks = tuple(step_hooks) + (_profiler_hooks(

@@ -107,6 +107,11 @@ DROPOUT = Kernel(
     (_P, _P, _L, _L, _L, _L, _L, _L, _U, _U, _F, _I, _P),
     "tethys_tpu_torch/csrc/dropout.cu",
     "tethys_tpu/ops/pallas_dropout.py:29")
+# The same kernel on a shard (a window other than the whole tensor),
+# counted apart so a run shows that its sharded paths took their windows.
+DROPOUT_WINDOW = Kernel(
+    "dropout_window", "tethys_dropout", DROPOUT.argtypes, DROPOUT.source,
+    DROPOUT.replaces)
 DECODE_SELF = Kernel(
     "decode_self", "tethys_decode_self",
     (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -164,8 +169,9 @@ _QUERIES = {
 }
 
 KERNELS = (LOG_MEL, SPLIT_HEADS, MERGE_HEADS, FLASH_FWD, FLASH_FWD_DROPOUT,
-           FLASH_BWD, DROPOUT, DECODE_SELF, GN_STATS, GN_GRAD_SUMS, GN_APPLY,
-           GN_APPLY_BWD, Q8_CROSS, PROJ_SPLIT, MERGE_PROJ)
+           FLASH_BWD, DROPOUT, DROPOUT_WINDOW, DECODE_SELF, GN_STATS,
+           GN_GRAD_SUMS, GN_APPLY, GN_APPLY_BWD, Q8_CROSS, PROJ_SPLIT,
+           MERGE_PROJ)
 
 
 def launch_counts() -> dict:
