@@ -67,8 +67,9 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    training: phases 6-7, wav2vec2: phases 8-9, long audio: phases 11-13,
    flash bench: phase 14, frontend: phase 15, training bench: phase 16,
    resume: phase 17, data parallel: phase 18, tensorsize: phase 19,
-   capacity: phase 20, parallel: phase 21 (a, b, c, e), with the launches
-   of the processes they start)
+   capacity: phase 20, parallel: phase 21 (a, b, c, e), Wav2Vec2
+   parallel: phase 22 (a, b, c), with the launches of the processes they
+   start)
    and read after it; every kernel of a path must have launched during it,
    and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
    as often as gn_grad_sums;
@@ -165,7 +166,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    take CUDA tensors, and the process's are logged by (backend, device,
    op)): (a) python -m tethys_tpu_torch.jobs.whisper_dist --model_size
    large-v3 --tp 2 --remat_layers --batch_size 1 --num_batches 4 --dtype
-   bfloat16 --backend gloo from torchrun's env: both ranks exit 0 with one
+   bfloat16 --backend gloo from torchrun's env, large-v3 cut to 16 + 16
+   of its 32 + 32 layers at its full width (PAR_V3_DEPTH): both ranks exit 0 with one
    finite loss a step, launch flash_fwd_dropout, flash_bwd, split_heads,
    merge_heads and dropout, and hold at most 0.55 of the unsharded f32
    parameters and Adam moments (peak memory logged); rank 0's whole
@@ -183,7 +185,28 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    version and the slice of the whole tensor's launch bit for bit, its
    time beside the whole's (outside the path's counts); (e) greedy decoding of whisper-base f32 over (data 1,
    model 2), kv_quant none and int8, emits one process's tokens and
-   length, decode_self and q8_cross launched on 4 of 8 heads.
+   length, decode_self and q8_cross launched on 4 of 8 heads;
+22. Wav2Vec2's tensor and sequence parallelism, each world 2 gloo ranks
+   sharing the card, as in 21: (a) python -m tethys_tpu_torch.jobs.
+   wav2vec2_dist --model_size base --tp 2 --batch_size 8 --num_batches 4
+   --dtype bfloat16 --backend gloo from torchrun's env: both ranks exit 0
+   with the same finite losses, launch gn_stats, gn_grad_sums, gn_apply,
+   gn_apply_bwd (on their channel shards) and dropout_window, hold at most
+   0.55 of the unsharded f32 parameters and Adam moments, and end with
+   every replicated parameter bitwise equal (a digest of its bytes);
+   ms/step and peak memory are logged (gloo over one card says nothing of
+   NVLink); rank 0's whole checkpoint restores with --resume into a --tp 1
+   run; (b) the same CLI with --sp 2 (every parameter replicated and
+   bitwise equal, the encoder's rows windows launching dropout_window);
+   (c) wav2vec2-base f32 b2, 2 hardened steps over (data 1, model 2) and
+   (data 1, seq 2), at rate 0 and at the config's dropout, against one
+   process within phase 8's tolerances (a quantizer flip only at a tie);
+   (d) outside the path's counts: gn_stats, gn_apply, gn_grad_sums and
+   gn_apply_bwd on the channel shard [32, 6400, 256], 8 groups, bf16,
+   against their plain versions, timed beside F.group_norm; dropout.cu on
+   the [8, 12, 99, 99] probabilities' head window (6 of 12) and query-row
+   window (49 of 99), each equal to its plain version and to the slice of
+   the whole launch, timed beside F.dropout.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -261,6 +284,8 @@ PATH_KERNELS = {
     "parallel": ("split_heads", "merge_heads", "flash_fwd",
                  "flash_fwd_dropout", "flash_bwd", "dropout",
                  "dropout_window", "decode_self", "q8_cross"),
+    "w2v_parallel": ("gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd",
+                     "dropout", "dropout_window"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -3122,6 +3147,10 @@ def run_convergence() -> None:
 # the collectives' speed.
 PAR_RANKS = 2
 PAR_V3_STEPS = 4
+# 21(a)'s depth: 16 + 16 of large-v3's 32 + 32 layers at its full width,
+# which keeps the whole script well inside its time limit (the model's
+# making, its checkpoint and the resume scale with the depth).
+PAR_V3_DEPTH = 16
 PAR_SP_STEPS = 4
 PAR_STEPS = 2
 PAR_BATCH = 2           # rows a replica in (b), (c) and (e)
@@ -3138,19 +3167,28 @@ PAR_DECODES = (("none", False), ("int8", False), ("int8", True))
 PAR_TP_DROPOUT = {"attention_dropout": 0.0, "activation_dropout": DROPOUT_RATE}
 PAR_ADAM_SHARE = 0.55   # one rank's params + Adam over the unsharded total
 # Runs ``python -m <module> <flags>`` (the module is the first argument),
-# then prints the process's launch counts, the collectives it made by
-# (backend, device, op), and, from the job's final state, its peak memory
-# and the bytes of its parameters and Adam's moments, with the seconds it
-# took to make the job, save and restore checkpoints, reach the final
-# save and end; a run past 600 s prints every thread's stack and exits.
+# Whisper cut to $CHIP_SMOKE_DEPTH encoder and decoder layers where it is
+# set, then prints the process's launch counts, the collectives it made by
+# (backend, device, op), and, from the job's final state, its peak memory,
+# the bytes of its parameters and Adam's moments and a digest of each of
+# its replicated parameters' bytes, with the seconds it took to make the
+# job, save and restore checkpoints, reach the final save and end; a run
+# past 600 s prints every thread's stack and exits.
 PAR_CLI = (
-    "import faulthandler, json, runpy, sys, time, torch\n"
+    "import faulthandler, hashlib, json, os, runpy, sys, time, torch\n"
     "t0 = time.perf_counter()\n"
     "faulthandler.dump_traceback_later(600, exit=True)\n"
     "from tethys_tpu_torch.ops import sharding\n"
     "from tethys_tpu_torch.train import jobs\n"
     "from tethys_tpu_torch.utils import kernel_lib\n"
     "from tethys_tpu_torch import checkpoint\n"
+    "from tethys_tpu_torch.configs import WhisperConfig\n"
+    "depth = int(os.environ.get('CHIP_SMOKE_DEPTH', '0'))\n"
+    "if depth:\n"
+    "    sized = WhisperConfig.from_size\n"
+    "    WhisperConfig.from_size = lambda model_type='small', **kw: sized(\n"
+    "        model_type, **{'encoder_layers': depth, 'decoder_layers': depth,\n"
+    "                       **kw})\n"
     "seen, real = {}, jobs.finalize_job\n"
     "def timed(name, fn):\n"
     "    def run(*args, **kwargs):\n"
@@ -3163,6 +3201,7 @@ PAR_CLI = (
     "cm.save = timed('s_checkpoint_save', cm.save)\n"
     "cm.restore_like = timed('s_checkpoint_restore', cm.restore_like)\n"
     "jobs.make_whisper_job = timed('s_make_job', jobs.make_whisper_job)\n"
+    "jobs.make_wav2vec2_job = timed('s_make_job', jobs.make_wav2vec2_job)\n"
     "def finalize(result, *args, **kwargs):\n"
     "    st = result.state\n"
     "    seen['param_bytes'] = sum(p.numel() * p.element_size()\n"
@@ -3172,6 +3211,10 @@ PAR_CLI = (
     "                             for t in s.values()\n"
     "                             if torch.is_tensor(t) and t.dim())\n"
     "    seen['peak_bytes'] = torch.cuda.max_memory_allocated()\n"
+    "    sharded = getattr(st.model, '_tp_full_sizes', {})\n"
+    "    seen['replicated'] = {n: hashlib.sha256(p.detach().cpu().contiguous()\n"
+    "        .view(torch.uint8).numpy().tobytes()).hexdigest()\n"
+    "        for n, p in st.model.named_parameters() if n not in sharded}\n"
     "    seen['s_to_finalize'] = time.perf_counter() - t0\n"
     "    real(result, *args, **kwargs)\n"
     "    seen['s_to_end'] = time.perf_counter() - t0\n"
@@ -3201,26 +3244,29 @@ def wait_all(procs, timeout: int) -> list:
     return outs
 
 
-def par_cli(ws: str, ranks: int, *flags: str) -> list:
-    """whisper_dist with ``flags`` in ``ranks`` processes of their own on
-    the card (torchrun's env, every rank on cuda:0; ``ranks`` 1: no env, no
-    group), in the workspace ``ws``: per rank its lines, step losses,
-    launch counts, transports and memory."""
+def par_cli(ws: str, ranks: int, *flags: str, module: str = PAR_WHISPER,
+            depth: int = 0) -> list:
+    """``module`` (whisper_dist by default) with ``flags`` in ``ranks``
+    processes of their own on the card (torchrun's env, every rank on
+    cuda:0; ``ranks`` 1: no env, no group), in the workspace ``ws``,
+    Whisper cut to ``depth`` encoder and decoder layers (0: its own): per
+    rank its lines, step losses, launch counts, transports and memory."""
     with open(os.path.join(ws, "model.txt"), "w") as fh:
         fh.write("chip_smoke")
     os.makedirs(os.path.join(ws, "chip_smoke"), exist_ok=True)
     port = free_port()
-    log(f"  {time.strftime('%H:%M:%S')} {ranks} x python -m {PAR_WHISPER} "
+    log(f"  {time.strftime('%H:%M:%S')} {ranks} x python -m {module} "
         + " ".join(flags))
     procs = []
     for r in range(ranks):
         env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
-        env.update(TETHYS_WORKSPACE=ws, TETHYS_RESULT=ws, PYTHONPATH=ROOT)
+        env.update(TETHYS_WORKSPACE=ws, TETHYS_RESULT=ws, PYTHONPATH=ROOT,
+                   CHIP_SMOKE_DEPTH=str(depth))
         if ranks > 1:
             env.update(WORLD_SIZE=str(ranks), RANK=str(r), LOCAL_RANK="0",
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", PAR_CLI, PAR_WHISPER, *flags], cwd=ROOT,
+            [sys.executable, "-c", PAR_CLI, module, *flags], cwd=ROOT,
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     outs = wait_all(procs, 900)
@@ -3247,27 +3293,28 @@ def par_cli(ws: str, ranks: int, *flags: str) -> list:
     return runs
 
 
-def whisper_numel(model_type: str) -> int:
+def whisper_numel(model_type: str, **overrides) -> int:
     """The parameters of a whole Whisper of ``model_type`` (no memory)."""
     from tethys_tpu_torch.configs import WhisperConfig
     from tethys_tpu_torch.models.whisper import WhisperForConditionalGeneration
 
     with torch.device("meta"):
         model = WhisperForConditionalGeneration(
-            WhisperConfig.from_size(model_type))
+            WhisperConfig.from_size(model_type, **overrides))
     return sum(p.numel() for p in model.parameters())
 
 
 def run_tp_large_v3(gpu: str, child: dict) -> None:
     """Phase 21(a): whisper_dist --model_size large-v3 --tp 2
     --remat_layers --batch_size 1 --num_batches 4 --dtype bfloat16 in a
-    world of 2 gloo ranks on the card: both exit 0 with one finite loss a
-    step, launch the training kernels and keep at most PAR_ADAM_SHARE of
-    the unsharded f32 parameters and Adam moments; rank 0's checkpoint
-    then restores with --resume into a --tp 1 run."""
+    world of 2 gloo ranks on the card, at PAR_V3_DEPTH layers: both exit 0
+    with one finite loss a step, launch the training kernels and keep at
+    most PAR_ADAM_SHARE of the unsharded f32 parameters and Adam moments;
+    rank 0's checkpoint then restores with --resume into a --tp 1 run."""
     import shutil
 
-    whole = whisper_numel("large-v3") * 4 * 3      # f32 params, m and v
+    whole = whisper_numel("large-v3", encoder_layers=PAR_V3_DEPTH,
+                          decoder_layers=PAR_V3_DEPTH) * 4 * 3  # params, m, v
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
         log(f"  workspace {ws}: {shutil.disk_usage(ws).free / 2 ** 30:.1f} "
             "GiB free")
@@ -3275,7 +3322,8 @@ def run_tp_large_v3(gpu: str, child: dict) -> None:
                  "1", "--dtype", "bfloat16")
         t0 = time.perf_counter()
         runs = par_cli(ws, PAR_RANKS, *flags, "--tp", "2", "--num_batches",
-                       str(PAR_V3_STEPS), "--backend", "gloo")
+                       str(PAR_V3_STEPS), "--backend", "gloo",
+                       depth=PAR_V3_DEPTH)
         seconds = time.perf_counter() - t0
         for r, run in enumerate(runs):
             add_counts(child, run["counts"])
@@ -3315,7 +3363,7 @@ def run_tp_large_v3(gpu: str, child: dict) -> None:
             "and final weights gathered and written by rank 0)")
         t0 = time.perf_counter()
         (resumed,) = par_cli(ws, 1, *flags, "--num_batches", "1",
-                             "--resume")
+                             "--resume", depth=PAR_V3_DEPTH)
         add_counts(child, resumed["counts"])
         require("Resumed from checkpoint whisper_large-v3_epoch_1"
                 in resumed["out"], "the --tp 1 run did not resume rank 0's "
@@ -3331,11 +3379,13 @@ def run_tp_large_v3(gpu: str, child: dict) -> None:
 
 
 def par_rank(mode: str, rank: str, port: str, out_dir: str) -> int:
-    """A rank of phase 21(b, e) or (c) (``chip_smoke.py --par_rank MODE R
-    PORT DIR``): "tp" whisper-base f32 over (data 1, model 2): 2 Keras-Adam
-    steps, rates 0, then greedy decoding (kv_quant none and int8); "sp"
-    whisper-small f32 over (data 1, seq 2), the config's dropout and
-    activation_dropout, attention's 0."""
+    """A rank of phase 21(b, e), (c) or 22(c) (``chip_smoke.py --par_rank
+    MODE R PORT DIR``): "tp" whisper-base f32 over (data 1, model 2): 2
+    Keras-Adam steps, rates 0, then greedy decoding (kv_quant none and
+    int8); "sp" whisper-small f32 over (data 1, seq 2), the config's
+    dropout and activation_dropout, attention's 0; "w2v_tp" and "w2v_sp"
+    wav2vec2-base f32 over (data 1, model 2) and (data 1, seq 2): 2
+    hardened steps at rate 0, then at the config's dropout."""
     sys.path.insert(0, ROOT)
     from tethys_tpu_torch.ops import flash_attention
     from tethys_tpu_torch.ops import sharding
@@ -3368,11 +3418,18 @@ def par_rank(mode: str, rank: str, port: str, out_dir: str) -> int:
                     kernel_lib.DROPOUT_WINDOW.launches - window)
                 out["decode"] = {v: par_decode(dev, *v, layout)
                                  for v in PAR_DECODES}
-            else:
+            elif mode == "sp":
                 layout = mesh.make_seq_mesh(seq_parallel=PAR_RANKS)
                 with deterministic_cudnn():
                     out = par_steps(dev, "small", layout,
                                     {"attention_dropout": 0.0})
+            else:   # 22(c): Wav2Vec2 over (data 1, model 2) or (data 1, seq 2)
+                layout = (mesh.make_2d_mesh(model_parallel=PAR_RANKS)
+                          if mode == "w2v_tp" else
+                          mesh.make_seq_mesh(seq_parallel=PAR_RANKS))
+                with deterministic_cudnn():
+                    out = w2v_par_steps(dev, layout, W2V_NO_DROPOUT)
+                    out["dropout"] = w2v_par_steps(dev, layout, {})
         finally:
             mesh.shutdown_distributed()
     out.update(launches=kernel_lib.launch_counts(), flash_shapes=shapes,
@@ -3478,7 +3535,8 @@ def par_world(mode: str) -> dict:
     return out
 
 
-def check_par_steps(name: str, got: dict, want: dict) -> None:
+def check_par_steps(name: str, got: dict, want: dict,
+                    lr: float = PAR_LR) -> None:
     """Phase 6's tolerances: losses 1e-4 relative, each gradient within
     1e-3 of the reference's norm + 1e-6, parameters within 2 * lr *
     steps (Keras Adam moves a weight by about lr * sign(g) a step)."""
@@ -3504,7 +3562,7 @@ def check_par_steps(name: str, got: dict, want: dict) -> None:
           abs(norms[0] - norms[1]) / norms[1], 1e-3)
     check(f"{name} parameters after the last step",
           max(max_err(got["params"][n], p)
-              for n, p in want["params"].items()), 2 * PAR_LR * PAR_STEPS)
+              for n, p in want["params"].items()), 2 * lr * PAR_STEPS)
 
 
 def run_tp_equality(child: dict) -> None:
@@ -3637,6 +3695,290 @@ def run_dropout_window(gpu: str, results: dict) -> None:
                 "bound_by": bound_ms[1], "library_ms": library}
 
 
+# Phase 22: Wav2Vec2's tensor and sequence parallelism, 2 gloo ranks
+# sharing the card, as phase 21 runs Whisper's.
+W2V_DIST = "tethys_tpu_torch.jobs.wav2vec2_dist"
+W2V_PAR_BATCH = 8        # rows a replica in 22(a, b): gloo copies each
+W2V_PAR_STEPS = 4        # conv's gathered channels through the host
+W2V_NO_DROPOUT = dict(hidden_dropout=0.0, activation_dropout=0.0,
+                      attention_dropout=0.0)
+# The kernels each rank of 22(a) and (b) must launch: GroupNorm's four on
+# the channel shards (TP) or the whole channels (SP), and dropout on the
+# shards' windows (TP: heads and the FFN's columns; SP: rows).
+W2V_PAR_KERNELS = ("gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd",
+                   "dropout", "dropout_window")
+# 22(d): conv_0's output at b32 on 2 s clips over 2 ranks, [32, 6400, 256]
+# in 8 of the 16 groups, and the attention probabilities of 22(a)'s b8:
+# [8, 12, 99, 99], 6 heads a rank under TP, 50 or 49 query rows under SP.
+GN_SHARD = (32, 6400, 256, 8)
+PROBS = (W2V_PAR_BATCH, 12, 99, 99)
+
+
+def w2v_par_steps(device, layout, overrides: dict) -> dict:
+    """W2V_F32_STEPS hardened wav2vec2_optimizer steps of wav2vec2-base in
+    f32 from SEED on W2V_F32_BATCH 2 s clips with fixed negatives, over
+    ``layout`` (None: one process, no group) with ``overrides`` of the
+    config's dropout rates: the losses, the whole gradients of the first
+    step (what Adam takes, after both clips' inputs: the summed, clipped
+    gradients), the whole parameters after the last, and the quantizer's
+    first indices and distances, on the host."""
+    from tethys_tpu_torch import data, losses
+    from tethys_tpu_torch.models import wav2vec2
+    from tethys_tpu_torch.parallel import dp, tp
+
+    sharded = layout is not None and layout.axis == "model"
+    model, config = wav2vec2.create_full_model(
+        "pretraining", W2V_MODEL, device="cpu" if sharded else device,
+        seed=SEED, **overrides)
+    if sharded:
+        tp.shard_model(model, layout)
+    model.to(device).train()
+    opt = dp.wav2vec2_optimizer(model.parameters(), W2V_LR)
+    codes = []
+
+    def loss_fn(mod, batch, generator):
+        audio, negatives = batch
+        out = mod(audio, generator=generator)
+        if not codes:
+            codes.append((out["codevector_indices"].cpu(),
+                          out["codevector_distances"].float().cpu()))
+        return wav2vec2.pretraining_loss(config, out,
+                                         negative_indices=negatives)
+
+    step = dp.make_train_step(loss_fn, opt, hardened=True, layout=layout)
+    grads, adam_step = [], opt.step
+
+    def whole(tensors):
+        host = {n: t.detach() for n, t in tensors.items()}
+        if sharded:
+            host = tp.gather_named(host, model, layout)
+        return {n: t.float().cpu() for n, t in host.items()}
+
+    def record():
+        if not grads:
+            grads.append(whole({n: p.grad for n, p in model.named_parameters()
+                                if p.grad is not None}))
+        adam_step()
+
+    opt.step = record
+    clips = iter(data.create_wav2vec2_dummy_dataset(W2V_F32_BATCH,
+                                                    W2V_SAMPLES))
+    frames = config.downsampled_length(W2V_SAMPLES)
+    state, losses_seen = dp.TrainState(model, opt, layout), []
+    for i in range(W2V_F32_STEPS):
+        audio = torch.from_numpy(next(clips)[0]).to(device)
+        negatives = losses.sample_negative_indices(
+            torch.Generator().manual_seed(200 + i), W2V_F32_BATCH, frames,
+            config.num_negatives)
+        state, loss = step(state, (audio, negatives),
+                           dp.step_generator(SEED, i))
+        losses_seen.append(loss.item())
+    return {"losses": losses_seen, "grads": grads[0],
+            "params": whole(dict(model.named_parameters())),
+            "indices": codes[0][0], "distances": codes[0][1]}
+
+
+def argmin_flips(name: str, got, want, distances) -> int:
+    """Phase 8's rule: the quantizer's indices of a run against the
+    reference's, a flip only at a tie of the reference's distances (1e-5
+    relative); returns the flips."""
+    diff = got != want
+    if diff.any():
+        d = distances.gather(-1, got[..., None])[..., 0][diff]
+        d_min = distances.gather(-1, want[..., None])[..., 0][diff]
+        gap = ((d - d_min).abs() / d_min.abs().clamp_min(1e-6)).max()
+        require(gap.item() <= 1e-5, f"{name}: argmin differs off a tie: {gap}")
+    return int(diff.sum())
+
+
+def run_w2v_par_cli(gpu: str, child: dict, flag: str) -> None:
+    """Phase 22(a) (``flag`` "--tp") and (b) ("--sp"): wav2vec2_dist
+    --model_size base <flag> 2 --batch_size 8 --num_batches 4 --dtype
+    bfloat16 --backend gloo from torchrun's env, two ranks on the card:
+    both exit 0 with the same finite losses, launch W2V_PAR_KERNELS and
+    end with their replicated parameters bitwise equal; under TP each
+    holds at most PAR_ADAM_SHARE of the unsharded f32 parameters and Adam
+    moments, and rank 0's whole checkpoint then restores with --resume into
+    a --tp 1 run."""
+    from tethys_tpu_torch.configs import Wav2Vec2Config
+    from tethys_tpu_torch.models.wav2vec2 import Wav2Vec2ForPreTraining
+
+    tag = {"--tp": "22(a)", "--sp": "22(b)"}[flag]
+    with torch.device("meta"):
+        numel = sum(p.numel() for p in Wav2Vec2ForPreTraining(
+            Wav2Vec2Config.from_size(W2V_MODEL)).parameters())
+    whole = numel * 4 * 3                              # f32 params, m and v
+    flags = ("--model_size", W2V_MODEL, "--batch_size", str(W2V_PAR_BATCH),
+             "--dtype", "bfloat16")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        t0 = time.perf_counter()
+        runs = par_cli(ws, PAR_RANKS, *flags, flag, str(PAR_RANKS),
+                       "--num_batches", str(W2V_PAR_STEPS), "--backend",
+                       "gloo", module=W2V_DIST)
+        seconds = time.perf_counter() - t0
+        for r, run in enumerate(runs):
+            add_counts(child, run["counts"])
+            mem = run["memory"]
+            share = (mem["param_bytes"] + mem["adam_bytes"]) / whole
+            ms = ((run["steps"][-2][2] - run["steps"][0][2])
+                  / (W2V_PAR_STEPS - 2) * 1e3)
+            log(f"  {tag} rank {r}: losses {run['losses']}, {ms:.2f} ms/step "
+                f"over steps 1-{W2V_PAR_STEPS - 2} (two gloo ranks sharing "
+                f"one card: not NVLink's speed), peak "
+                f"{mem['peak_bytes'] / 2 ** 30:.3f} GiB, params + Adam "
+                f"{(mem['param_bytes'] + mem['adam_bytes']) / 2 ** 30:.3f} "
+                f"GiB = {share:.4f} of the unsharded {whole / 2 ** 30:.3f} "
+                f"GiB; seconds "
+                f"{ {k: round(v, 1) for k, v in mem.items() if k.startswith('s_')} }; "
+                f"launches {run['counts']}; collectives {run['transports']} "
+                f"({gpu})")
+            require([i for i, _, _ in run["steps"]]
+                    == list(range(W2V_PAR_STEPS))
+                    and all(np.isfinite(run["losses"])),
+                    f"{tag} rank {r}'s step lines {run['steps']}")
+            require(f"process group: gloo, rank {r} of {PAR_RANKS}"
+                    in run["out"], f"{tag} rank {r} joined no gloo group")
+            missing = [k for k in W2V_PAR_KERNELS if not run["counts"][k]]
+            require(not missing, f"{tag} rank {r} launched no {missing}")
+            if flag == "--tp":
+                require(share <= PAR_ADAM_SHARE, f"{tag} rank {r} holds "
+                        f"{share:.4f} of the unsharded params and Adam moments")
+        require(runs[0]["losses"] == runs[1]["losses"],
+                f"{tag}: the two ranks logged other losses")
+        digests = [run["memory"]["replicated"] for run in runs]
+        differ = [n for n, d in digests[0].items() if digests[1][n] != d]
+        require(not differ, f"{tag}: replicated parameters differ across "
+                f"the ranks: {differ[:5]}")
+        log(f"  {tag} {len(digests[0])} replicated parameters bitwise equal "
+            f"on both ranks; the world took {seconds:.1f} s")
+        if flag != "--tp":
+            return
+        t0 = time.perf_counter()
+        (resumed,) = par_cli(ws, 1, *flags, "--num_batches", "1", "--resume",
+                             module=W2V_DIST)
+        add_counts(child, resumed["counts"])
+        require("Resumed from checkpoint model_epoch_1" in resumed["out"],
+                f"{tag}: the --tp 1 run did not resume rank 0's checkpoint")
+        require(len(resumed["losses"]) == 1
+                and np.isfinite(resumed["losses"]).all(),
+                f"{tag}: resumed losses {resumed['losses']}")
+        log(f"  {tag} --resume into --tp 1: loss {resumed['losses']}, peak "
+            f"{resumed['memory']['peak_bytes'] / 2 ** 30:.3f} GiB, "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def run_w2v_par_equality(child: dict) -> None:
+    """Phase 22(c): wav2vec2-base f32 b2, 2 hardened steps over (data 1,
+    model 2) and (data 1, seq 2), two gloo ranks on the card (cuDNN
+    deterministic), at rate 0 and at the config's dropout, against one
+    process within phase 8's tolerances; the quantizer's indices flip only
+    at ties (and a flip leaves the run's losses unheld, as in phase 8)."""
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    with deterministic_cudnn():
+        want = {"rates 0": w2v_par_steps(dev, None, W2V_NO_DROPOUT),
+                "dropout on": w2v_par_steps(dev, None, {})}
+    for mode, name in (("w2v_tp", "TP (data 1, model 2)"),
+                       ("w2v_sp", "SP (data 1, seq 2)")):
+        got = par_world(mode)
+        add_counts(child, got["launches"])
+        require(got["launches"]["dropout_window"] > 0, f"22(c) {name}: no "
+                f"dropout on a shard: {got['launches']}")
+        for rates, run in (("rates 0", got), ("dropout on", got["dropout"])):
+            label = f"22(c) {name} wav2vec2-base f32, {rates}"
+            flips = argmin_flips(label, run["indices"], want[rates]["indices"],
+                                 want[rates]["distances"])
+            log(f"  {label}: {flips} quantizer indices flip at ties")
+            if flips:
+                log(f"  {label}: not held (a flip at a tie changes the "
+                    "targets by design)")
+                continue
+            check_par_steps(label, run, want[rates], lr=W2V_LR)
+        log(f"  22(c) {name}: rank 0's collectives {got['transports']}")
+
+
+def run_w2v_shard_kernels(gpu: str) -> None:
+    """Phase 22(d), outside the path's counts: the GroupNorm kernels on the
+    channel shard GN_SHARD in bf16 against their plain versions (phase 3's
+    tolerances), with their times and bounds beside F.group_norm; then
+    dropout.cu on the head window and on the query-row window of the
+    probabilities PROBS (bf16), each against its plain version and against
+    the slice of the whole tensor's launch, bit for bit, with its time,
+    bound and F.dropout's."""
+    from tethys_tpu_torch.ops import dropout
+    from tethys_tpu_torch.ops import group_norm as gn
+    from tethys_tpu_torch.ops.attention import ProbsWindow, probs_dropout
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    b, t, c, groups = GN_SHARD
+    x = (torch.randn(b, t, c, device="cuda", generator=gen) + 3.0).bfloat16()
+    dy = torch.randn(b, t, c, device="cuda", generator=gen).bfloat16()
+    gamma = torch.randn(c, device="cuda", generator=gen)
+    beta = torch.randn(c, device="cuda", generator=gen)
+    tag = f"bf16 {list(GN_SHARD[:3])}, {groups} groups"
+    mu, _, rstd = gn.group_moments_cuda(x, groups)
+    want = gn.plain_group_moments(x, groups)
+    check(f"22(d) gn_stats mean {tag}", max_err(mu, want[0]), 1e-5 * 4.0)
+    check(f"22(d) gn_stats rstd (relative) {tag}",
+          ((rstd - want[2]).abs() / want[2]).max().item(), 1e-4)
+    check_pass(f"22(d) gn_apply {tag}",
+               gn.apply_cuda(x, gamma, beta, mu, rstd, groups),
+               gn.plain_apply(x, gamma, beta, mu, rstd, groups), 1e-5)
+    sums, s = gn.grad_sums_cuda(x, dy, mu, rstd, gamma, groups)
+    want_sums, want_s = gn.plain_grad_sums(x, dy, mu, rstd, gamma, groups)
+    check(f"22(d) gn_grad_sums (of max) {tag}",
+          max(rel_err(sums, want_sums), rel_err(s, want_s)), 1e-4)
+    check_pass(f"22(d) gn_apply_bwd {tag}",
+               gn.apply_bwd_cuda(x, dy, gamma, mu, rstd, s, groups),
+               gn.plain_apply_bwd(x, dy, gamma, mu, rstd, s, groups), 1e-4)
+    for bwd in (False, True):
+        plan = gn.stats_launch(x, groups, gn.pack_elems(x), bwd)[0]
+        log(f"  22(d) {'gn_grad_sums' if bwd else 'gn_stats'} {tag}: "
+            f"{plan[0]} channel tiles, clusters of {plan[1]}, {plan[2]} "
+            "clusters")
+    gn_times(gn, x, dy, gamma, beta, groups)
+    del x, dy
+
+    probs = torch.softmax(torch.randn(*PROBS, device="cuda", generator=gen),
+                          -1).bfloat16()
+    seed, heads, rows = 4321, PROBS[1], PROBS[2]
+    whole = probs_dropout(probs, DROPOUT_RATE, seed)
+    shards = {
+        f"heads {heads // 2}-{heads - 1} of {heads}": (
+            probs[:, heads // 2:].contiguous(),
+            ProbsWindow(head0=heads // 2, heads=heads),
+            whole[:, heads // 2:]),
+        f"query rows {-(-rows // 2)}-{rows - 1} of {rows}": (
+            probs[:, :, -(-rows // 2):].contiguous(),
+            ProbsWindow(row0=-(-rows // 2), rows=rows),
+            whole[:, :, -(-rows // 2):]),
+    }
+    for name, (shard, window, want_slice) in shards.items():
+        got = probs_dropout(shard, DROPOUT_RATE, seed, window)
+        flat = shard.flatten(1, 2) if window.heads else shard
+        mask = (dropout.Window(row0=window.head0 * rows, rows=heads * rows)
+                if window.heads else
+                dropout.Window(row0=window.row0, rows=rows))
+        plain = dropout.plain_dropout(flat, DROPOUT_RATE, seed, mask)
+        require(torch.equal(got, plain.view_as(got)), f"22(d) dropout on "
+                f"the probabilities' {name} is not its plain version")
+        require(torch.equal(got, want_slice), f"22(d) dropout on the "
+                f"probabilities' {name} is not the slice of the whole launch")
+        ms = event_ms(lambda: dropout.dropout_cuda(flat, DROPOUT_RATE, seed,
+                                                   mask))
+        plain_ms = event_ms(lambda: dropout.plain_dropout(
+            flat, DROPOUT_RATE, seed, mask), reps=3)
+        library = event_ms(lambda: F.dropout(shard, DROPOUT_RATE))
+        # 2 bytes in and out, one f32 product each (phase 3's bound)
+        bound_ms = bound(2 * shard.numel() * 2, shard.numel(), "f32")
+        log(f"  22(d) dropout_window {name}: max_abs_err "
+            f"{max_err(got, plain.view_as(got)):.3e} (tolerance 0)")
+        log_row("dropout_window", f"{list(PROBS)} bf16 probabilities, "
+                f"{name}", ms, bound_ms, plain_ms, library_ms=library)
+    log(f"  22(d) ({gpu})")
+
+
 def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -3766,23 +4108,40 @@ def main() -> int:
     run_dropout_window(gpu, results)
     child = {}
     parallel = drive_path("parallel", (
-        ("[21a] whisper_dist --tp 2 at whisper-large-v3, remat_layers, b1 "
+        ("[21a] whisper_dist --tp 2 at whisper-large-v3 (16 + 16 layers), "
+         "remat_layers, b1 "
          "bf16, two gloo ranks on the card", run_tp_large_v3, gpu, child),
         ("[21b, e] TP whisper-base f32 steps and greedy decoding, two gloo "
          "ranks against one process", run_tp_equality, child),
         ("[21c] whisper_dist --sp 2 at whisper-small, and SP whisper-small "
          "f32 steps with dropout against one process", run_sp, child)),
         child_counts=child)
-    log(f"  21: the collectives of its processes (rank 0 of each TP and SP "
-        f"world, both ranks of each CLI) by backend, device and op: "
+    log("[22d] GroupNorm's kernels on a channel shard, dropout.cu on the "
+        "probabilities' head and row windows")
+    t0 = time.perf_counter()
+    run_w2v_shard_kernels(gpu)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    child = {}
+    w2v_parallel = drive_path("w2v_parallel", (
+        ("[22a] wav2vec2_dist --tp 2 at wav2vec2-base b8 bf16, two gloo "
+         "ranks on the card, then --resume at --tp 1", run_w2v_par_cli, gpu,
+         child, "--tp"),
+        ("[22b] wav2vec2_dist --sp 2 at wav2vec2-base b8 bf16, two gloo "
+         "ranks on the card", run_w2v_par_cli, gpu, child, "--sp"),
+        ("[22c] TP and SP wav2vec2-base f32 hardened steps, rates 0 and "
+         "dropout on, against one process", run_w2v_par_equality, child)),
+        child_counts=child)
+    log(f"  21, 22: the collectives of their processes (rank 0 of each TP "
+        f"and SP world, every rank of each CLI) by backend, device and op: "
         f"{PAR_TRANSPORTS}")
     require(PAR_TRANSPORTS and all(k.startswith("gloo cuda ")
                                    for k in PAR_TRANSPORTS),
-            "a collective of phase 21 ran off the card or not over gloo")
+            "a collective of phase 21 or 22 ran off the card or not over "
+            "gloo")
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
               + flash_bench[k] + frontend[k] + train_bench[k] + resume[k]
               + data_parallel[k] + tensorsize[k] + capacity[k] + parallel[k]
-              for k in serving}
+              + w2v_parallel[k] for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")

@@ -1,13 +1,14 @@
 """The ranks of the tensor- and sequence-parallel worlds of
-tests/test_torch_tp.py and tests/test_torch_sp.py, and the helpers that
-start them (gloo on 127.0.0.1, torchrun's env or a TF_CONFIG).
+tests/test_torch_tp.py, tests/test_torch_sp.py and
+tests/test_torch_w2v_parallel.py, and the helpers that start them (gloo on
+127.0.0.1, torchrun's env or a TF_CONFIG).
 
 A rank is this file run as a script, ``python tests/_torch_parallel_ranks.py
 <mode> <dir> ...``: it joins the group with ``parallel/mesh.
 initialize_distributed`` and runs the port's own code on the spec the test
-wrote to ``<dir>/spec.pt`` (a tiny Whisper config, the JAX model's weights
-converted to the port, the global batches), then writes what it saw to
-``<dir>/rank_<r>.pt``.  It needs neither JAX nor pytest.
+wrote to ``<dir>/spec.pt`` (a tiny Whisper or Wav2Vec2 config, the JAX
+model's weights converted to the port, the global batches), then writes
+what it saw to ``<dir>/rank_<r>.pt``.  It needs neither JAX nor pytest.
 """
 
 import json
@@ -22,7 +23,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from tethys_tpu_torch.checkpoint import CheckpointManager  # noqa: E402
-from tethys_tpu_torch.configs import WhisperConfig  # noqa: E402
+from tethys_tpu_torch.configs import Wav2Vec2Config, WhisperConfig  # noqa: E402
+from tethys_tpu_torch.models import wav2vec2 as w2v  # noqa: E402
 from tethys_tpu_torch.models.whisper import (  # noqa: E402
     WhisperForConditionalGeneration,
     greedy_generate,
@@ -276,8 +278,141 @@ def rank_job(workdir: str, *argv: str) -> None:
     whisper_dist.main(list(argv))
 
 
+def w2v_steps(spec, case, layout):
+    """Wav2Vec2 pretraining (or, with the case's option head "asr", CTC
+    on the dummy loss), the hardened step with wav2vec2_optimizer over
+    ``layout`` (None: one process, no group) and the case's other options
+    (remat, grad_accum) on each of its global batches (this replica's
+    rows), the loss scaled by spec["scale"]: the logged losses, the whole
+    parameters after the last step, the quantizer's indices at the first,
+    each rank's own replicated parameters and the step's collective
+    bytes."""
+    cfg = Wav2Vec2Config(**{**spec["configs"][case["config"]],
+                            **case.get("overrides", {})})
+    options = dict(case.get("options", {}))
+    head = options.pop("head", "pretraining")
+    model = (w2v.Wav2Vec2ForCTC(cfg) if head == "asr"
+             else w2v.Wav2Vec2ForPreTraining(cfg))
+    model.load_state_dict(spec["state_dicts"][case["config"]])
+    model.train()
+
+    def make(params):
+        return dp.wav2vec2_optimizer(params, spec["lr"])
+
+    if layout is not None and layout.axis == "model":
+        state = tp.init_tp_state(model, make, layout)
+    else:
+        state = sp.init_sp_state(model, make(model.parameters()), layout)
+    indices = []
+
+    def loss_fn(m, batch, generator):
+        audio, negatives = batch
+        if head == "asr":     # the dummy CTC loss reads the logits alone
+            out = m(audio, labels=negatives.long(), generator=generator)
+            return out["loss"] * spec["scale"], {}
+        out = m(audio, generator=generator)
+        indices.append(out["codevector_indices"])
+        loss, aux = w2v.pretraining_loss(cfg, out,
+                                         negative_indices=negatives)
+        return loss * spec["scale"], aux
+
+    step = dp.make_train_step(loss_fn, state.optimizer, hardened=True,
+                              layout=layout, **options)
+    data, data_rank = (1, 0) if layout is None else (layout.data,
+                                                     layout.data_rank)
+    losses = []
+    for i, batch in enumerate(spec["batches"][case["batches"]]):
+        rows = len(batch[0]) // data
+        mine = tuple(a[data_rank * rows:(data_rank + 1) * rows]
+                     for a in batch)
+        state, loss = step(state, mine,
+                           dp.step_generator(spec["seed"], i, data_rank))
+        losses.append(loss.item())
+    sizes = getattr(model, "_tp_full_sizes", {})
+    return {"losses": losses,
+            "params": (_whole(state) if layout is not None else
+                       {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}),
+            "indices": indices[0] if indices else None,
+            "replicated": {n: p.detach().clone()
+                           for n, p in model.named_parameters()
+                           if n not in sizes},
+            "collective_bytes": dict(step.collective_bytes)}
+
+
+def clip_shards(layout) -> dict:
+    """Keras clipnorm and the global-norm clip on shards over the model
+    group (dp.ShardNorms) against the same clips on the whole tensors:
+    the largest difference of each, after gathering."""
+    gen = torch.Generator().manual_seed(5)
+    whole = [torch.randn(8, 3, generator=gen) * s for s in (0.2, 0.5, 3.0)]
+    whole.append(torch.randn(5, generator=gen))     # replicated
+    shard = sharding.Shard(layout.inner_group, layout.inner,
+                           layout.inner_rank)
+    mine = [sharding.replicated_slice(w, 0, shard).clone() for w in whole[:3]]
+    mine.append(whole[3].clone())
+    out = {}
+    for name, clip in (("clipnorm", dp.per_variable_clipnorm),
+                       ("global", dp.clip_by_global_norm)):
+        want = [w.clone() for w in whole]
+        got = [g.clone() for g in mine]
+        clip(want, 1.0)
+        clip(got, 1.0, dp.ShardNorms(shard, {id(g) for g in got[:3]}))
+        got = [sharding.all_gather(g, 0, shard, 8) for g in got[:3]] + got[3:]
+        out[name] = max((a - b).abs().max().item()
+                        for a, b in zip(got, want))
+    return out
+
+
+def rank_w2v(workdir: str) -> None:
+    """A rank of a Wav2Vec2 world: each of the spec's cases for a world of
+    this size, over its (data, model) or (data, seq) layout."""
+    mesh.initialize_distributed(timeout_s=60, device="cpu")
+    spec = torch.load(os.path.join(workdir, "spec.pt"))
+    out = {}
+    for case in spec["cases"]:
+        if case["world"] != mesh.world_size():
+            continue
+        make = {"model": mesh.make_2d_mesh,
+                "seq": mesh.make_seq_mesh}[case["axis"]]
+        layout = make(case["inner"])
+        out[case["name"]] = w2v_steps(spec, case, layout)
+        out[case["name"]]["layout"] = tuple(layout[1:5])
+        if case["axis"] == "model" and "clip" not in out:
+            out["clip"] = clip_shards(layout)
+    out["transports"] = dict(sharding.TRANSPORTS)
+    torch.save(out, os.path.join(workdir, f"rank_{mesh.rank()}.pt"))
+    mesh.shutdown_distributed()
+
+
+def rank_w2v_job(workdir: str, *argv: str) -> None:
+    """A rank of a wav2vec2_dist world at the tiny size of $TINY_W2V;
+    writes its final whole parameters and Adam's counts before the job's
+    end."""
+    from tethys_tpu_torch.checkpoint import whole_state_dicts
+    from tethys_tpu_torch.jobs import wav2vec2_dist
+    from tethys_tpu_torch.train import jobs
+
+    tiny = json.loads(os.environ["TINY_W2V"])
+    real_model, real_finalize = w2v.create_full_model, jobs.finalize_job
+
+    def tiny_model(model_type, model_size, **kw):
+        return real_model(model_type, "tiny", **{**kw, **tiny})
+
+    def finalize(result, *args, **kwargs):
+        whole = whole_state_dicts(result.state)
+        if mesh.rank() == 0:
+            torch.save({"params": whole[0], "counts": sorted(
+                {s["step"] for s in whole[1]["state"].values()})},
+                os.path.join(workdir, "final.pt"))
+        real_finalize(result, *args, **kwargs)
+
+    w2v.create_full_model, jobs.finalize_job = tiny_model, finalize
+    wav2vec2_dist.main(list(argv))
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    {"tp": rank_tp, "sp": rank_sp, "job": rank_job}[sys.argv[1]](
-        *sys.argv[2:])
+    {"tp": rank_tp, "sp": rank_sp, "job": rank_job, "w2v": rank_w2v,
+     "w2v_job": rank_w2v_job}[sys.argv[1]](*sys.argv[2:])
     sys.exit(0)

@@ -82,3 +82,30 @@ def test_windowed_backward_is_the_same_mask():
     keep = dropout.keep_mask(SEED, x.shape, RATE, window=window)
     assert torch.equal(x.grad != 0, keep)
     assert torch.equal(y != 0, keep & (x != 0))
+
+
+@pytest.mark.parametrize("head0,row0,shape", [
+    (0, 0, (2, 4, 7, 9)),       # the whole tensor
+    (2, 0, (2, 2, 7, 9)),       # heads 2-3 of 4 (tensor parallelism)
+    (1, 0, (2, 1, 7, 9)),
+    (0, 4, (2, 4, 3, 9)),       # query rows 4-6 of 7 (sequence parallelism)
+    (0, 0, (2, 4, 4, 9)),
+])
+def test_probs_window_is_the_slice_of_the_whole(head0, row0, shape):
+    """Attention probabilities [B, H, Tq, Tk] at an ops/attention.
+    ProbsWindow (a shard of heads or of query rows) drop the slice of the
+    whole tensor's mask; a shard of both is refused."""
+    from tethys_tpu_torch.ops.attention import ProbsWindow, probs_dropout
+
+    whole_shape = (2, 4, 7, 9)
+    probs = torch.rand(whole_shape, generator=torch.Generator().manual_seed(3))
+    want = probs_dropout(probs, RATE, SEED)
+    b, h, tq, _ = shape
+    window = ProbsWindow(head0=head0, heads=4, row0=row0, rows=7)
+    got = probs_dropout(
+        probs[:, head0:head0 + h, row0:row0 + tq].contiguous(), RATE, SEED,
+        window)
+    assert torch.equal(got, want[:, head0:head0 + h, row0:row0 + tq])
+    with pytest.raises(ValueError, match="both heads"):
+        probs_dropout(probs[:, :2, :3].contiguous(), RATE, SEED,
+                      ProbsWindow(0, 4, 0, 7))

@@ -28,10 +28,12 @@ from tethys_tpu_torch.checkpoint import CheckpointManager
 from tethys_tpu_torch.convert import params_from_flax
 from tethys_tpu_torch.jobs import (
     wav2vec2_dist,
+    wav2vec2_dist_tensorsize,
     wav2vec2_single,
     whisper_dist,
     whisper_single,
 )
+from tethys_tpu_torch.jobs._common import TENSORSIZE_WHERE
 from tethys_tpu_torch.jobs.stable import wav2vec2_dist as stable_dist
 from tethys_tpu_torch.jobs.stable import whisper_dist as stable_whisper_dist
 from tethys_tpu_torch.models import wav2vec2 as w2v
@@ -98,9 +100,9 @@ def test_hardened_trajectory_matches_jax():
     def tstep(state, batch, gen):
         real_clip = dp.clip_by_global_norm
 
-        def spy(grads, max_norm):
+        def spy(grads, max_norm, *shard_norms):
             norms_seen.append([g.norm().item() for g in grads])
-            return real_clip(grads, max_norm)
+            return real_clip(grads, max_norm, *shard_norms)
 
         dp.clip_by_global_norm = spy
         try:
@@ -302,12 +304,13 @@ def test_job_clis_on_the_cpu(tiny_jobs, tmp_path, monkeypatch, capsys, cli,
 
 
 @pytest.mark.parametrize("cli,argv,where", [
-    (wav2vec2_dist, ["--tp", "2"], "queue 1 item 7.1 (Wav2Vec2 --tp and --sp, "
-     "the next slice)"),
-    (wav2vec2_dist, ["--sp", "2"], "queue 1 item 7.1 (Wav2Vec2 --tp and --sp, "
-     "the next slice)"),
+    (wav2vec2_dist_tensorsize, ["--tp", "2"], TENSORSIZE_WHERE),
+    (wav2vec2_dist_tensorsize, ["--sp", "2"], TENSORSIZE_WHERE),
 ])
 def test_clis_refuse_unported_flags(capsys, cli, argv, where):
+    """The Wav2Vec2 CLI flags that are still refused: the tensorsize job's
+    --tp and --sp (its JAX twin takes no parallel flag); wav2vec2_dist's
+    reach train_wav2vec2 (test_wav2vec2_dist_forwards_parallel_flags)."""
     with pytest.raises(SystemExit) as exc:
         cli.main(argv + ["--device", "cpu"])
     assert exc.value.code == 2
@@ -317,6 +320,25 @@ def test_clis_refuse_unported_flags(capsys, cli, argv, where):
 
 class _Stop(Exception):
     pass
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--tp", "2"], dict(tensor_parallel=2, seq_parallel=1)),
+    (["--sp", "2"], dict(tensor_parallel=1, seq_parallel=2)),
+])
+def test_wav2vec2_dist_forwards_parallel_flags(monkeypatch, argv, want):
+    """wav2vec2_dist's --tp and --sp (refused until they were ported)
+    reach train_wav2vec2, as the JAX CLI passes them."""
+    seen = {}
+
+    def train(**kwargs):
+        seen.update(kwargs)
+        raise _Stop
+
+    monkeypatch.setattr(jobs, "train_wav2vec2", train)
+    with pytest.raises(_Stop):
+        wav2vec2_dist.main(argv + ["--device", "cpu"])
+    assert {k: seen[k] for k in want} == want
 
 
 @pytest.mark.parametrize("argv,want", [
@@ -377,10 +399,11 @@ def test_clis_forward_resume_and_the_trace_flag(monkeypatch, tmp_path, cli,
 
 
 def test_cli_defaults_match_the_jax_jobs():
+    # --device and --backend (the process group's) are the port's own.
     assert (vars(wav2vec2_dist.build_parser().parse_args([]))
-            | {"device": None}) == dict(
+            | {"device": None, "backend": None}) == dict(
         num_batches=5, batch_size=1, dtype="float32", device=None,
-        resume=False, tp=1, sp=1, remat=False, grad_accum=1,
+        backend=None, resume=False, tp=1, sp=1, remat=False, grad_accum=1,
         jax_profile=None, model_size="small")
     single = wav2vec2_single.build_parser().parse_args([])
     assert (single.model_type, single.learning_rate, single.num_epochs) == (

@@ -12,10 +12,11 @@ by default; gloo lets several ranks share one card).
 that names several processes) for the dist jobs.  The JAX jobs'
 single-card capacity flags (``CAPACITY``: --remat, --remat_layers,
 --grad_accum, --master_dtype) are taken by the CLIs whose JAX twins take
-them, and Whisper's --tp and --sp (``PARALLEL``) by whisper_dist; the
-parallel flags a CLI does not take yet (``REFUSED``) are accepted so that
-they can be refused, each with an error that names where it waits in
-ROADMAP.md; none is ignored.
+them, and --tp and --sp (``PARALLEL``) by whisper_dist and wav2vec2_dist;
+the parallel flags a CLI does not take (``REFUSED``: Whisper's --pp and
+--microbatches, and the tensorsize jobs' --tp and --sp, which their JAX
+twins do not take) are accepted so that they can be refused, each with an
+error that names where it waits in ROADMAP.md; none is ignored.
 """
 
 from __future__ import annotations
@@ -31,20 +32,18 @@ PARALLEL = {
                help="sequence-parallel degree over a (data, seq) mesh: "
                     "encoder time axis sharded (extension)"),
 }
+# The tensorsize jobs: their JAX twins take no parallel flag.
+TENSORSIZE_WHERE = ("queue 1 item 7 (the JAX tensorsize jobs take no "
+                    "parallel flag)")
 # flag -> (argparse keywords, the value that is supported, where it waits)
 REFUSED = {
-    "tp": (PARALLEL["tp"], 1,
-           "queue 1 item 7.1 (Wav2Vec2 --tp and --sp, the next slice)"),
-    "sp": (PARALLEL["sp"], 1,
-           "queue 1 item 7.1 (Wav2Vec2 --tp and --sp, the next slice)"),
+    "tp": (PARALLEL["tp"], 1, TENSORSIZE_WHERE),
+    "sp": (PARALLEL["sp"], 1, TENSORSIZE_WHERE),
     "pp": (dict(type=int, default=1), 1,
            "queue 1 item 7.2 (Whisper pipeline parallelism)"),
     "microbatches": (dict(type=int, default=2), 2,
                      "queue 1 item 7.2 (pipeline microbatches)"),
 }
-# The tensorsize jobs: their JAX twins take no parallel flag.
-TENSORSIZE_WHERE = ("queue 1 item 7 (the JAX tensorsize jobs take no "
-                    "parallel flag)")
 # flag -> argparse keywords, with the JAX CLI's help (jobs/whisper_dist.py).
 CAPACITY = {
     "remat": dict(action="store_true",
@@ -106,16 +105,18 @@ def add_common_flags(parser: argparse.ArgumentParser,
 
 
 def parse(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse; refuse --tp, --sp and --pp together (JAX's error) where the
-    CLI takes a parallel flag, then every unported flag set to another
-    value than the supported one (exit code 2, the ROADMAP item in the
-    message)."""
+    """Parse; refuse two of the CLI's --tp, --sp and --pp above 1 (its JAX
+    twin's error) where it takes a parallel flag, then every unported flag
+    set to another value than the supported one (exit code 2, the ROADMAP
+    item in the message)."""
     args = parser.parse_args(argv)
     refused = getattr(parser, "tethys_refused", {})
     parallel = getattr(parser, "tethys_parallel", ())
-    if parallel and sum(getattr(args, f, 1) > 1
-                        for f in ("tp", "sp", "pp")) > 1:
-        parser.error("--tp, --sp and --pp are mutually exclusive")
+    flags = [f for f in ("tp", "sp", "pp") if hasattr(args, f)]
+    if parallel and sum(getattr(args, f) > 1 for f in flags) > 1:
+        names = [f"--{f}" for f in flags]
+        parser.error(f"{', '.join(names[:-1])} and {names[-1]} are "
+                     "mutually exclusive")
     for flag, (supported, where) in refused.items():
         value = getattr(args, flag)
         if value != supported:

@@ -14,8 +14,17 @@ clipping), the 50-step and per-epoch checkpoints, the JCT contract.
 ``--resume`` restores the newest ``model_*`` checkpoint, ``--jax_profile
 DIR`` writes a profiler trace, ``--device cpu`` runs the plain versions
 (small runs); ``--remat`` checkpoints the whole loss and ``--grad_accum N``
-accumulates N microbatches a step, as the JAX CLI's; ``--tp`` and ``--sp``
-above 1 are refused with their ROADMAP.md item (jobs/_common.py).
+accumulates N microbatches a step, as the JAX CLI's.
+
+Tensor and sequence parallelism (the JAX CLI's --tp N and --sp N, mutually
+exclusive): the world of processes is laid out (data, model) or (data,
+seq), one replica a model or seq group running the hardened step on its
+shards (parallel/dp.py), the global batch the per-replica batch times the
+data replicas; on one card the ranks share it over gloo:
+
+    torchrun --nproc_per_node 2 -m tethys_tpu_torch.jobs.wav2vec2_dist \
+        --model_size base --tp 2 --batch_size 8 --num_batches 4 \
+        --dtype bfloat16 --backend gloo
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import argparse
 import time
 
 from tethys_tpu_torch.jobs._common import (
+    PARALLEL,
     add_common_flags,
     job_device,
     parse,
@@ -36,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="wav2vec2 Distributed Speech Recognition")
     add_common_flags(parser, num_batches_default=5, batch_size_default=1,
-                     refused=("tp", "sp"), capacity=("grad_accum",))
+                     capacity=("grad_accum",), parallel=tuple(PARALLEL))
     parser.add_argument("--remat", action="store_true",
                         help="checkpoint the forward pass (large-model HBM)")
     parser.add_argument(
@@ -53,7 +63,9 @@ def main(argv=None) -> None:
     from tethys_tpu_torch.train import jobs
     from tethys_tpu_torch.utils import artifacts
 
-    n_replicas = start_distributed(args)
+    # One replica a model or seq group (a world they do not divide is
+    # refused when the job lays it out).
+    n_replicas = start_distributed(args) // max(args.tp, args.sp)
     device = job_device(args)
     print(f"selected model size: {args.model_size}")
     print(f"batch size per replica: {args.batch_size}, "
@@ -75,6 +87,8 @@ def main(argv=None) -> None:
             collective_report=True,
             remat=args.remat,
             grad_accum=args.grad_accum,
+            tensor_parallel=args.tp,
+            seq_parallel=args.sp,
         )
     jct = time.time() - start
     jobs.finalize_job(result, f"wav2vec2_{args.model_size}_model", jct)

@@ -29,6 +29,40 @@ dropout (ops/dropout.py), live in ``model.train()`` mode with a CPU
 ``training`` flag: the quantizer branch and the losses run in train mode.
 Parameters are cast to ``config.dtype`` where they are used (flax's
 ``dtype=``); ``create_full_model`` holds f32 master weights.
+
+Tensor parallelism (``parallel/tp.shard_model``, the JAX package's rule
+table over the "model" axis): each sharded module holds its slice of the
+parameters and a ``tp`` ``Shard`` (ops/sharding.py), as Whisper's do.
+q/k/v and intermediate_dense are column-parallel (a rank projects its
+H / tp heads and intermediate_size / tp columns), out_proj and
+output_dense row-parallel (the partial products summed over the group,
+then the replicated bias added once).  Each conv of the feature encoder
+gives the rank's output channels; its GroupNorm runs on them (ops/norms.py,
+gamma and beta replicated), then the GELU, and the channels are gathered
+before the next conv or the replicated positional conv (whose backward
+sums the ranks' partial gradients where the next conv is sharded).  The
+quantizer's codevectors and its input projection are sharded over the
+codevectors (V): the projection's columns are gathered, each rank takes
+the distances to its codevectors, and the argmin is the group's least
+distance at its first index (each rank's (min, first index), agreed over
+the group), so ties go as they go unsharded; ``quantized`` is the group's
+sum of one-hot x shard, and the perplexity's entropy a group sum over V.
+Under tensor parallelism the quantizer's ``encodings`` and ``distances``
+hold the rank's codevectors' columns.  The CTC lm_head is column-parallel
+over the vocab (its bias replicated) and its logits gathered.
+
+Sequence parallelism (parallel/sp.py): under ``ops.sharding.
+seq_axis_rules`` the encoder splits its [B, T, D] rows over the seq group
+at its entry (the JAX hook ``seq_constrain`` at the encoder's entry), runs
+every layer on its rows (attention: local queries against K and V gathered
+over the group, whose backward sums the partial dk, dv), takes the
+weighted layer sum on its rows, and gathers them before
+``last_hidden_state`` leaves it; the feature encoder, the quantizer and
+the heads run whole.  Each head declares the encoder as its
+``seq_sharded`` submodule.  A shard's dropout draws the bits of its rows,
+columns or heads of the unsharded tensor (ops/dropout.Window,
+ops/attention.ProbsWindow), so a sharded step drops what the unsharded one
+drops.
 """
 
 from __future__ import annotations
@@ -42,10 +76,11 @@ from torch import nn
 from tethys_tpu_torch import losses
 from tethys_tpu_torch.configs import Wav2Vec2Config
 from tethys_tpu_torch.models.whisper import init_weights as _init_linear_conv
+from tethys_tpu_torch.ops import sharding
 from tethys_tpu_torch.ops.activations import gelu
-from tethys_tpu_torch.ops.attention import multi_head_attention
+from tethys_tpu_torch.ops.attention import ProbsWindow, multi_head_attention
 from tethys_tpu_torch.ops.conv import conv1d_same
-from tethys_tpu_torch.ops.dropout import module_dropout
+from tethys_tpu_torch.ops.dropout import Window, module_dropout
 from tethys_tpu_torch.ops.masks import padding_additive_mask
 from tethys_tpu_torch.ops.norms import LayerNorm, ReferenceGroupNorm
 from tethys_tpu_torch.profiling.capture import record
@@ -53,6 +88,8 @@ from tethys_tpu_torch.utils.device import require_cuda
 
 Generator = Optional[torch.Generator]
 Outputs = Dict[str, torch.Tensor]
+Shard = Optional[sharding.Shard]
+SeqShard = Optional[sharding.SeqShard]
 
 
 class Dense(nn.Linear):
@@ -67,6 +104,18 @@ class Dense(nn.Linear):
         dtype = self.compute_dtype
         return F.linear(x.to(dtype), self.weight.to(dtype),
                         self.bias.to(dtype))
+
+
+def row_parallel(layer: Dense, x: torch.Tensor, tp: Shard) -> torch.Tensor:
+    """``layer(x)`` with the layer's input dim sharded over ``tp``: the
+    rank's partial product summed over the group, the replicated bias
+    added once."""
+    if tp is None:
+        return layer(x)
+    dtype = layer.compute_dtype
+    y = sharding.reduce_from_group(
+        F.linear(x.to(dtype), layer.weight.to(dtype)), tp)
+    return y + layer.bias.to(dtype)
 
 
 class SameConv1d(nn.Conv1d):
@@ -93,6 +142,8 @@ def _layer_norm(config: Wav2Vec2Config, dim: int) -> LayerNorm:
 class Wav2Vec2FeatureExtractor(nn.Module):
     """Raw waveform [B, T] -> conv features [B, T', conv_dim[-1]]."""
 
+    tp: Shard = None
+
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         self.config = config
@@ -114,19 +165,56 @@ class Wav2Vec2FeatureExtractor(nn.Module):
             groups=config.num_conv_pos_embedding_groups, dtype=dtype)
         self.layer_norm = _layer_norm(config, channels)
 
+    def _norm_shard(self, norm: nn.Module, y: torch.Tensor) -> torch.Tensor:
+        """``norm`` on the rank's channels of a conv output: GroupNorm
+        takes the shard itself (ops/norms.py); a LayerNorm over the
+        channels runs on them gathered, its parameters' gradients the
+        ranks' shares summed."""
+        if isinstance(norm, ReferenceGroupNorm):
+            return norm(y)
+        tp, channels = self.tp, norm.weight.shape[0]
+        whole = sharding.gather_from_group(y, -1, tp, channels,
+                                           reduce_grad=True)
+        out = F.layer_norm(whole, (channels,),
+                           sharding.copy_to_group(norm.weight, tp).to(y.dtype),
+                           sharding.copy_to_group(norm.bias, tp).to(y.dtype),
+                           norm.eps)
+        start, stop = sharding.shard_range(channels, tp.size, tp.rank)
+        return out.narrow(-1, start, stop - start)
+
+    def _conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Conv ``i``, its norm and activation; under tensor parallelism
+        on the rank's output channels, gathered (module doc)."""
+        cfg, tp = self.config, self.tp
+        conv, norm = getattr(self, f"conv_{i}"), getattr(self, f"norm_{i}")
+        if tp is None:
+            y = norm(conv(x))
+        else:
+            dtype = cfg.dtype
+            bias = (None if conv.bias is None else
+                    sharding.replicated_slice(conv.bias, 0, tp).to(dtype))
+            y = self._norm_shard(norm, conv1d_same(
+                x.to(dtype), conv.weight.to(dtype), bias, conv.stride[0]))
+        y = gelu(y) if cfg.feat_extract_activation == "gelu" else F.relu(y)
+        # The next conv is sharded: each rank's gradient is a partial sum.
+        sharded_next = i + 1 < len(cfg.conv_dim)
+        return sharding.gather_from_group(y, -1, tp, cfg.conv_dim[i],
+                                          reduce_grad=sharded_next)
+
     def forward(self, inputs: torch.Tensor, generator: Generator = None
                 ) -> torch.Tensor:
         cfg = self.config
         x = inputs[:, :, None].to(cfg.dtype)                 # [B, T, 1]
         for i in range(len(cfg.conv_dim)):
-            x = getattr(self, f"norm_{i}")(getattr(self, f"conv_{i}")(x))
-            x = gelu(x) if cfg.feat_extract_activation == "gelu" else F.relu(x)
+            x = self._conv(i, x)
         x = x + self.pos_conv_embed(x)
         x = self.layer_norm(x)
         return module_dropout(x, cfg.hidden_dropout, self.training, generator)
 
 
 class Wav2Vec2Attention(nn.Module):
+    tp: Shard = None
+
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         self.config = config
@@ -137,24 +225,40 @@ class Wav2Vec2Attention(nn.Module):
         self.out_proj = Dense(e, e, dtype)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                generator: Generator = None) -> torch.Tensor:
-        cfg = self.config
+                generator: Generator = None, seq: SeqShard = None
+                ) -> torch.Tensor:
+        """[B, T, E] -> [B, T, E]; under tensor parallelism on the rank's
+        heads; with ``seq`` x holds the rank's rows, attending to every
+        rank's keys and values."""
+        cfg, tp = self.config, self.tp
         b, s, e = x.shape
-        heads = cfg.num_attention_heads
-        head_dim = e // heads
+        head_dim = e // cfg.num_attention_heads
+        heads = self.q_proj.weight.shape[0] // head_dim    # this rank's
+        x = sharding.copy_to_group(x, tp)
 
         def split(t):  # a reshape, as the JAX model (no split kernel)
             return t.view(b, s, heads, head_dim).transpose(1, 2)
 
         q = split(self.q_proj(x) * head_dim ** -0.5)
+        k, v = split(self.k_proj(x)), split(self.v_proj(x))
+        window = ProbsWindow()
+        if seq is not None:
+            k = seq.gather(k, dim=2, reduce_grad=True)
+            v = seq.gather(v, dim=2, reduce_grad=True)
+            window = ProbsWindow(row0=seq.start, rows=seq.total)
+        elif tp is not None:
+            window = ProbsWindow(head0=tp.rank * heads,
+                                 heads=cfg.num_attention_heads)
         attn = multi_head_attention(
-            q, split(self.k_proj(x)), split(self.v_proj(x)), bias=bias,
-            dropout_rate=cfg.attention_dropout, generator=generator,
-            training=self.training)
-        return self.out_proj(attn.transpose(1, 2).reshape(b, s, e))
+            q, k, v, bias=bias, dropout_rate=cfg.attention_dropout,
+            generator=generator, training=self.training, window=window)
+        return row_parallel(self.out_proj,
+                            attn.transpose(1, 2).reshape(b, s, -1), tp)
 
 
 class Wav2Vec2FeedForward(nn.Module):
+    tp: Shard = None
+
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         self.config = config
@@ -163,13 +267,21 @@ class Wav2Vec2FeedForward(nn.Module):
         self.output_dense = Dense(config.intermediate_size,
                                   config.hidden_size, config.dtype)
 
-    def forward(self, x: torch.Tensor, generator: Generator = None
-                ) -> torch.Tensor:
-        cfg = self.config
-        x = gelu(self.intermediate_dense(x))
-        x = module_dropout(x, cfg.activation_dropout, self.training, generator)
-        x = self.output_dense(x)
-        return module_dropout(x, cfg.hidden_dropout, self.training, generator)
+    def forward(self, x: torch.Tensor, generator: Generator = None,
+                seq: SeqShard = None) -> torch.Tensor:
+        cfg, tp = self.config, self.tp
+        rows = Window() if seq is None else seq.window()
+        cols = rows
+        if tp is not None:   # intermediate_dense's columns on this rank
+            start, _ = sharding.shard_range(cfg.intermediate_size, tp.size,
+                                            tp.rank)
+            cols = rows._replace(col0=start, cols=cfg.intermediate_size)
+        x = gelu(self.intermediate_dense(sharding.copy_to_group(x, tp)))
+        x = module_dropout(x, cfg.activation_dropout, self.training, generator,
+                           cols)
+        x = row_parallel(self.output_dense, x, tp)
+        return module_dropout(x, cfg.hidden_dropout, self.training, generator,
+                              rows)
 
 
 class Wav2Vec2EncoderLayer(nn.Module):
@@ -182,20 +294,25 @@ class Wav2Vec2EncoderLayer(nn.Module):
         self.feed_forward_layer_norm = _layer_norm(config, config.hidden_size)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                generator: Generator = None) -> torch.Tensor:
+                generator: Generator = None, seq: SeqShard = None
+                ) -> torch.Tensor:
+        """``seq``: x holds this rank's rows (sequence parallelism)."""
         rate = self.config.hidden_dropout
+        rows = Window() if seq is None else seq.window()
 
         def dropout(t):
-            return module_dropout(t, rate, self.training, generator)
+            return module_dropout(t, rate, self.training, generator, rows)
 
         if self.config.do_stable_layer_norm:      # pre-LN
-            a = self.attention(self.attention_layer_norm(x), bias, generator)
+            a = self.attention(self.attention_layer_norm(x), bias, generator,
+                               seq)
             x = x + dropout(a)
             return x + self.feed_forward(self.feed_forward_layer_norm(x),
-                                         generator)
-        a = self.attention(x, bias, generator)    # post-LN
+                                         generator, seq)
+        a = self.attention(x, bias, generator, seq)    # post-LN
         x = self.attention_layer_norm(x + dropout(a))
-        return self.feed_forward_layer_norm(x + self.feed_forward(x, generator))
+        return self.feed_forward_layer_norm(
+            x + self.feed_forward(x, generator, seq))
 
 
 class Wav2Vec2Encoder(nn.Module):
@@ -214,15 +331,21 @@ class Wav2Vec2Encoder(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,
                 generator: Generator = None) -> Outputs:
         bias = None
-        if attention_mask is not None:
+        if attention_mask is not None:     # [B, 1, 1, T]: on the keys
             bias = padding_additive_mask(attention_mask, scale=-10000.0)
+        rules = sharding.current_seq_rules()
+        seq = None if rules is None else sharding.SeqShard(rules, x.shape[1])
+        if seq is not None:
+            x = seq.split(x)
         outputs = []
         for layer in self.layers:
-            x = layer(x, bias, generator)
+            x = sharding.seq_constrain(layer(x, bias, generator, seq), seq)
             outputs.append(x)
         if self.config.use_weighted_layer_sum:
             weights = torch.softmax(self.layer_weights, dim=-1).to(x.dtype)
             x = torch.einsum("l,lbth->bth", weights, torch.stack(outputs))
+        if seq is not None:
+            x = seq.gather(x)
         return {"last_hidden_state": x}
 
 
@@ -245,6 +368,7 @@ class Wav2Vec2Quantizer(nn.Module):
     """Hard (argmin) product quantizer, not Gumbel-softmax, by design."""
 
     census_skip = ("indices",)   # the port's extra output (chip_smoke.py)
+    tp: Shard = None
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -257,12 +381,33 @@ class Wav2Vec2Quantizer(nn.Module):
         self.project_to_codevector_dim = Dense(
             config.hidden_size, config.codevector_dim, config.dtype)
 
+    def _first_min(self, distances: torch.Tensor, start: int
+                   ) -> torch.Tensor:
+        """The index of the least distance, the first on ties: under
+        tensor parallelism (this rank's codevectors from ``start``) each
+        rank's (min, first index), gathered, and the least at the first
+        rank (whose indices are the lower) taken on every rank."""
+        local = distances.argmin(dim=-1)                   # first on ties
+        tp = self.tp
+        if tp is None:
+            return local
+        least = distances.gather(-1, local[..., None])[..., 0]
+        # The indices are exact in f32 (V < 2^24): one gather for both.
+        mine = torch.stack((least, (local + start).float()))[None]
+        every = sharding.all_gather(mine, 0, tp, tp.size)  # [tp, 2, G, BT]
+        owner = every[:, 0].argmin(dim=0)                  # first on ties
+        return every[:, 1].gather(0, owner[None])[0].long()
+
     def forward(self, hidden_states: torch.Tensor) -> Outputs:
-        cfg = self.config
+        cfg, tp = self.config, self.tp
         groups = cfg.num_codevector_groups
-        vectors = cfg.num_codevectors_per_group
-        codevectors = self.codevectors.float()
-        projected = self.project_to_codevector_dim(hidden_states)
+        codevectors = self.codevectors.float()   # [G, V, d]: the rank's V
+        vectors = codevectors.shape[1]
+        # Column-parallel (weight and bias sharded), the columns gathered.
+        projected = sharding.gather_from_group(
+            self.project_to_codevector_dim(
+                sharding.copy_to_group(hidden_states, tp)),
+            -1, tp, cfg.codevector_dim)
         b, t, _ = projected.shape
         # [G, B*T, d]
         h = projected.float().view(b * t, groups, -1).transpose(0, 1)
@@ -270,13 +415,21 @@ class Wav2Vec2Quantizer(nn.Module):
         distances = (h.square().sum(dim=-1, keepdim=True)
                      - 2.0 * torch.bmm(h, codevectors.transpose(1, 2))
                      + codevectors.square().sum(dim=-1)[:, None, :])
-        indices = distances.argmin(dim=-1)                 # first on ties
-        encodings = F.one_hot(indices, vectors).float()    # [G, BT, V]
-        quantized = torch.bmm(encodings, codevectors)      # [G, BT, d]
+        start = 0 if tp is None else sharding.shard_range(
+            cfg.num_codevectors_per_group, tp.size, tp.rank)[0]
+        indices = self._first_min(distances, start)        # [G, BT]
+        # The rank's codevectors: one-hot where it owns the index.
+        local = indices - start
+        owned = (local >= 0) & (local < vectors)
+        encodings = (F.one_hot(local.clamp(0, vectors - 1), vectors)
+                     * owned[..., None]).float()           # [G, BT, V]
+        quantized = sharding.reduce_from_group(
+            torch.bmm(encodings, codevectors), tp)         # [G, BT, d]
         quantized = quantized.transpose(0, 1).reshape(b, t, cfg.codevector_dim)
         avg_probs = encodings.mean(dim=1).clamp(1e-10, 1.0)            # [G, V]
-        perplexity = torch.exp(
-            -(avg_probs * torch.log(avg_probs + 1e-10)).sum(dim=-1)).mean()
+        entropy = sharding.reduce_from_group(
+            (avg_probs * torch.log(avg_probs + 1e-10)).sum(dim=-1), tp)
+        perplexity = torch.exp(-entropy).mean()
         return {
             "quantized_features": quantized.to(cfg.dtype),
             "encodings": encodings.view(groups, b, t, vectors),
@@ -334,8 +487,15 @@ class Wav2Vec2Model(nn.Module):
         return result
 
 
+# The submodule of each head that runs on a rank's rows under sequence
+# parallelism: its parameters' gradients are partial sums over the seq
+# group (parallel/dp.py).
+SEQ_SHARDED = ("wav2vec2.encoder",)
+
+
 class Wav2Vec2ForPreTraining(nn.Module):
     census_skip = Wav2Vec2Model.census_skip
+    seq_sharded = SEQ_SHARDED
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -372,6 +532,9 @@ def pretraining_loss(config: Wav2Vec2Config, outputs: Outputs,
 
 
 class Wav2Vec2ForCTC(nn.Module):
+    seq_sharded = SEQ_SHARDED
+    tp: Shard = None
+
     def __init__(self, config: Wav2Vec2Config, real_ctc: bool = False):
         super().__init__()
         self.config = config
@@ -389,7 +552,7 @@ class Wav2Vec2ForCTC(nn.Module):
         hidden = module_dropout(outputs["last_hidden_state"],
                                 cfg.hidden_dropout, self.training, generator)
         record(self, hidden, name="dropout")
-        logits = self.lm_head(hidden)
+        logits = self._logits(hidden)
         loss = None
         if self.training and labels is not None:
             if self.real_ctc:
@@ -401,8 +564,24 @@ class Wav2Vec2ForCTC(nn.Module):
                 loss = losses.dummy_ctc_loss(logits)
         return {"loss": loss, "logits": logits}
 
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """[B, T, vocab]; under tensor parallelism each rank's columns of
+        the vocab (the kernel sharded, its bias replicated), gathered."""
+        tp = self.tp
+        if tp is None:
+            return self.lm_head(hidden)
+        dtype = self.config.dtype
+        logits = F.linear(
+            sharding.copy_to_group(hidden, tp).to(dtype),
+            self.lm_head.weight.to(dtype),
+            sharding.replicated_slice(self.lm_head.bias, 0, tp).to(dtype))
+        return sharding.gather_from_group(logits, -1, tp,
+                                          self.config.vocab_size)
+
 
 class Wav2Vec2ForSequenceClassification(nn.Module):
+    seq_sharded = SEQ_SHARDED
+
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         self.config = config

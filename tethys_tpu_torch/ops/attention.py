@@ -10,15 +10,27 @@ training (``training=True``) the probabilities are dropped at
 ``fused_dropout`` on the compute-dtype probabilities, as the JAX package
 does on the chip (attention.py:109-121).  Seeds come from the caller's CPU
 ``torch.Generator``.
+
+A shard's probabilities (tensor parallelism: H / tp of the heads; sequence
+parallelism: a window of the query rows) take a ``ProbsWindow``, where
+they lie in the unsharded [B, H, Tq, Tk]; the plain path's dropout then
+draws their slice of the unsharded mask (ops/dropout.Window): heads
+[h0, h0 + h) of H are, viewed as [B, h * Tq, Tk], rows h0 * Tq onward of
+H * Tq; query rows are rows of the last two dims.  The flash kernels take
+no window (their mask keeps local coordinates, as the JAX kernel's does).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from tethys_tpu_torch.ops.dropout import fused_dropout, seed_from_generator
+from tethys_tpu_torch.ops.dropout import (
+    Window,
+    fused_dropout,
+    seed_from_generator,
+)
 from tethys_tpu_torch.ops.masks import NEG_INF
 
 # Same thresholds as tethys_tpu.ops.attention (_FLASH_MIN_SEQ and
@@ -26,6 +38,35 @@ from tethys_tpu_torch.ops.masks import NEG_INF
 # sequence >= 512.
 FLASH_MIN_SEQ = 512
 FLASH_MIN_TQ = 16
+
+
+class ProbsWindow(NamedTuple):
+    """Where a shard's probabilities [B, h, tq, Tk] lie in the unsharded
+    [B, H, Tq, Tk]: heads [head0, head0 + h) of ``heads`` and query rows
+    [row0, row0 + tq) of ``rows``; a zero ``heads`` or ``rows`` is the
+    shard's own count.  ``ProbsWindow()`` is the whole tensor."""
+    head0: int = 0
+    heads: int = 0
+    row0: int = 0
+    rows: int = 0
+
+
+def probs_dropout(probs: torch.Tensor, rate: float, seed: int,
+                  window: ProbsWindow = ProbsWindow()) -> torch.Tensor:
+    """Dropout of [B, h, tq, Tk] probabilities at ``window``: a shard of
+    heads or of query rows (not both) draws its slice of the unsharded
+    mask."""
+    b, h, tq, tk = probs.shape
+    heads, rows = window.heads or h, window.rows or tq
+    if heads == h:
+        return fused_dropout(probs, rate, seed, Window() if rows == tq
+                             else Window(row0=window.row0, rows=rows))
+    if rows != tq:
+        raise ValueError(f"attention dropout: a shard of both heads "
+                         f"{tuple(window)} and rows {tuple(probs.shape)}")
+    flat = fused_dropout(probs.reshape(b, h * tq, tk), rate, seed,
+                         Window(row0=window.head0 * tq, rows=heads * tq))
+    return flat.view(b, h, tq, tk)
 
 
 def flash_active(use_flash: bool, tq: int, tk: int, is_cuda: bool) -> bool:
@@ -45,6 +86,7 @@ def multi_head_attention(
     training: bool = False,
     use_flash: bool = False,
     kv_len: Optional[int] = None,  # true KV length when key/value are padded
+    window: ProbsWindow = ProbsWindow(),  # a shard's place (module doc)
 ) -> torch.Tensor:
     """Returns [B, H, Tq, D]."""
     rate = dropout_rate if training else 0.0
@@ -57,13 +99,16 @@ def multi_head_attention(
         from tethys_tpu_torch.ops import flash_attention as fa
 
         if fa.supported(query, key, value, bias):
+            if rate > 0.0 and window != ProbsWindow():
+                raise ValueError("the flash kernels take no dropout window")
             return fa.flash_attention(query, key, value, dropout_rate=rate,
                                       seed=seed, kv_len=kv_len)
-    return _xla_attention(query, key, value, bias, kv_len, rate, seed)
+    return _xla_attention(query, key, value, bias, kv_len, rate, seed,
+                          window)
 
 
 def _xla_attention(query, key, value, bias=None, kv_len=None,
-                   dropout_rate=0.0, seed=0):
+                   dropout_rate=0.0, seed=0, window=ProbsWindow()):
     """The plain composition: f32 scores, softmax, compute-dtype probs,
     dropout on those probs."""
     scores = torch.matmul(query.float(), key.float().transpose(-1, -2))
@@ -73,7 +118,8 @@ def _xla_attention(query, key, value, bias=None, kv_len=None,
         col = torch.arange(key.shape[2], device=scores.device)
         scores = torch.where(col < kv_len, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(query.dtype)
-    probs = fused_dropout(probs, dropout_rate, seed)
+    if dropout_rate > 0.0:
+        probs = probs_dropout(probs, dropout_rate, seed, window)
     return torch.matmul(probs, value)
 
 

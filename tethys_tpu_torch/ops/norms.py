@@ -18,15 +18,29 @@ points (kernels on the card, plain versions on the CPU):
   ``apply_bwd``.
 The kernels take x and dy of one dtype, so on the card the module's dtype
 must be x's.
+
+Under tensor parallelism (a ``tp`` ``Shard``, set by parallel/tp.
+shard_model; Wav2Vec2's conv outputs are sharded over their channels) the
+module takes and returns this rank's channels [B, T, C / tp]; gamma and
+beta stay replicated, as the JAX rule table leaves them.  When tp divides
+both C and the groups, the rank's channels hold groups / tp whole groups,
+whose moments never cross ranks: the kernels run on the shard, forward and
+backward, with gamma's and beta's slices (``sharding.replicated_slice``,
+whose backward sums the slices' gradients over the group).  Otherwise the
+channels are gathered, the kernels run on the whole tensor (gamma and beta
+through ``copy_to_group``: each rank's gradient is its slice's share) and
+the rank's slice is returned.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tethys_tpu_torch.ops import group_norm
+from tethys_tpu_torch.ops import group_norm, sharding
 
 
 class LayerNorm(nn.LayerNorm):
@@ -70,7 +84,9 @@ class GroupNormFunction(torch.autograd.Function):
 class ReferenceGroupNorm(nn.Module):
     """GroupNorm over [B, T, C] with reference semantics; ``gamma`` and
     ``beta`` (the flax names, f32 but under bf16 master weights), output in
-    ``dtype``."""
+    ``dtype``; under ``tp`` on a channel shard (module doc)."""
+
+    tp: Optional[sharding.Shard] = None
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -84,7 +100,28 @@ class ReferenceGroupNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
+    def shards_whole_groups(self) -> bool:
+        """Whether each rank's channels are whole groups (tp divides the
+        channels and the groups)."""
+        size = 1 if self.tp is None else self.tp.size
+        return self.gamma.shape[0] % size == 0 and self.groups % size == 0
+
+    def _norm(self, x, gamma, beta, groups):
+        return GroupNormFunction.apply(x.contiguous(), gamma, beta, groups,
+                                       float(self.eps), self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return GroupNormFunction.apply(x.contiguous(), self.gamma, self.beta,
-                                       self.groups, float(self.eps),
-                                       self.dtype)
+        tp = self.tp
+        if tp is None or tp.size == 1:
+            return self._norm(x, self.gamma, self.beta, self.groups)
+        if self.shards_whole_groups():
+            return self._norm(x, sharding.replicated_slice(self.gamma, 0, tp),
+                              sharding.replicated_slice(self.beta, 0, tp),
+                              self.groups // tp.size)
+        channels = self.gamma.shape[0]
+        whole = sharding.gather_from_group(x, -1, tp, channels,
+                                           reduce_grad=True)
+        y = self._norm(whole, sharding.copy_to_group(self.gamma, tp),
+                       sharding.copy_to_group(self.beta, tp), self.groups)
+        start, stop = sharding.shard_range(channels, tp.size, tp.rank)
+        return y.narrow(-1, start, stop - start)

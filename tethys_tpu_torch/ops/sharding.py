@@ -22,6 +22,12 @@ The operators, each a ``torch.autograd.Function`` (Megatron's f and g):
   group when the consumer is sharded (a reduce-scatter: the gathered K and
   V of sequence parallelism, each rank's attention a partial dk, dv).
 * ``split_to_group``: forward this rank's slice, backward the all-gather.
+* ``replicated_slice``: this rank's slice of a replicated tensor (a
+  parameter every rank holds whole, used on a shard: GroupNorm's gamma and
+  beta on a channel shard, a bias beside a column-parallel kernel); its
+  backward places the slice's gradient in the whole and sums the group's,
+  so every rank gets the whole gradient (``copy_to_group`` then a
+  ``narrow``).
 
 ``TRANSPORTS`` counts the collectives by (backend, device type, op), and
 ``BYTES`` the bytes each kind moved: on one card several ranks share it
@@ -187,6 +193,17 @@ def gather_from_group(x: torch.Tensor, dim: int, shard: Optional[Shard],
 def split_to_group(x: torch.Tensor, dim: int,
                    shard: Optional[Shard]) -> torch.Tensor:
     return x if _one(shard) else _SplitToGroup.apply(x, dim, shard)
+
+
+def replicated_slice(x: torch.Tensor, dim: int,
+                     shard: Optional[Shard]) -> torch.Tensor:
+    """This rank's piece along ``dim`` (``shard_range``) of a tensor every
+    rank holds whole; the gradient that reaches ``x`` is the group's sum of
+    the pieces' gradients, the whole gradient on every rank."""
+    if _one(shard):
+        return x
+    start, stop = shard_range(x.shape[dim], shard.size, shard.rank)
+    return copy_to_group(x, shard).narrow(dim, start, stop - start)
 
 
 class SeqShard(NamedTuple):

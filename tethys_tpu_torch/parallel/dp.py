@@ -14,7 +14,8 @@
   the update runs as a few multi-tensor (``_foreach``) passes over all
   parameters.  With ``clipnorm`` each gradient is first
   clipped by its own L2 norm (Keras ``Adam(clipnorm=)``,
-  ``per_variable_clipnorm``).
+  ``per_variable_clipnorm``), a shard's by its whole variable's under
+  tensor parallelism (``squared_norms``, which the train step sets).
 * ``whisper_optimizer``: Keras defaults, eps 1e-7.  ``wav2vec2_optimizer``:
   ``per_variable_clipnorm(1.0)`` then Keras Adam with eps 1e-8 (reference
   wav2vec2_dist.py:1271-1275).
@@ -50,7 +51,20 @@
   the others from the group's first rank: each rank computed them whole,
   but the flash backward's dq atomics do not give every rank the same
   bits, and the replicas' copies of the parameters must stay equal.
+  Under tensor parallelism the replicated parameters' gradients (whole on
+  every rank of a model group) are broadcast from the group's first rank
+  likewise (cuDNN's grouped-conv weight gradient need not give every rank
+  the same bits), and the sharded ones stay each rank's own.
   Without a layout: one replica a rank (``make_data_mesh``).
+* The hardened chain over a layout, per replica (one model or seq group),
+  as the JAX step runs it on the replica's whole (GSPMD-partitioned)
+  variables: the NaN scrub and 1/N (N the data group's size); the seq
+  group's partial sums and broadcast; the global-norm clip on the norm of
+  the whole model (a sharded gradient's squares summed over the model
+  group, a replicated one counted once: ``ShardNorms``); the data group's
+  SUM (the replicated gradients in buckets of their own, so they lie at
+  the same place in every data group's buffers and keep equal bits);
+  Keras Adam's per-variable clipnorm on each whole variable's norm.
 """
 
 from __future__ import annotations
@@ -81,31 +95,69 @@ def _keras_alpha(lr: float, b1: float, b2: float, count: int) -> np.float32:
             / (one - np.float32(b1) ** c))
 
 
-def per_variable_clipnorm(grads: List[torch.Tensor],
-                          max_norm: float) -> None:
+SquaredNorms = Callable[[List[torch.Tensor]], torch.Tensor]
+
+
+def per_variable_clipnorm(grads: List[torch.Tensor], max_norm: float,
+                          squared_norms: Optional[SquaredNorms] = None
+                          ) -> None:
     """Keras ``clipnorm``: each gradient scaled in place by min(1,
-    max_norm / max(|g|, 1e-12)), its own L2 norm (not the global one)."""
+    max_norm / max(|g|, 1e-12)), its own L2 norm (not the global one).
+    ``squared_norms(grads)``: the squared norms of the whole variables
+    when ``grads`` are shards (``ShardNorms``)."""
     if not grads:
         return
-    norms = torch.stack(torch._foreach_norm(grads)).float()
+    if squared_norms is None:
+        norms = torch.stack(torch._foreach_norm(grads)).float()
+    else:
+        norms = squared_norms(grads).sqrt()
     scales = (max_norm / norms.clamp_min(1e-12)).clamp_max(1.0)
     torch._foreach_mul_(grads, list(scales.to(grads[0].dtype).unbind()))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        squared_norms: Optional[SquaredNorms] = None
+                        ) -> None:
     """optax ``clip_by_global_norm``: every gradient scaled in place by
-    max_norm / |g| when the global norm |g| is at least max_norm."""
+    max_norm / |g| when the global norm |g| is at least max_norm (of the
+    whole variables under ``squared_norms``, as per_variable_clipnorm)."""
     if not grads:
         return
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads)).float())
+    if squared_norms is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)).float())
+    else:
+        norm = squared_norms(grads).sum().sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale.to(grads[0].dtype))
 
 
+class ShardNorms:
+    """The squared L2 norms of whole variables from a model group's
+    gradients: a sharded gradient's squares summed over the group (one
+    SUM all-reduce of a vector of them), a replicated one's counted once.
+    ``sharded``: the ids of the sharded gradients' tensors."""
+
+    def __init__(self, shard: sharding.Shard, sharded):
+        self.shard = shard
+        self.sharded = sharded
+
+    def __call__(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        squares = torch.stack(torch._foreach_norm(grads)).float().square()
+        mask = torch.tensor([id(g) in self.sharded for g in grads],
+                            device=squares.device)
+        summed = sharding.all_reduce(torch.where(mask, squares, 0.0),
+                                     self.shard)
+        return torch.where(mask, summed, squares)
+
+
 class KerasAdam(torch.optim.Optimizer):
-    """tf.keras.optimizers.Adam's update rule (module doc)."""
+    """tf.keras.optimizers.Adam's update rule (module doc).
+    ``squared_norms``: the clipnorm's norms of whole variables when the
+    parameters are shards (``ShardNorms``; None: each gradient's own)."""
+
+    squared_norms: Optional[SquaredNorms] = None
 
     def __init__(self, params, lr: float = 1e-3, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-7,
@@ -131,7 +183,8 @@ class KerasAdam(torch.optim.Optimizer):
             count = self.state[params[0]]["step"]
             grads = [p.grad for p in params]
             if group["clipnorm"] is not None:
-                per_variable_clipnorm(grads, group["clipnorm"])
+                per_variable_clipnorm(grads, group["clipnorm"],
+                                      self.squared_norms)
             ms = [self.state[p]["m"] for p in params]
             vs = [self.state[p]["v"] for p in params]
             b1, b2 = group["b1"], group["b2"]
@@ -181,9 +234,11 @@ class GradientReducer:
     with ``src`` (a global rank of the group) their broadcast from it.
 
     The gradients are packed in order into flat buckets, one dtype each, a
-    new bucket begun once one holds ``BUCKET_BYTES``; each bucket is
-    all-reduced with SUM and copied back.  The buckets follow the
-    parameters that took a gradient, which is the same list on every rank.
+    new bucket begun once one holds ``BUCKET_BYTES`` (and at ``split``, so
+    that the gradients before it and those after it never share one);
+    each bucket is all-reduced with SUM and copied back.  The buckets
+    follow the parameters that took a gradient, which is the same list on
+    every rank.
     ``bytes_per_step`` is what the last step handed to ``all_reduce``
     (buckets and loss), for the collective report.  Nothing here waits for
     the device: NCCL queues the all-reduce behind the backward."""
@@ -194,10 +249,11 @@ class GradientReducer:
         self.bytes_per_step = 0
 
     @staticmethod
-    def buckets(grads: List[torch.Tensor]) -> List[List[torch.Tensor]]:
+    def buckets(grads: List[torch.Tensor],
+                split: int = 0) -> List[List[torch.Tensor]]:
         by_dtype = {}
-        for g in grads:
-            by_dtype.setdefault(g.dtype, []).append(g)
+        for i, g in enumerate(grads):
+            by_dtype.setdefault((i >= split, g.dtype), []).append(g)
         out = []
         for group in by_dtype.values():
             bucket, size = [], 0
@@ -211,12 +267,13 @@ class GradientReducer:
         return out
 
     def __call__(self, grads: List[torch.Tensor],
-                 loss: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+                 loss: Optional[torch.Tensor],
+                 split: int = 0) -> Optional[torch.Tensor]:
         """Sums ``grads`` in place over the group; returns the SUM of the
         ranks' ``loss`` (None for None)."""
         dist = torch.distributed
         moved = 0
-        for bucket in self.buckets(grads) if grads else ():
+        for bucket in self.buckets(grads, split) if grads else ():
             flat = torch.cat([g.reshape(-1) for g in bucket])
             if self.src is None:
                 dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
@@ -359,22 +416,21 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
     and, under a layout, the model's own)."""
     layout = layout or mesh.make_data_mesh()
     n_replicas = layout.data
-    if hardened and layout.inner > 1:
-        raise ValueError(
-            "the hardened step over a model or seq group (a clip of the "
-            "sharded or partial gradients) is not ported yet (ROADMAP.md, "
-            "queue 1 item 7.1: Wav2Vec2 --tp/--sp)")
-    seq = None
-    if layout.axis == "seq" and layout.inner > 1:
-        seq = sharding.Shard(layout.inner_group, layout.inner,
-                             layout.inner_rank)
+    inner = None
+    if layout.inner > 1:
+        inner = sharding.Shard(layout.inner_group, layout.inner,
+                               layout.inner_rank)
+    seq = inner if layout.axis == "seq" else None
+    model_group = inner if layout.axis == "model" else None
     reducer = (None if layout.data_group is None
                else GradientReducer(layout.data_group))
-    seq_reducer = seq_broadcast = None
+    seq_reducer = broadcast = None
+    if inner is not None:
+        # The replica's copies from the group's first rank.
+        broadcast = GradientReducer(inner.group,
+                                    src=layout.data_rank * layout.inner)
     if seq is not None:
         seq_reducer = GradientReducer(seq.group)
-        seq_broadcast = GradientReducer(
-            seq.group, src=layout.data_rank * layout.inner)
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be at least 1")
     if remat:
@@ -402,25 +458,36 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                                        grad_accum, value_and_grad)
             else:
                 loss, aux = value_and_grad(state.model, batch, generator)
-        if seq_reducer is not None:
-            partial = seq_sharded_prefixes(state.model)
-            named = [(n, p.grad) for n, p in state.model.named_parameters()
-                     if p.grad is not None]
-            # The row-sharded submodules' partial sums; every other
-            # gradient as the group's first rank computed it.
-            seq_reducer([g for n, g in named if n.startswith(partial)], None)
-            seq_broadcast([g for n, g in named if not n.startswith(partial)],
-                          None)
-        grads = [p.grad for p in state.model.parameters()
+        named = [(n, p.grad) for n, p in state.model.named_parameters()
                  if p.grad is not None]
-        if hardened:
-            clip_by_global_norm(grads, 1.0)   # per replica, before the sum
+        own, norms = [], None
+        if seq_reducer is not None:
+            # The row-sharded submodules' partial sums.
+            prefixes = seq_sharded_prefixes(state.model)
+            own = [g for n, g in named if n.startswith(prefixes)]
+            seq_reducer(own, None)
+        elif model_group is not None:
+            # Each rank's own shards.
+            sizes = getattr(state.model, "_tp_full_sizes", {})
+            own = [g for n, g in named if n in sizes]
+            norms = ShardNorms(model_group, {id(g) for g in own})
+        # Every other gradient as the group's first rank computed it,
+        # first in the list, so that the reducer buckets it apart.
+        mine = {id(g) for g in own}
+        replicated = [g for _, g in named if id(g) not in mine]
+        grads = replicated + own
+        if broadcast is not None:
+            broadcast(replicated, None)
+        if hardened:   # per replica, before the sum
+            clip_by_global_norm(grads, 1.0, norms)
         if reducer is not None:
-            loss = reducer(grads, loss)
+            loss = reducer(grads, loss, split=len(replicated))
+        if isinstance(optimizer, KerasAdam):
+            optimizer.squared_norms = norms
         moved = {kind: n - before.get(kind, 0)
                  for kind, n in sharding.BYTES.items()
                  if n > before.get(kind, 0)}
-        for r in (seq_reducer, seq_broadcast, reducer):
+        for r in (seq_reducer, broadcast, reducer):
             if r is not None:
                 kind = "all-reduce" if r.src is None else "broadcast"
                 moved[kind] = moved.get(kind, 0) + r.bytes_per_step

@@ -3,21 +3,24 @@
 A world of n processes laid out (n // sp, sp) (parallel/mesh.
 make_seq_mesh): the batch is split over the data group, and each seq group
 holds one replica with every parameter replicated.  Inside the replica the
-Whisper encoder's time axis is split over the seq group
-(models/whisper.py under ``ops.sharding.seq_axis_rules``, which the step
-installs): the stem runs whole on every rank, the layers on the rank's
-rows (attention against K and V gathered over the group), and the rows are
-gathered before the final LayerNorm, the decoder and the loss.
+encoder's time axis is split over the seq group (models/whisper.py and
+models/wav2vec2.py under ``ops.sharding.seq_axis_rules``, which the step
+installs): Whisper's stem and Wav2Vec2's feature encoder and quantizer run
+whole on every rank, the encoder layers on the rank's rows (attention
+against K and V gathered over the group), and the rows are gathered before
+Whisper's final LayerNorm and decoder, or as Wav2Vec2's encoder output
+leaves it for the heads and the loss.
 
-So a parameter of an encoder layer (the model's ``seq_sharded``
-submodules) has a partial gradient on each rank (its rows' share), summed
-over the seq group once (parallel/dp.py); every other parameter
-(the stem, the final LayerNorm, the decoder) has the whole gradient on
-every rank and is not summed over the seq group: it is broadcast from the
-group's first rank, since the flash backward's atomics leave the ranks'
-bits a rounding apart and the copies of a replica must not drift.  Then,
-as in the JAX step, the gradients and the logged loss are summed over the
-data group only.
+So a parameter of the model's ``seq_sharded`` submodules (the encoder
+layers; Wav2Vec2's weighted layer sum too) has a partial gradient on each
+rank (its rows' share), summed over the seq group once (parallel/dp.py);
+every other parameter has the whole gradient on every rank and is not
+summed over the seq group: it is broadcast from the group's first rank,
+since the flash backward's atomics (and cuDNN's convolution backward)
+leave the ranks' bits a rounding apart and the copies of a replica must
+not drift.  Then, as in the JAX step, the gradients and the logged loss
+are summed over the data group only; the hardened step (Wav2Vec2) clips
+after the seq group's sums (parallel/dp.py's module doc).
 """
 
 from __future__ import annotations

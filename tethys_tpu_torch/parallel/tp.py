@@ -9,12 +9,17 @@ spec to the dim of the port's tensor, whose Linear and Conv weights are
 flax's kernels transposed, so a column-parallel kernel P(None, "model") is
 dim 0 of the torch weight):
 
-* column-parallel: q/k/v, fc1 (their biases too) and lm_head;
-* row-parallel: out_proj and fc2, their biases replicated (added once,
-  after the group's sum: models/whisper.py);
-* the embedding over its vocab, the conv kernels and biases over their
-  output channels, Wav2Vec2's codevectors and codevector projection;
-* everything else replicated.
+* column-parallel: q/k/v, fc1 and intermediate_dense (their biases too)
+  and lm_head (Wav2Vec2's CTC bias replicated);
+* row-parallel: out_proj, fc2 and output_dense, their biases replicated
+  (added once, after the group's sum: models/whisper.py, wav2vec2.py);
+* the embedding over its vocab, the conv kernels over their output
+  channels (Whisper's conv biases too; Wav2Vec2's grouped positional conv
+  replicated), Wav2Vec2's codevectors over V and their input projection;
+* everything else replicated: the norms (Wav2Vec2's GroupNorm gamma and
+  beta on a channel shard take their slices, ops/sharding.
+  replicated_slice), the positional conv, the feature projection, the
+  pretraining heads.
 
 A rank holds exactly the shard JAX's ``param_shardings`` gives its device.
 A dim the group does not divide, which JAX's NamedSharding refuses (the
@@ -202,14 +207,22 @@ def shard_optimizer_state(optimizer_state: dict, optimizer, model,
 
 def check_divides(config, tp: int, name: str = "") -> None:
     """Raises unless ``tp`` divides the heads, d_model and d_ff of a
-    Whisper config (the vocab may split unevenly)."""
-    sizes = {"encoder_attention_heads": config.encoder_attention_heads,
-             "decoder_attention_heads": config.decoder_attention_heads,
-             "d_model": config.d_model, "d_ff": config.d_ff}
+    Whisper config, or the heads and intermediate_size of a Wav2Vec2 one
+    (the vocab, the conv channels and the codevectors may split
+    unevenly)."""
+    if hasattr(config, "num_attention_heads"):
+        family = "Wav2Vec2"
+        sizes = {"num_attention_heads": config.num_attention_heads,
+                 "intermediate_size": config.intermediate_size}
+    else:
+        family = "Whisper"
+        sizes = {"encoder_attention_heads": config.encoder_attention_heads,
+                 "decoder_attention_heads": config.decoder_attention_heads,
+                 "d_model": config.d_model, "d_ff": config.d_ff}
     bad = {k: v for k, v in sizes.items() if v % tp}
     if bad:
         raise ValueError(f"tp={tp} does not divide {bad} of "
-                         f"{name or 'the Whisper config'} {sizes}")
+                         f"{name or f'the {family} config'} {sizes}")
 
 
 def shard_model(model: torch.nn.Module, layout: Layout) -> torch.nn.Module:

@@ -3,10 +3,15 @@ hlo_comm.py's file).
 
 The JAX job sums the payload of every collective in the train step's
 compiled HLO.  The port's step issues its collectives itself, so the bytes
-are what it hands to ``all_reduce`` each step (``dp.GradientReducer``: the
-gradient buckets and the loss).  The file, ``<task>_<idx>_collectives.txt``
-beside the JCT file, has the JAX file's format: ``kind,bytes_per_step``,
-one line per kind, then ``total``.
+are what it hands to each kind each step (``dp.make_train_step``'s
+``collective_bytes``): the data group's gradient buckets and loss
+(``all-reduce``) and, under a (data, model) or (data, seq) layout, the
+model's own collectives (ops/sharding.py: the row-parallel sums, the
+gathered channels, K and V or logits, the shard norms of the clips) and
+the replicated gradients' broadcast over the model or seq group
+(``broadcast``).  The file, ``<task>_<idx>_collectives.txt`` beside the
+JCT file, has the JAX file's format: ``kind,bytes_per_step``, one line per
+kind, then ``total``.
 """
 
 from __future__ import annotations

@@ -20,16 +20,18 @@ the replicas (``parallel/dp``), rank 0 writes the checkpoints, and
 ``collective_report=True`` writes ``<task>_<idx>_collectives.txt`` on
 every rank.
 
-Whisper's tensor and sequence parallelism (``tensor_parallel``,
-``seq_parallel``, mutually exclusive as in JAX): the world is laid out
-(data, model) or (data, seq) (parallel/mesh); each data replica feeds its
-``batch_size_per_replica`` rows, every rank of a replica the same ones
-with the same generator (the loop's replica is the data coordinate).
-Under tensor parallelism the whole model is made on the CPU from the seed
-and each rank moves its shards to the card (parallel/tp.shard_model); the
-checkpoints and final weights are gathered whole (checkpoint.py).  PP and
-Wav2Vec2's TP and SP are refused by the CLIs (jobs/) and wait in
-ROADMAP.md.
+Tensor and sequence parallelism, both families (``tensor_parallel``,
+``seq_parallel``, mutually exclusive as in JAX; ``parallel_layout``): the
+world is laid out (data, model) or (data, seq) (parallel/mesh); each data
+replica feeds its ``batch_size_per_replica`` rows, every rank of a replica
+the same ones with the same generator (the loop's replica is the data
+coordinate, so a model or seq group draws the same negatives and dropout
+seeds).  Under tensor parallelism the whole model is made on the CPU from
+the seed and each rank moves its shards to the card (parallel/tp.
+shard_model); the checkpoints and final weights are gathered whole
+(checkpoint.py) and restore into any layout.  Wav2Vec2 runs the hardened
+step over the layout (parallel/dp.py's module doc).  PP is refused by the
+CLIs (jobs/) and waits in ROADMAP.md.
 
 The single-card capacity modes of the JAX jobs: ``remat`` (the whole loss
 checkpointed, parallel/dp), ``grad_accum`` (microbatches accumulated in
@@ -91,9 +93,9 @@ class TrainJob(NamedTuple):
     config: Union[WhisperConfig, Wav2Vec2Config]
 
 
-def whisper_layout(tensor_parallel: int = 1,
-                   seq_parallel: int = 1) -> mesh.Layout:
-    """The layout of a Whisper job (JAX jobs.py:181-197): (data, model)
+def parallel_layout(tensor_parallel: int = 1,
+                    seq_parallel: int = 1) -> mesh.Layout:
+    """The layout of a job (JAX jobs.py:181-197, :386-395): (data, model)
     under ``tensor_parallel``, (data, seq) under ``seq_parallel``, else one
     replica a rank."""
     if tensor_parallel > 1 and seq_parallel > 1:
@@ -124,9 +126,9 @@ def make_whisper_job(
 ) -> TrainJob:
     """The model with ``master_dtype`` master weights (in train mode), the
     plain step with ``whisper_optimizer``, ``remat`` and ``grad_accum``,
-    the synthetic dataset; over ``whisper_layout(tensor_parallel,
+    the synthetic dataset; over ``parallel_layout(tensor_parallel,
     seq_parallel)``."""
-    layout = whisper_layout(tensor_parallel, seq_parallel)
+    layout = parallel_layout(tensor_parallel, seq_parallel)
     device = require_cuda() if device is None else torch.device(device)
     sharded = layout.axis == "model" and layout.inner > 1
     # create_whisper_model draws the weights in f32 and casts them once;
@@ -307,21 +309,35 @@ def make_wav2vec2_job(
     remat: bool = False,
     grad_accum: int = 1,
     master_dtype: str = "float32",
+    tensor_parallel: int = 1,
+    seq_parallel: int = 1,
 ) -> TrainJob:
     """The model with ``master_dtype`` master weights (in train mode), the
     hardened step with ``wav2vec2_optimizer``, ``remat`` and
-    ``grad_accum``, the synthetic dataset.  Each step (each microbatch
+    ``grad_accum``, the synthetic dataset; over ``parallel_layout(
+    tensor_parallel, seq_parallel)``.  Each step (each microbatch
     under ``grad_accum``) draws its contrastive negatives, then its dropout
     seeds, from its CPU generator.  ``profile_values``: the step returns
     (state, loss, aux),
     the aux the value skews of the input and of the loss aux's tensors of
     more than one element, with the skews of the summed gradients under
-    ``grad_aux``, by flax path."""
+    ``grad_aux``, by flax path (one replica a rank only: the tensorsize
+    jobs take no parallel flag)."""
+    layout = parallel_layout(tensor_parallel, seq_parallel)
+    if profile_values and layout.inner > 1:
+        raise ValueError("profile_values takes one replica a rank (the "
+                         "tensorsize jobs take no parallel flag)")
     device = require_cuda() if device is None else torch.device(device)
+    sharded = layout.axis == "model" and layout.inner > 1
+    # Under tensor parallelism made on the CPU, and each rank moves its
+    # shards.
     model, config = wav2vec2_lib.create_full_model(
-        model_type, model_size, device=device, seed=seed, real_ctc=real_ctc,
-        param_dtype=resolve_dtype(master_dtype), compute_dtype=compute_dtype,
-        **(config_overrides or {}))
+        model_type, model_size, device="cpu" if sharded else device,
+        seed=seed, real_ctc=real_ctc, param_dtype=resolve_dtype(master_dtype),
+        compute_dtype=compute_dtype, **(config_overrides or {}))
+    if sharded:
+        tp.check_divides(config, layout.inner, f"wav2vec2 {model_size}")
+        model = tp.shard_model(model, layout).to(device)
     model.train()
     optimizer = dp.wav2vec2_optimizer(model.parameters(), learning_rate)
     frames = config.downsampled_length(audio_length)
@@ -365,8 +381,8 @@ def make_wav2vec2_job(
     return TrainJob(
         dp.make_train_step(loss_fn, optimizer, hardened=True,
                            return_aux=profile_values, grad_aux_fn=grad_aux_fn,
-                           remat=remat, grad_accum=grad_accum),
-        dp.TrainState(model, optimizer),
+                           remat=remat, grad_accum=grad_accum, layout=layout),
+        dp.TrainState(model, optimizer, layout),
         data_lib.create_wav2vec2_dummy_dataset(batch_size_per_replica,
                                                audio_length=audio_length),
         prepare_batch, config)
@@ -394,20 +410,24 @@ def train_wav2vec2(
     collective_report: bool = False,
     remat: bool = False,
     grad_accum: int = 1,
+    tensor_parallel: int = 1,
+    seq_parallel: int = 1,
 ):
     """End-to-end Wav2Vec2 training (reference train_wav2vec2,
     speech_jobs/wav2vec2_dist.py:1263-1376): pretraining, asr or
     classification (``make_wav2vec2_job``) through the resilient loop with
     50-step and per-epoch checkpoints tagged ``model``.  With ``profiler``,
     the tensorsize and per-value skewness instrumentation of
-    wav2vec2_dist_tensorsize.py (module doc); ``remat`` and ``grad_accum``
-    as in the module doc.  Returns (result, model, config)."""
+    wav2vec2_dist_tensorsize.py (module doc); ``remat``, ``grad_accum``,
+    ``tensor_parallel`` and ``seq_parallel`` as in the module doc.  Returns
+    (result, model, config)."""
     profiling = profiler is not None
     job = make_wav2vec2_job(
         model_type, model_size, batch_size_per_replica, learning_rate,
         compute_dtype, seed, audio_length, real_ctc, config_overrides, device,
         profile_values=profiling and profile_values, remat=remat,
-        grad_accum=grad_accum)
+        grad_accum=grad_accum, tensor_parallel=tensor_parallel,
+        seq_parallel=seq_parallel)
     if profiling:
         profiler.log_model_parameters(job.state.model)
         step_hooks = tuple(step_hooks) + (_profiler_hooks(
@@ -422,7 +442,8 @@ def train_wav2vec2(
         num_epochs=num_epochs, max_iterations=num_batches,
         prepare_batch=job.prepare_batch, checkpoint_manager=ckpt,
         checkpoint_every_steps=50 if checkpointing else None,
-        checkpoint_tag="model", resilient=True, step_hooks=step_hooks)
+        checkpoint_tag="model", resilient=True, step_hooks=step_hooks,
+        replica=job.state.layout.data_rank)
     if collective_report:
         _emit_collective_report(job.step_fn)
     return result, job.state.model, job.config
