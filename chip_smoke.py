@@ -68,8 +68,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    flash bench: phase 14, frontend: phase 15, training bench: phase 16,
    resume: phase 17, data parallel: phase 18, tensorsize: phase 19,
    capacity: phase 20, parallel: phase 21 (a, b, c, e), Wav2Vec2
-   parallel: phase 22 (a, b, c), with the launches of the processes they
-   start)
+   parallel: phase 22 (a, b, c), pipeline: phase 23, with the launches of
+   the processes they start)
    and read after it; every kernel of a path must have launched during it,
    and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
    as often as gn_grad_sums;
@@ -166,7 +166,7 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    take CUDA tensors, and the process's are logged by (backend, device,
    op)): (a) python -m tethys_tpu_torch.jobs.whisper_dist --model_size
    large-v3 --tp 2 --remat_layers --batch_size 1 --num_batches 4 --dtype
-   bfloat16 --backend gloo from torchrun's env, large-v3 cut to 16 + 16
+   bfloat16 --backend gloo from torchrun's env, large-v3 cut to 8 + 8
    of its 32 + 32 layers at its full width (PAR_V3_DEPTH): both ranks exit 0 with one
    finite loss a step, launch flash_fwd_dropout, flash_bwd, split_heads,
    merge_heads and dropout, and hold at most 0.55 of the unsharded f32
@@ -206,7 +206,24 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    against their plain versions, timed beside F.group_norm; dropout.cu on
    the [8, 12, 99, 99] probabilities' head window (6 of 12) and query-row
    window (49 of 99), each equal to its plain version and to the slice of
-   the whole launch, timed beside F.dropout.
+   the whole launch, timed beside F.dropout;
+23. Whisper's pipeline parallelism, 2 gloo ranks sharing the card, as in
+   21: (a) python -m tethys_tpu_torch.jobs.whisper_dist --pp 2
+   --microbatches 2 --batch_size 4 --num_batches 4 --dtype bfloat16
+   --backend gloo from torchrun's env (whisper-small, f32 masters, dropout
+   on): both ranks exit 0 with the same finite losses, launch split_heads,
+   merge_heads, flash_fwd_dropout, flash_bwd and dropout, hold 0.90-0.91
+   of the whole f32 parameters and Adam moments, report exactly
+   18,432,000 bytes of collective-permute a step (2 directions x 2
+   microbatches x [2, 1500, 768] bf16) and end with their replicated
+   parameters bitwise equal; ms/step and peak memory are logged; rank 0's
+   whole checkpoint restores with --resume into a --pp 1 run; (b)
+   whisper-base f32, rates 0, b4, one Keras-Adam step over (data 1, stage
+   2) with 4 microbatches and remat against the plain step in one
+   process: the loss within 1e-5 relative, gradients and parameters
+   within phase 6's bounds, the replicated parameters bitwise equal on
+   both ranks, the encoder's flash forward launched at the microbatch
+   shape once a layer and microbatch and once more in remat's replay.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -286,6 +303,9 @@ PATH_KERNELS = {
                  "dropout_window", "decode_self", "q8_cross"),
     "w2v_parallel": ("gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd",
                      "dropout", "dropout_window"),
+    # Each rank of 23(a) launches every one of them.
+    "pipeline": ("split_heads", "merge_heads", "flash_fwd_dropout",
+                 "flash_bwd", "dropout"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -3147,10 +3167,11 @@ def run_convergence() -> None:
 # the collectives' speed.
 PAR_RANKS = 2
 PAR_V3_STEPS = 4
-# 21(a)'s depth: 16 + 16 of large-v3's 32 + 32 layers at its full width,
-# which keeps the whole script well inside its time limit (the model's
-# making, its checkpoint and the resume scale with the depth).
-PAR_V3_DEPTH = 16
+# 21(a)'s depth: 8 + 8 of large-v3's 32 + 32 layers at its full width,
+# which keeps the whole script, phase 23 included, well inside its time
+# limit (the model's making, its checkpoint and the resume scale with the
+# depth).
+PAR_V3_DEPTH = 8
 PAR_SP_STEPS = 4
 PAR_STEPS = 2
 PAR_BATCH = 2           # rows a replica in (b), (c) and (e)
@@ -3379,13 +3400,15 @@ def run_tp_large_v3(gpu: str, child: dict) -> None:
 
 
 def par_rank(mode: str, rank: str, port: str, out_dir: str) -> int:
-    """A rank of phase 21(b, e), (c) or 22(c) (``chip_smoke.py --par_rank
-    MODE R PORT DIR``): "tp" whisper-base f32 over (data 1, model 2): 2
-    Keras-Adam steps, rates 0, then greedy decoding (kv_quant none and
-    int8); "sp" whisper-small f32 over (data 1, seq 2), the config's
-    dropout and activation_dropout, attention's 0; "w2v_tp" and "w2v_sp"
-    wav2vec2-base f32 over (data 1, model 2) and (data 1, seq 2): 2
-    hardened steps at rate 0, then at the config's dropout."""
+    """A rank of phase 21(b, e), (c), 22(c) or 23(b) (``chip_smoke.py
+    --par_rank MODE R PORT DIR``): "tp" whisper-base f32 over (data 1,
+    model 2): 2 Keras-Adam steps, rates 0, then greedy decoding (kv_quant
+    none and int8); "sp" whisper-small f32 over (data 1, seq 2), the
+    config's dropout and activation_dropout, attention's 0; "w2v_tp" and
+    "w2v_sp" wav2vec2-base f32 over (data 1, model 2) and (data 1, seq 2):
+    2 hardened steps at rate 0, then at the config's dropout; "pp"
+    whisper-base f32 over (data 1, stage 2): one PP step (``pp_steps``),
+    every rank's results saved."""
     sys.path.insert(0, ROOT)
     from tethys_tpu_torch.ops import flash_attention
     from tethys_tpu_torch.ops import sharding
@@ -3423,6 +3446,10 @@ def par_rank(mode: str, rank: str, port: str, out_dir: str) -> int:
                 with deterministic_cudnn():
                     out = par_steps(dev, "small", layout,
                                     {"attention_dropout": 0.0})
+            elif mode == "pp":   # 23(b)
+                layout = mesh.make_pp_mesh(PAR_RANKS)
+                with deterministic_cudnn():
+                    out = pp_steps(dev, layout)
             else:   # 22(c): Wav2Vec2 over (data 1, model 2) or (data 1, seq 2)
                 layout = (mesh.make_2d_mesh(model_parallel=PAR_RANKS)
                           if mode == "w2v_tp" else
@@ -3435,8 +3462,8 @@ def par_rank(mode: str, rank: str, port: str, out_dir: str) -> int:
     out.update(launches=kernel_lib.launch_counts(), flash_shapes=shapes,
                transports={" ".join(k): n
                            for k, n in sharding.TRANSPORTS.items()})
-    if rank == "0":
-        torch.save(out, os.path.join(out_dir, "rank_0.pt"))
+    if rank == "0" or mode == "pp":
+        torch.save(out, os.path.join(out_dir, f"rank_{rank}.pt"))
     return 0
 
 
@@ -3520,7 +3547,8 @@ def par_decode(device, kv_quant: str, fused: bool, layout) -> dict:
 
 def par_world(mode: str) -> dict:
     """Rank 0's results of a 2-rank ``par_rank`` world on the card, with
-    both ranks' outputs logged when one fails."""
+    the other ranks' under "others" where they saved theirs, and both
+    ranks' outputs logged when one fails."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         port = str(free_port())
         procs = [subprocess.Popen(
@@ -3531,19 +3559,25 @@ def par_world(mode: str) -> dict:
         require(all(p.returncode == 0 for p in procs), f"a {mode} rank "
                 "failed:\n" + "\n----\n".join(o[-3000:] for o in outs))
         out = torch.load(os.path.join(tmp, "rank_0.pt"))
-    add_counts(PAR_TRANSPORTS, out["transports"])
+        out["others"] = [torch.load(os.path.join(tmp, f"rank_{r}.pt"))
+                         for r in range(1, PAR_RANKS)
+                         if os.path.exists(os.path.join(tmp, f"rank_{r}.pt"))]
+    for run in [out] + out["others"]:
+        add_counts(PAR_TRANSPORTS, run["transports"])
     return out
 
 
 def check_par_steps(name: str, got: dict, want: dict,
-                    lr: float = PAR_LR) -> None:
-    """Phase 6's tolerances: losses 1e-4 relative, each gradient within
-    1e-3 of the reference's norm + 1e-6, parameters within 2 * lr *
-    steps (Keras Adam moves a weight by about lr * sign(g) a step)."""
+                    lr: float = PAR_LR, steps: int = PAR_STEPS,
+                    loss_rel: float = 1e-4) -> None:
+    """Phase 6's tolerances: losses 1e-4 relative (or ``loss_rel``), each
+    gradient within 1e-3 of the reference's norm + 1e-6, parameters within
+    2 * lr * steps (Keras Adam moves a weight by about lr * sign(g) a
+    step)."""
     log(f"  {name}: losses {got['losses']}, one process {want['losses']}")
     check(f"{name} losses (relative)",
           max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
-                                                   want["losses"])), 1e-4)
+                                                   want["losses"])), loss_rel)
     require(set(got["grads"]) == set(want["grads"]),
             f"{name}: gradients of {set(got['grads']) ^ set(want['grads'])}")
     worst = 0.0
@@ -3562,7 +3596,7 @@ def check_par_steps(name: str, got: dict, want: dict,
           abs(norms[0] - norms[1]) / norms[1], 1e-3)
     check(f"{name} parameters after the last step",
           max(max_err(got["params"][n], p)
-              for n, p in want["params"].items()), 2 * lr * PAR_STEPS)
+              for n, p in want["params"].items()), 2 * lr * steps)
 
 
 def run_tp_equality(child: dict) -> None:
@@ -3979,6 +4013,187 @@ def run_w2v_shard_kernels(gpu: str) -> None:
     log(f"  22(d) ({gpu})")
 
 
+# Phase 23: Whisper's pipeline parallelism, 2 gloo ranks sharing the card
+# as in phases 21-22: correctness, each rank's memory and the hops' bytes,
+# not a hop's speed over NVLink.
+PP_STEPS = 4
+PP_BATCH = 4            # 23(a): rows a replica, 2 microbatches of 2
+PP_EQ_MICRO = 4         # 23(b): whisper-base b4, 4 microbatches, remat
+# 23(a)'s hops a step: 2 directions x 2 microbatches x [2, 1500, 768] bf16.
+PP_PERMUTE_BYTES = 2 * 2 * (2 * 1500 * 768 * 2)
+# One rank's params + Adam over the whole: whisper-small's 4 encoder
+# layers are 28,351,488 of its 147,781,632 parameters, half of them a
+# rank.
+PP_SHARE = (0.90, 0.91)
+
+
+def read_collectives(path: str) -> dict:
+    """A collective report (profiling/comm.py): {kind: bytes a step}."""
+    with open(path) as fh:
+        rows = [line.strip().split(",") for line in fh if line.strip()]
+    return {kind: int(n) for kind, n in rows[1:]}
+
+
+def run_pp_cli(gpu: str, child: dict) -> None:
+    """Phase 23(a): whisper_dist --pp 2 --microbatches 2 --batch_size 4
+    --dtype bfloat16 --num_batches 4 --backend gloo (whisper-small, f32
+    masters, dropout on) from torchrun's env, two ranks on the card: both
+    exit 0 with the same finite losses, launch PATH_KERNELS["pipeline"],
+    hold PP_SHARE of the whole f32 parameters and Adam moments, report
+    PP_PERMUTE_BYTES of "collective-permute" a step and end with their
+    replicated parameters bitwise equal; rank 0's whole checkpoint then
+    restores with --resume into a --pp 1 run."""
+    whole = whisper_numel("small") * 4 * 3              # f32 params, m, v
+    flags = ("--batch_size", str(PP_BATCH), "--dtype", "bfloat16")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        t0 = time.perf_counter()
+        runs = par_cli(ws, PAR_RANKS, *flags, "--pp", "2", "--microbatches",
+                       "2", "--num_batches", str(PP_STEPS), "--backend",
+                       "gloo")
+        seconds = time.perf_counter() - t0
+        for r, run in enumerate(runs):
+            add_counts(child, run["counts"])
+            mem = run["memory"]
+            share = (mem["param_bytes"] + mem["adam_bytes"]) / whole
+            ms = ((run["steps"][-2][2] - run["steps"][0][2])
+                  / (PP_STEPS - 2) * 1e3)
+            report = read_collectives(os.path.join(
+                ws, "chip_smoke", f"worker_{r}_collectives.txt"))
+            log(f"  23(a) rank {r}: losses {run['losses']}, {ms:.2f} ms/step "
+                f"over steps 1-{PP_STEPS - 2} (two gloo ranks sharing one "
+                f"card: not NVLink's speed), peak "
+                f"{mem['peak_bytes'] / 2 ** 30:.3f} GiB, params + Adam "
+                f"{(mem['param_bytes'] + mem['adam_bytes']) / 2 ** 30:.3f} "
+                f"GiB = {share:.4f} of the whole {whole / 2 ** 30:.3f} GiB; "
+                f"collective report {report}; seconds "
+                f"{ {k: round(v, 1) for k, v in mem.items() if k.startswith('s_')} }; "
+                f"launches {run['counts']}; collectives {run['transports']} "
+                f"({gpu})")
+            require([i for i, _, _ in run["steps"]] == list(range(PP_STEPS))
+                    and all(np.isfinite(run["losses"])),
+                    f"23(a) rank {r}'s step lines {run['steps']}")
+            require(f"process group: gloo, rank {r} of {PAR_RANKS}"
+                    in run["out"], f"23(a) rank {r} joined no gloo group")
+            require(PP_SHARE[0] <= share <= PP_SHARE[1], f"23(a) rank {r} "
+                    f"holds {share:.4f} of the whole params and Adam moments")
+            missing = [k for k in PATH_KERNELS["pipeline"]
+                       if not run["counts"][k]]
+            require(not missing, f"23(a) rank {r} launched no {missing}")
+            require(report.get("collective-permute") == PP_PERMUTE_BYTES,
+                    f"23(a) rank {r}'s hops moved {report} a step, not "
+                    f"{PP_PERMUTE_BYTES} bytes")
+        require(runs[0]["losses"] == runs[1]["losses"],
+                "23(a): the two ranks logged other losses")
+        digests = [{n: d for n, d in run["memory"]["replicated"].items()
+                    if not n.startswith("model.encoder.layers.")}
+                   for run in runs]
+        differ = [n for n, d in digests[0].items() if digests[1][n] != d]
+        require(not differ, f"23(a): replicated parameters differ across "
+                f"the ranks: {differ[:5]}")
+        log(f"  23(a) {len(digests[0])} replicated parameters bitwise equal "
+            f"on both ranks; the world took {seconds:.1f} s")
+        t0 = time.perf_counter()
+        (resumed,) = par_cli(ws, 1, *flags, "--num_batches", "1", "--resume")
+        add_counts(child, resumed["counts"])
+        require("Resumed from checkpoint whisper_small_epoch_1"
+                in resumed["out"], "23(a): the --pp 1 run did not resume "
+                "rank 0's checkpoint")
+        require(len(resumed["losses"]) == 1
+                and np.isfinite(resumed["losses"]).all(),
+                f"23(a): resumed losses {resumed['losses']}")
+        log(f"  23(a) --resume into --pp 1: loss {resumed['losses']}, peak "
+            f"{resumed['memory']['peak_bytes'] / 2 ** 30:.3f} GiB, "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def pp_steps(device, layout) -> dict:
+    """One Keras-Adam step of whisper-base in f32, rates 0, from SEED on
+    PP_BATCH rows of the synthetic dataset: over ``layout`` the PP step
+    with PP_EQ_MICRO microbatches and remat, without one (None) the plain
+    step in one process.  The loss, the whole gradients the optimizer
+    takes and the whole parameters after the step (on the host), the
+    replicated parameters and the step's collective bytes."""
+    from tethys_tpu_torch import data
+    from tethys_tpu_torch.models.whisper import create_whisper_model
+    from tethys_tpu_torch.parallel import dp, pp
+
+    model, _ = create_whisper_model(MODEL, device="cpu", seed=SEED,
+                                    param_dtype=torch.float32, **NO_DROPOUT)
+    if layout is not None:
+        pp.split_stages(model, layout)
+    model.to(device).train()
+    opt = dp.whisper_optimizer(model.parameters(), PAR_LR)
+    if layout is None:
+        step = dp.make_train_step(
+            lambda m, b, g: (m(b[0], labels=b[1], generator=g)["loss"], {}),
+            opt)
+    else:
+        step = pp.make_pp_train_step(model, opt, layout, PP_EQ_MICRO,
+                                     remat=True)
+
+    def whole(tensors):
+        host = {n: t.detach() for n, t in tensors.items()}
+        if layout is not None:
+            host = pp.gather_named(host, model, layout)
+        return {n: t.float().cpu() for n, t in host.items()}
+
+    grads, adam_step = [], opt.step
+
+    def record():
+        grads.append(whole({n: p.grad for n, p in model.named_parameters()
+                            if p.grad is not None}))
+        adam_step()
+
+    opt.step = record
+    features, labels = next(iter(data.create_whisper_dummy_dataset(
+        PP_BATCH)))
+    _, loss = step(dp.TrainState(model, opt, layout),
+                   (torch.from_numpy(features).to(device),
+                    torch.from_numpy(labels).to(device)),
+                   dp.step_generator(SEED, 0))
+    return {"losses": [loss.item()], "grads": grads[0],
+            "params": whole(dict(model.named_parameters())),
+            "replicated": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()
+                           if not n.startswith(pp.LAYERS)},
+            "collective_bytes": dict(step.collective_bytes)}
+
+
+def run_pp_equality(child: dict) -> None:
+    """Phase 23(b): one PP step of whisper-base f32 over (data 1, stage
+    2), 3 layers a stage, M = 4 with remat, two gloo ranks on the card
+    (cuDNN deterministic), against the plain step in one process on the
+    same weights and batch: the loss within 1e-5 relative, gradients and
+    parameters within phase 6's bounds (as 21(b)); the replicated
+    parameters bitwise equal on both ranks; the encoder's flash forward
+    launched at the microbatch shape, twice a layer (remat's replay)."""
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    got = par_world("pp")
+    ranks = [got] + got["others"]
+    require(len(ranks) == PAR_RANKS, "23(b): a rank saved no results")
+    for r, run in enumerate(ranks):
+        add_counts(child, run["launches"])
+        log(f"  23(b) rank {r}: collective bytes {run['collective_bytes']}, "
+            f"flash launches at (Tq, Tk) "
+            f"{ {sh: run['flash_shapes'].count(sh) for sh in set(run['flash_shapes'])} }")
+        encoder = run["flash_shapes"].count((1500, 1500))
+        require(encoder == 2 * 3 * PP_EQ_MICRO, f"23(b) rank {r}: "
+                f"{encoder} encoder flash launches, not one a microbatch a "
+                "layer and its replay")
+    with deterministic_cudnn():
+        want = pp_steps(require_cuda(), None)
+    check_par_steps(f"23(b) PP whisper-base f32, M {PP_EQ_MICRO} with remat",
+                    got, want, steps=1, loss_rel=1e-5)
+    other = got["others"][0]["replicated"]
+    differ = [n for n, p in got["replicated"].items()
+              if not torch.equal(p, other[n])]
+    require(not differ, f"23(b): replicated parameters differ across the "
+            f"ranks: {differ[:5]}")
+    log(f"  23(b) {len(other)} replicated parameters bitwise equal on both "
+        "ranks")
+
+
 def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -4108,7 +4323,8 @@ def main() -> int:
     run_dropout_window(gpu, results)
     child = {}
     parallel = drive_path("parallel", (
-        ("[21a] whisper_dist --tp 2 at whisper-large-v3 (16 + 16 layers), "
+        (f"[21a] whisper_dist --tp 2 at whisper-large-v3 ({PAR_V3_DEPTH} + "
+         f"{PAR_V3_DEPTH} layers), "
          "remat_layers, b1 "
          "bf16, two gloo ranks on the card", run_tp_large_v3, gpu, child),
         ("[21b, e] TP whisper-base f32 steps and greedy decoding, two gloo "
@@ -4131,17 +4347,24 @@ def main() -> int:
         ("[22c] TP and SP wav2vec2-base f32 hardened steps, rates 0 and "
          "dropout on, against one process", run_w2v_par_equality, child)),
         child_counts=child)
-    log(f"  21, 22: the collectives of their processes (rank 0 of each TP "
-        f"and SP world, every rank of each CLI) by backend, device and op: "
-        f"{PAR_TRANSPORTS}")
+    child = {}
+    pipeline = drive_path("pipeline", (
+        ("[23a] whisper_dist --pp 2 --microbatches 2 at whisper-small b4 "
+         "bf16, two gloo ranks on the card, then --resume at --pp 1",
+         run_pp_cli, gpu, child),
+        ("[23b] a PP whisper-base f32 step, M 4 with remat, two gloo ranks "
+         "against one process", run_pp_equality, child)),
+        child_counts=child)
+    log(f"  21-23: the collectives of their processes (rank 0 of each TP "
+        f"and SP world, both ranks of the PP world, every rank of each CLI) "
+        f"by backend, device and op: {PAR_TRANSPORTS}")
     require(PAR_TRANSPORTS and all(k.startswith("gloo cuda ")
                                    for k in PAR_TRANSPORTS),
-            "a collective of phase 21 or 22 ran off the card or not over "
-            "gloo")
+            "a collective of phases 21-23 ran off the card or not over gloo")
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
               + flash_bench[k] + frontend[k] + train_bench[k] + resume[k]
               + data_parallel[k] + tensorsize[k] + capacity[k] + parallel[k]
-              + w2v_parallel[k] for k in serving}
+              + w2v_parallel[k] + pipeline[k] for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")

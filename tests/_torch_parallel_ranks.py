@@ -1,7 +1,8 @@
-"""The ranks of the tensor- and sequence-parallel worlds of
-tests/test_torch_tp.py, tests/test_torch_sp.py and
-tests/test_torch_w2v_parallel.py, and the helpers that start them (gloo on
-127.0.0.1, torchrun's env or a TF_CONFIG).
+"""The ranks of the tensor-, sequence- and pipeline-parallel worlds of
+tests/test_torch_tp.py, tests/test_torch_sp.py,
+tests/test_torch_w2v_parallel.py and tests/test_torch_pp.py, and the
+helpers that start them (gloo on 127.0.0.1, torchrun's env or a
+TF_CONFIG).
 
 A rank is this file run as a script, ``python tests/_torch_parallel_ranks.py
 <mode> <dir> ...``: it joins the group with ``parallel/mesh.
@@ -30,7 +31,7 @@ from tethys_tpu_torch.models.whisper import (  # noqa: E402
     greedy_generate,
 )
 from tethys_tpu_torch.ops import sharding  # noqa: E402
-from tethys_tpu_torch.parallel import dp, mesh, sp, tp  # noqa: E402
+from tethys_tpu_torch.parallel import dp, mesh, pp, sp, tp  # noqa: E402
 
 TIMEOUT_S = 180
 TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT",
@@ -87,11 +88,14 @@ def torchrun_world(workdir, n: int, *argv: str) -> list:
                   for r in range(n)])
 
 
-def cli_world(tmp_path, tiny: dict, *flags: str):
+def cli_world(tmp_path, tiny: dict, *flags: str, checkpoints=None):
     """python -m tethys_tpu_torch.jobs.whisper_dist --device cpu as a chief
     and 3 workers from TF_CONFIG, each in its own workspace, with the tiny
     config ``tiny`` ({"config": ..., "seq_len": ...}): their stdouts and
-    the whole final parameters rank 0 saw."""
+    the whole final parameters rank 0 saw.  ``checkpoints``: a directory
+    of checkpoints copied into the chief's workspace first."""
+    import shutil
+
     tasks = [("chief", 0)] + [("worker", i) for i in range(3)]
     result = tmp_path / "result"
     (result / "run1").mkdir(parents=True)
@@ -102,6 +106,8 @@ def cli_world(tmp_path, tiny: dict, *flags: str):
         ws = tmp_path / f"ws_{task}_{index}"
         ws.mkdir()
         (ws / "model.txt").write_text("run1")
+        if checkpoints is not None and task == "chief":
+            shutil.copytree(checkpoints, ws / "checkpoints")
         argvs_envs.append((
             ["job", str(tmp_path), "--model_size", "tiny", "--batch_size",
              "2", "--num_batches", "2", "--device", "cpu", *flags],
@@ -252,10 +258,63 @@ def rank_sp(workdir: str, degree: str) -> None:
     mesh.shutdown_distributed()
 
 
+def pp_train(spec, case, layout):
+    """The spec's tiny Whisper with the case's rate overrides, split over
+    the (data, stage) layout (a one-rank layout: the whole model), the
+    case's PP step (SGD at the spec's rate, or Keras Adam at "adam"'s) on
+    the case's first ``steps`` global batches (this replica's rows): the
+    logged losses, the whole parameters, this rank's replicated parameters
+    and its own names, its optimizer's moments' names and sizes and the
+    step's collective bytes."""
+    model = build(spec, None, **case.get("overrides", {}))
+    model.train()
+    lr = case.get("adam")
+    state = pp.init_pp_state(
+        model, (lambda ps: dp.whisper_optimizer(ps, lr)) if lr else
+        (lambda ps: torch.optim.SGD(ps, lr=spec["lr"])), layout)
+    step = pp.make_pp_train_step(model, state.optimizer, layout,
+                                 **case["options"])
+    losses = []
+    for i, (features, labels) in enumerate(spec["batches"][:case["steps"]]):
+        rows = len(features) // layout.data
+        mine = slice(layout.data_rank * rows, (layout.data_rank + 1) * rows)
+        state, loss = step(state, (features[mine], labels[mine]),
+                           dp.step_generator(spec["seed"], i,
+                                             layout.data_rank))
+        losses.append(loss.item())
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {"losses": losses,
+            "params": pp.gather_params(model, layout),
+            "replicated": {n: p.detach().clone()
+                           for n, p in model.named_parameters()
+                           if not n.startswith(pp.LAYERS)},
+            "names": [n for n, _ in model.named_parameters()],
+            "moments": {names[id(p)]: {k: v.numel() for k, v in s.items()
+                                       if torch.is_tensor(v) and v.dim()}
+                        for p, s in state.optimizer.state.items()},
+            "collective_bytes": dict(step.collective_bytes)}
+
+
+def rank_pp(workdir: str, degree: str) -> None:
+    """A rank of a (data, stage) world: each of the spec's cases for a
+    world of this size."""
+    mesh.initialize_distributed(timeout_s=60, device="cpu")
+    spec = torch.load(os.path.join(workdir, "spec.pt"))
+    layout = mesh.make_pp_mesh(pipeline_parallel=int(degree))
+    out = {"layout": tuple(layout[1:5])}
+    for case in spec["cases"]:
+        if case["stages"] == layout.inner:
+            out[case["name"]] = pp_train(spec, case, layout)
+    out["transports"] = dict(sharding.TRANSPORTS)
+    torch.save(out, os.path.join(workdir, f"rank_{mesh.rank()}.pt"))
+    mesh.shutdown_distributed()
+
+
 def rank_job(workdir: str, *argv: str) -> None:
     """A rank of a TF_CONFIG world: the whisper_dist CLI with the tiny
-    config and clip length of $TINY_WHISPER patched in; writes its final
-    whole parameters before the job's end."""
+    config and clip length of $TINY_WHISPER patched in; writes the model
+    train_whisper returns on rank 0 and its final whole parameters before
+    the job's end."""
     from tethys_tpu_torch.checkpoint import whole_state_dicts
     from tethys_tpu_torch.jobs import whisper_dist
     from tethys_tpu_torch.train import jobs
@@ -265,8 +324,12 @@ def rank_job(workdir: str, *argv: str) -> None:
 
     def train_whisper(**kw):
         overrides = {**tiny["config"], **(kw.pop("config_overrides") or {})}
-        return real_train(**kw, config_overrides=overrides,
-                          data_seq_len=tiny["seq_len"])
+        out = real_train(**kw, config_overrides=overrides,
+                         data_seq_len=tiny["seq_len"])
+        if mesh.rank() == 0:    # the model train_whisper returns
+            torch.save(out[1].state_dict(),
+                       os.path.join(workdir, "returned.pt"))
+        return out
 
     def finalize(result, *args, **kwargs):
         whole = whole_state_dicts(result.state, with_optimizer=False)
@@ -413,6 +476,6 @@ def rank_w2v_job(workdir: str, *argv: str) -> None:
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    {"tp": rank_tp, "sp": rank_sp, "job": rank_job, "w2v": rank_w2v,
-     "w2v_job": rank_w2v_job}[sys.argv[1]](*sys.argv[2:])
+    {"tp": rank_tp, "sp": rank_sp, "pp": rank_pp, "job": rank_job,
+     "w2v": rank_w2v, "w2v_job": rank_w2v_job}[sys.argv[1]](*sys.argv[2:])
     sys.exit(0)

@@ -326,12 +326,11 @@ def test_step_profile_categories_and_card_only(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,where", [
-    # --tp and --sp are ported (tests/test_torch_tp.py, test_torch_sp.py);
-    # together, or with --pp, they are refused with the JAX CLI's error.
+    # --tp, --sp and --pp are ported (tests/test_torch_tp.py,
+    # test_torch_sp.py, test_torch_pp.py); two of them together are
+    # refused with the JAX CLI's error.
     (["--tp", "2", "--sp", "2"], "--tp, --sp and --pp are mutually exclusive"),
     (["--sp", "2", "--pp", "2"], "--tp, --sp and --pp are mutually exclusive"),
-    (["--pp", "2"], "ROADMAP.md, queue 1 item 7.2"),
-    (["--microbatches", "4"], "ROADMAP.md, queue 1 item 7.2"),
 ])
 def test_cli_refuses_unported_flags(capsys, argv, where):
     with pytest.raises(SystemExit) as exc:
@@ -343,6 +342,26 @@ def test_cli_refuses_unported_flags(capsys, argv, where):
 
 class _Stop(Exception):
     pass
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--pp", "2"], dict(pipeline_parallel=2, num_microbatches=2)),
+    (["--microbatches", "4"], dict(pipeline_parallel=1, num_microbatches=4)),
+])
+def test_cli_forwards_pipeline_flags(monkeypatch, argv, want):
+    """--pp and --microbatches (refused until they were ported) reach
+    train_whisper, as the JAX CLI passes them."""
+    seen = {}
+
+    def train(**kwargs):
+        seen.update(kwargs)
+        raise _Stop
+
+    monkeypatch.setattr(jobs, "train_whisper", train)
+    with pytest.raises(_Stop):
+        whisper_dist.main(argv + ["--device", "cpu"])
+    assert {k: seen[k] for k in want} == want
+    assert (seen["tensor_parallel"], seen["seq_parallel"]) == (1, 1)
 
 
 @pytest.mark.parametrize("argv,want", [

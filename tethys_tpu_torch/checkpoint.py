@@ -24,12 +24,14 @@ so a restored run goes on with the same bias corrections.  The weights
 map to the flax params tree with ``convert.flax_from_state_dict`` (the
 inverse of ``convert.params_from_flax``).
 
-Under tensor parallelism (a state whose ``layout`` has a model group) a
-checkpoint and the final weights are still whole: the ranks of the first
-model group gather the parameters and Adam's moments (parallel/tp.py) and
-rank 0 writes them, so a TP checkpoint has a DP checkpoint's format; a
-restore reads the whole state and each rank loads its slices, so any
-checkpoint restores into any layout.
+Under tensor or pipeline parallelism (a state whose ``layout`` has a
+model or stage group) a checkpoint and the final weights are still whole:
+the ranks of the first model or stage group gather the parameters and
+Adam's moments (parallel/tp.py, parallel/pp.py, in the whole model's
+names and order) and rank 0 writes them, so a TP or PP checkpoint has a
+DP checkpoint's format; a restore reads the whole state and each rank
+loads its slices or its stage's layers, so any checkpoint restores into
+any layout.
 """
 
 from __future__ import annotations
@@ -93,17 +95,23 @@ class CheckpointManager:
         """Loads ``tag`` into the live ``state`` (its model and optimizer,
         on their device; the optimizer's moments take their parameter's
         dtype) and returns it.  Under a process group rank 0 reads ``tag``
-        and every rank loads what it broadcasts (its slices, under tensor
-        parallelism)."""
+        and every rank loads what it broadcasts (its slices under tensor
+        parallelism, its stage's layers under pipeline parallelism)."""
         model_sd, optimizer_sd = mesh.broadcast_object(
             self.restore(tag) if mesh.rank() == 0 else None)
-        layout = _tp_layout(state)
-        if layout is not None:
+        layout = _split_layout(state)
+        if layout is not None and layout.axis == "model":
             from tethys_tpu_torch.parallel import tp
 
             model_sd = tp.shard_params(model_sd, layout)
             optimizer_sd = tp.shard_optimizer_state(
                 optimizer_sd, state.optimizer, state.model, layout)
+        elif layout is not None:
+            from tethys_tpu_torch.parallel import pp
+
+            model_sd = pp.stage_params(model_sd, state.model)
+            optimizer_sd = pp.stage_optimizer_state(
+                optimizer_sd, state.optimizer, state.model)
         state.model.load_state_dict(model_sd)
         state.optimizer.load_state_dict(optimizer_sd)
         return state
@@ -123,11 +131,13 @@ class CheckpointManager:
         return max(tags, key=lambda t: os.path.getmtime(self._path(t)))
 
 
-def _tp_layout(state):
-    """The state's layout when its parameters are sharded over a model
-    group, else None."""
+def _split_layout(state):
+    """The state's layout when its parameters are split over a model group
+    (tensor parallelism) or a stage group (pipeline parallelism), else
+    None."""
     layout = getattr(state, "layout", None)
-    if layout is not None and layout.axis == "model" and layout.inner > 1:
+    if (layout is not None and layout.axis in ("model", "stage")
+            and layout.inner > 1):
         return layout
     return None
 
@@ -136,19 +146,23 @@ def whole_state_dicts(state, with_optimizer: bool = True
                       ) -> Optional[Tuple[dict, Optional[dict]]]:
     """(model, optimizer) state dicts of the whole, unsharded state (the
     optimizer's None without ``with_optimizer``), on rank 0; None
-    elsewhere.  Under tensor parallelism the ranks of the first model
-    group gather them (a collective every one of them must reach)."""
-    layout = _tp_layout(state)
+    elsewhere.  Under tensor or pipeline parallelism the ranks of the
+    first model or stage group gather them (a collective every one of them
+    must reach)."""
+    layout = _split_layout(state)
     dicts = None
     if layout is None and mesh.rank() == 0:
         dicts = (state.model.state_dict(), state.optimizer.state_dict()
                  if with_optimizer else None)
     elif layout is not None and layout.data_rank == 0:
-        from tethys_tpu_torch.parallel import tp
+        if layout.axis == "model":
+            from tethys_tpu_torch.parallel import tp as split
+        else:
+            from tethys_tpu_torch.parallel import pp as split
 
-        dicts = (tp.gather_params(state.model, layout),
-                 tp.gather_optimizer_state(state.optimizer, state.model,
-                                           layout)
+        dicts = (split.gather_params(state.model, layout),
+                 split.gather_optimizer_state(state.optimizer, state.model,
+                                              layout)
                  if with_optimizer else None)
     return dicts if mesh.rank() == 0 else None
 

@@ -12,11 +12,11 @@ by default; gloo lets several ranks share one card).
 that names several processes) for the dist jobs.  The JAX jobs'
 single-card capacity flags (``CAPACITY``: --remat, --remat_layers,
 --grad_accum, --master_dtype) are taken by the CLIs whose JAX twins take
-them, and --tp and --sp (``PARALLEL``) by whisper_dist and wav2vec2_dist;
-the parallel flags a CLI does not take (``REFUSED``: Whisper's --pp and
---microbatches, and the tensorsize jobs' --tp and --sp, which their JAX
-twins do not take) are accepted so that they can be refused, each with an
-error that names where it waits in ROADMAP.md; none is ignored.
+them, the parallel flags (``PARALLEL``) by the CLIs whose JAX twins take
+them: --tp and --sp by whisper_dist and wav2vec2_dist, --pp and
+--microbatches by whisper_dist; the tensorsize jobs' parallel flags
+(``REFUSED``: their JAX twins take none) are accepted so that they can be
+refused, each with an error that names ROADMAP.md; none is ignored.
 """
 
 from __future__ import annotations
@@ -31,19 +31,17 @@ PARALLEL = {
     "sp": dict(type=int, default=1,
                help="sequence-parallel degree over a (data, seq) mesh: "
                     "encoder time axis sharded (extension)"),
+    "pp": dict(type=int, default=1,
+               help="pipeline-parallel degree over a (data, stage) mesh: "
+                    "encoder layer stack GPipe-pipelined (extension)"),
+    "microbatches": dict(type=int, default=2,
+                         help="microbatches per step under --pp"),
 }
 # The tensorsize jobs: their JAX twins take no parallel flag.
 TENSORSIZE_WHERE = ("queue 1 item 7 (the JAX tensorsize jobs take no "
                     "parallel flag)")
-# flag -> (argparse keywords, the value that is supported, where it waits)
-REFUSED = {
-    "tp": (PARALLEL["tp"], 1, TENSORSIZE_WHERE),
-    "sp": (PARALLEL["sp"], 1, TENSORSIZE_WHERE),
-    "pp": (dict(type=int, default=1), 1,
-           "queue 1 item 7.2 (Whisper pipeline parallelism)"),
-    "microbatches": (dict(type=int, default=2), 2,
-                     "queue 1 item 7.2 (pipeline microbatches)"),
-}
+# flag -> the value that is supported (the default: the flag unset)
+REFUSED = {"tp": 1, "sp": 1, "pp": 1, "microbatches": 2}
 # flag -> argparse keywords, with the JAX CLI's help (jobs/whisper_dist.py).
 CAPACITY = {
     "remat": dict(action="store_true",
@@ -65,11 +63,10 @@ CAPACITY = {
 
 def add_common_flags(parser: argparse.ArgumentParser,
                      num_batches_default: int, batch_size_default: int,
-                     refused=(), capacity=(), parallel=(),
-                     where=None) -> None:
-    """The shared flags, the JAX job's unported flags in ``refused`` (each
-    refusal naming ``where``, default REFUSED's), its capacity flags in
-    ``capacity`` and its parallel flags in ``parallel``."""
+                     refused=(), capacity=(), parallel=()) -> None:
+    """The shared flags, the parallel flags its JAX twin does not take in
+    ``refused`` (each refusal naming TENSORSIZE_WHERE), its capacity flags
+    in ``capacity`` and its parallel flags in ``parallel``."""
     parser.add_argument(
         "--num_batches", type=int, default=num_batches_default,
         help=f"num_batches per replica, default is set {num_batches_default}")
@@ -89,7 +86,7 @@ def add_common_flags(parser: argparse.ArgumentParser,
         "--jax_profile", type=str, default=None, metavar="DIR",
         help="write a torch.profiler trace of the training run to DIR")
     for flag in refused:
-        parser.add_argument(f"--{flag}", **REFUSED[flag][0])
+        parser.add_argument(f"--{flag}", **PARALLEL[flag])
     for flag in capacity:
         parser.add_argument(f"--{flag}", **CAPACITY[flag])
     for flag in parallel:
@@ -99,8 +96,7 @@ def add_common_flags(parser: argparse.ArgumentParser,
             "--backend", type=str, default=None, choices=["nccl", "gloo"],
             help="process group backend (default: nccl on the card, gloo on "
                  "the CPU; gloo lets several ranks share one card)")
-    parser.tethys_refused = {flag: (REFUSED[flag][1], where or REFUSED[flag][2])
-                             for flag in refused}
+    parser.tethys_refused = {flag: REFUSED[flag] for flag in refused}
     parser.tethys_parallel = tuple(parallel)
 
 
@@ -117,11 +113,11 @@ def parse(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
         names = [f"--{f}" for f in flags]
         parser.error(f"{', '.join(names[:-1])} and {names[-1]} are "
                      "mutually exclusive")
-    for flag, (supported, where) in refused.items():
+    for flag, supported in refused.items():
         value = getattr(args, flag)
         if value != supported:
             parser.error(f"--{flag} {value} is not ported yet (ROADMAP.md, "
-                         f"{where})")
+                         f"{TENSORSIZE_WHERE})")
     return args
 
 

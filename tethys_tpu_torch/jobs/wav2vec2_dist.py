@@ -33,7 +33,6 @@ import argparse
 import time
 
 from tethys_tpu_torch.jobs._common import (
-    PARALLEL,
     add_common_flags,
     job_device,
     parse,
@@ -46,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="wav2vec2 Distributed Speech Recognition")
     add_common_flags(parser, num_batches_default=5, batch_size_default=1,
-                     capacity=("grad_accum",), parallel=tuple(PARALLEL))
+                     capacity=("grad_accum",), parallel=("tp", "sp"))
     parser.add_argument("--remat", action="store_true",
                         help="checkpoint the forward pass (large-model HBM)")
     parser.add_argument(

@@ -26,7 +26,6 @@ import os
 import time
 
 from tethys_tpu_torch.jobs._common import (
-    TENSORSIZE_WHERE,
     add_common_flags,
     job_device,
     parse,
@@ -40,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="wav2vec2 Distributed Speech Recognition "
                     "with Tensor Profiling")
     add_common_flags(parser, num_batches_default=5, batch_size_default=1,
-                     refused=("tp", "sp"), where=TENSORSIZE_WHERE)
+                     refused=("tp", "sp"))
     parser.add_argument(
         "--model_size", type=str, default="small",
         choices=["tiny", "small", "base"])

@@ -18,17 +18,18 @@ large-v3 capacity run:
         --batch_size 8 --dtype bfloat16 --remat_layers \
         --master_dtype bfloat16 --grad_accum 2
 
-Tensor and sequence parallelism (the JAX CLI's --tp N and --sp N, mutually
-exclusive): the world of processes is laid out (data, model) or (data, seq),
-one replica a model or seq group, the global batch the per-replica batch
-times the data replicas; on one card the ranks share it over gloo:
+Tensor, sequence and pipeline parallelism (the JAX CLI's --tp N, --sp N
+and --pp N with --microbatches M, mutually exclusive): the world of
+processes is laid out (data, model), (data, seq) or (data, stage), one
+replica a model, seq or stage group, the global batch the per-replica
+batch times the data replicas; on one card the ranks share it over gloo:
 
     torchrun --nproc_per_node 2 -m tethys_tpu_torch.jobs.whisper_dist \
         --model_size large-v3 --tp 2 --remat_layers --batch_size 1 \
         --num_batches 4 --dtype bfloat16 --backend gloo
-
---pp and --microbatches are refused with an error that names where they
-wait in ROADMAP.md.
+    torchrun --nproc_per_node 2 -m tethys_tpu_torch.jobs.whisper_dist \
+        --pp 2 --microbatches 2 --batch_size 4 --num_batches 4 \
+        --dtype bfloat16 --backend gloo
 """
 
 from __future__ import annotations
@@ -51,8 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Whisper-small Distributed Speech Recognition")
     add_common_flags(parser, num_batches_default=40, batch_size_default=1,
-                     refused=("pp", "microbatches"), capacity=tuple(CAPACITY),
-                     parallel=tuple(PARALLEL))
+                     capacity=tuple(CAPACITY), parallel=tuple(PARALLEL))
     parser.add_argument("--model_size", type=str, default="small",
                         choices=["tiny", "base", "small", "medium", "large",
                                  "large-v3"],
@@ -69,9 +69,9 @@ def main(argv=None) -> None:
 
     start_distributed(args)
     device = job_device(args)
-    # One replica a model or seq group (a world they do not divide is
-    # refused when the job lays it out).
-    replicas = mesh.world_size() // max(args.tp, args.sp)
+    # One replica a model, seq or stage group (a world they do not divide
+    # is refused when the job lays it out).
+    replicas = mesh.world_size() // max(args.tp, args.sp, args.pp)
     print(f"batch size per replica: {args.batch_size}, "
           f"global batch size: {args.batch_size * replicas}")
     print(f"num_batches: {args.num_batches}")
@@ -95,6 +95,8 @@ def main(argv=None) -> None:
                               else None),
             tensor_parallel=args.tp,
             seq_parallel=args.sp,
+            pipeline_parallel=args.pp,
+            num_microbatches=args.microbatches,
         )
     jct = time.time() - start
     jobs.finalize_job(result, f"whisper_{args.model_size}_model", jct)

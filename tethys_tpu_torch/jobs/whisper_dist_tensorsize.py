@@ -23,7 +23,6 @@ import time
 
 from tethys_tpu_torch.jobs._common import (
     REFUSED,
-    TENSORSIZE_WHERE,
     add_common_flags,
     job_device,
     parse,
@@ -37,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Whisper-small Distributed Speech Recognition "
                     "with Tensor Profiling")
     add_common_flags(parser, num_batches_default=40, batch_size_default=1,
-                     refused=tuple(REFUSED), where=TENSORSIZE_WHERE)
+                     refused=tuple(REFUSED))
     parser.add_argument(
         "--log_tensor_freq", type=int, default=1,
         help="log tensor sizes every N steps")

@@ -350,12 +350,10 @@ class WhisperEncoder(nn.Module):
         return sharding.gather_from_group(gelu(y), 1, self.tp,
                                           self.config.d_model, sharded_next)
 
-    def forward(self, input_features: torch.Tensor,
-                output_hidden_states: bool = False,
-                generator: Generator = None):
-        """input_features [B, n_mels, T] -> [B, ceil(T/2), E].  With
-        ``output_hidden_states`` also returns the output of the stem and of
-        every layer (before the final LayerNorm)."""
+    def stem(self, input_features: torch.Tensor,
+             generator: Generator = None) -> torch.Tensor:
+        """The layers' input: conv1, conv2, the positions and the module
+        dropout; [B, n_mels, T] -> [B, ceil(T/2), E]."""
         cfg = self.config
         x = input_features.to(cfg.dtype)
         x = self._conv(self.conv1, x, True)
@@ -363,7 +361,17 @@ class WhisperEncoder(nn.Module):
         x = x.transpose(1, 2)                               # [B, T, E]
         pe = _positions(cfg.n_ctx, cfg.d_model, x.device)
         x = x + pe[: x.shape[1]].to(x.dtype)
-        x = module_dropout(x, cfg.dropout, self.training, generator)
+        return module_dropout(x, cfg.dropout, self.training, generator)
+
+    def forward(self, input_features: torch.Tensor,
+                output_hidden_states: bool = False,
+                generator: Generator = None):
+        """input_features [B, n_mels, T] -> [B, ceil(T/2), E]: the stem,
+        every layer (``_run_layer``), the final LayerNorm.  With
+        ``output_hidden_states`` also returns the output of the stem and of
+        every layer (before the final LayerNorm)."""
+        cfg = self.config
+        x = self.stem(input_features, generator)
         rules = sharding.current_seq_rules()
         seq = None if rules is None else sharding.SeqShard(rules, x.shape[1])
         if seq is not None:
@@ -484,18 +492,29 @@ class WhisperForConditionalGeneration(nn.Module):
         right-shifted behind decoder_start_token_id (no labels either: one
         start token).  Dropout draws its seeds from ``generator`` in
         training mode."""
-        cfg = self.config
+        enc = self.model.encoder(input_features, generator=generator)
+        return self.head(enc, decoder_input_ids, labels,
+                         decoder_attention_mask, generator)
+
+    def head(self, enc: torch.Tensor,
+             decoder_input_ids: Optional[torch.Tensor] = None,
+             labels: Optional[torch.Tensor] = None,
+             decoder_attention_mask: Optional[torch.Tensor] = None,
+             generator: Generator = None) -> Dict[str, torch.Tensor]:
+        """What follows the encoder (``forward``'s dict from ``enc``, the
+        encoder's output after its final LayerNorm): the decoder inputs
+        (as ``forward`` makes them), the decoder, the logits and, with
+        ``labels``, the loss."""
         if decoder_input_ids is None:
+            start_id = self.config.decoder_start_token_id
             if labels is not None:
-                start = torch.full((labels.shape[0], 1),
-                                   cfg.decoder_start_token_id,
+                start = torch.full((labels.shape[0], 1), start_id,
                                    dtype=labels.dtype, device=labels.device)
                 decoder_input_ids = torch.cat([start, labels[:, :-1]], dim=1)
             else:
                 decoder_input_ids = torch.full(
-                    (input_features.shape[0], 1), cfg.decoder_start_token_id,
-                    dtype=torch.int32, device=input_features.device)
-        enc = self.model.encoder(input_features, generator=generator)
+                    (enc.shape[0], 1), start_id, dtype=torch.int32,
+                    device=enc.device)
         hidden = self.model.decoder(decoder_input_ids, enc,
                                     generator=generator)
         record(self.model, {"last_hidden_state": hidden,

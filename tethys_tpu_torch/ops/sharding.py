@@ -29,6 +29,9 @@ The operators, each a ``torch.autograd.Function`` (Megatron's f and g):
   so every rank gets the whole gradient (``copy_to_group`` then a
   ``narrow``).
 
+``permute`` is a pipeline's hop between two stages, a broadcast over
+their two-rank group (parallel/pp.py).
+
 ``TRANSPORTS`` counts the collectives by (backend, device type, op), and
 ``BYTES`` the bytes each kind moved: on one card several ranks share it
 over gloo, which takes CUDA tensors for all_reduce, broadcast and
@@ -82,16 +85,17 @@ TRANSPORTS: dict = {}
 BYTES: dict = {}
 
 
-def _note(op: str, t: torch.Tensor, shard: Shard) -> None:
-    key = (dist.get_backend(shard.group), t.device.type, op)
+def _note(op: str, t: torch.Tensor, group, kind: Optional[str] = None
+          ) -> None:
+    key = (dist.get_backend(group), t.device.type, op)
     TRANSPORTS[key] = TRANSPORTS.get(key, 0) + 1
-    kind = op.replace("_", "-")
+    kind = kind or op.replace("_", "-")
     BYTES[kind] = BYTES.get(kind, 0) + t.numel() * t.element_size()
 
 
 def all_reduce(t: torch.Tensor, shard: Shard) -> torch.Tensor:
     """SUM all-reduce of ``t`` in place over the group; returns ``t``."""
-    _note("all_reduce", t, shard)
+    _note("all_reduce", t, shard.group)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=shard.group)
     return t
 
@@ -112,9 +116,25 @@ def all_gather(x: torch.Tensor, dim: int, shard: Shard,
         pad[dim] = chunk - x.shape[dim]
         x = torch.cat([x, x.new_zeros(pad)], dim)
     parts = [torch.empty_like(x) for _ in range(shard.size)]
-    _note("all_gather", x, shard)
+    _note("all_gather", x, shard.group)
     dist.all_gather(parts, x, group=shard.group)
     return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)], dim)
+
+
+def permute(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """One hop between two pipeline stages (JAX's ``ppermute``): ``t``
+    broadcast from the global rank ``src`` over the two-rank ``group``, in
+    place on the other rank; returns ``t``.  A broadcast, which gloo takes
+    for CUDA tensors, so one transport serves the CPU, ranks that share a
+    card and NCCL; both ranks count its bytes as "collective-permute", the
+    kind JAX's HLO report gives the ppermute.  ``t`` must be contiguous on
+    both ranks: the bytes move as they lie."""
+    if not t.is_contiguous():
+        raise ValueError(f"permute: a tensor of strides {t.stride()} is not "
+                         "contiguous")
+    _note("broadcast", t, group, "collective-permute")
+    dist.broadcast(t, src, group=group)
+    return t
 
 
 def _local(x: torch.Tensor, dim: int, shard: Shard, total: int):

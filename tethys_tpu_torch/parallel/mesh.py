@@ -14,15 +14,18 @@ and fall back to one process without it.
 (reference job_name.py:1-15) from TF_CONFIG when present, else from the
 rank (0 in a single process).
 
-The 2-D layouts (the JAX meshes of parallel/tp.py and sp.py): over a world
-of n processes, ``make_2d_mesh(model_parallel)`` and
-``make_seq_mesh(seq_parallel)`` lay the ranks out as JAX reshapes its
-devices to (n // inner, inner): rank r has data coordinate r // inner and
-inner ("model" or "seq") coordinate r % inner.  A replica is one inner
-group, the unit that holds a whole set of parameters; the gradients and
-the logged loss are summed over the data group only.  ``make_data_mesh()``
-is the layout of plain data parallelism (inner 1).  Without a process
-group every layout is a world of one, and has no groups.
+The 2-D layouts (the JAX meshes of parallel/tp.py, sp.py and pp.py): over
+a world of n processes, ``make_2d_mesh(model_parallel)``,
+``make_seq_mesh(seq_parallel)`` and ``make_pp_mesh(pipeline_parallel)`` lay
+the ranks out as JAX reshapes its devices to (n // inner, inner): rank r
+has data coordinate r // inner and inner ("model", "seq" or "stage")
+coordinate r % inner.  A replica is one inner group, the unit that holds a
+whole set of parameters; the gradients and the logged loss are summed over
+the data group only.  The (data, stage) layout also holds this rank's
+stage-to-stage hops: one two-rank group for each adjacent pair (s, s + 1)
+of each replica (``Layout.hops``).  ``make_data_mesh()`` is the layout of
+plain data parallelism (inner 1).  Without a process group every layout is
+a world of one, and has no groups.
 """
 
 from __future__ import annotations
@@ -166,10 +169,13 @@ class Layout(NamedTuple):
     """This process's place in a (data, inner) layout of the world.
 
     ``axis`` names the inner axis as the JAX mesh does ("model" for tensor
-    parallelism, "seq" for sequence parallelism, "data" when there is none,
-    inner 1).  ``data_group`` and ``inner_group`` are the process groups of
-    this rank's data and inner groups, None where the group holds one
-    rank (its collectives are the identity)."""
+    parallelism, "seq" for sequence parallelism, "stage" for pipeline
+    parallelism, "data" when there is none, inner 1).  ``data_group`` and
+    ``inner_group`` are the process groups of this rank's data and inner
+    groups, None where the group holds one rank (its collectives are the
+    identity).  ``hops``: under "stage", the two-rank groups this rank
+    shares with the stage before it and the stage after it, (previous,
+    next), None at either end."""
     axis: str
     data: int                 # data replicas (the data group's size)
     inner: int                # ranks of one replica
@@ -177,6 +183,7 @@ class Layout(NamedTuple):
     inner_rank: int           # this rank's inner coordinate, r % inner
     data_group: Any = None
     inner_group: Any = None
+    hops: Tuple[Any, Any] = (None, None)
 
 
 def _new_groups(rank_lists: List[List[int]], me: int):
@@ -193,7 +200,7 @@ def _new_groups(rank_lists: List[List[int]], me: int):
 def _layout(axis: str, inner: int) -> Layout:
     n, me = world_size(), rank()
     if n % inner != 0:
-        name = {"model": "tp", "seq": "seq"}.get(axis, axis)
+        name = {"model": "tp", "seq": "seq", "stage": "pp"}.get(axis, axis)
         raise ValueError(f"{n} devices not divisible by {name}={inner}")
     data = n // inner
     data_group = inner_group = None
@@ -213,8 +220,28 @@ def _layout(axis: str, inner: int) -> Layout:
             inner_group = _new_groups(
                 [[d * inner + i for i in range(inner)] for d in range(data)],
                 me)
+    hops = (None, None)
+    if group_up() and axis == "stage" and inner > 1:
+        hops = _hop_groups(data, inner, me)
     return Layout(axis, data, inner, me // inner, me % inner, data_group,
-                  inner_group)
+                  inner_group, hops)
+
+
+def _hop_groups(data: int, stages: int, me: int):
+    """(previous, next): this rank's two-rank groups with the stage before
+    and the stage after it in its replica, of the groups every rank makes
+    in the same order, pair (s, s + 1) of replica d at d * (stages - 1) +
+    s."""
+    prev = nxt = None
+    for d in range(data):
+        for s in range(stages - 1):
+            pair = [d * stages + s, d * stages + s + 1]
+            group = torch.distributed.new_group(pair)
+            if me == pair[0]:
+                nxt = group
+            elif me == pair[1]:
+                prev = group
+    return prev, nxt
 
 
 def make_data_mesh() -> Layout:
@@ -232,3 +259,10 @@ def make_seq_mesh(seq_parallel: int = 4) -> Layout:
     """The (data, seq) layout of sequence parallelism (JAX
     ``sp.make_seq_mesh``)."""
     return _layout("seq", seq_parallel)
+
+
+def make_pp_mesh(pipeline_parallel: int = 2) -> Layout:
+    """The (data, stage) layout of pipeline parallelism (JAX
+    ``pp.make_pp_mesh``): rank r at stage r % S of replica r // S, with its
+    hops (``Layout.hops``)."""
+    return _layout("stage", pipeline_parallel)

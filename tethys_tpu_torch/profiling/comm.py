@@ -9,7 +9,10 @@ are what it hands to each kind each step (``dp.make_train_step``'s
 model's own collectives (ops/sharding.py: the row-parallel sums, the
 gathered channels, K and V or logits, the shard norms of the clips) and
 the replicated gradients' broadcast over the model or seq group
-(``broadcast``).  The file, ``<task>_<idx>_collectives.txt`` beside the
+(``broadcast``); under a (data, stage) layout the pipeline's hops
+(``collective-permute``, the kind JAX's report gives its ppermute) and
+the stage and data groups' gradient sums (``all-reduce``,
+parallel/pp.py).  The file, ``<task>_<idx>_collectives.txt`` beside the
 JCT file, has the JAX file's format: ``kind,bytes_per_step``, one line per
 kind, then ``total``.
 """

@@ -21,17 +21,22 @@ the replicas (``parallel/dp``), rank 0 writes the checkpoints, and
 every rank.
 
 Tensor and sequence parallelism, both families (``tensor_parallel``,
-``seq_parallel``, mutually exclusive as in JAX; ``parallel_layout``): the
-world is laid out (data, model) or (data, seq) (parallel/mesh); each data
-replica feeds its ``batch_size_per_replica`` rows, every rank of a replica
-the same ones with the same generator (the loop's replica is the data
-coordinate, so a model or seq group draws the same negatives and dropout
-seeds).  Under tensor parallelism the whole model is made on the CPU from
-the seed and each rank moves its shards to the card (parallel/tp.
-shard_model); the checkpoints and final weights are gathered whole
-(checkpoint.py) and restore into any layout.  Wav2Vec2 runs the hardened
-step over the layout (parallel/dp.py's module doc).  PP is refused by the
-CLIs (jobs/) and waits in ROADMAP.md.
+``seq_parallel``), and Whisper's pipeline parallelism
+(``pipeline_parallel``, ``num_microbatches``), mutually exclusive as in
+JAX (``parallel_layout``): the world is laid out (data, model), (data,
+seq) or (data, stage) (parallel/mesh); each data replica feeds its
+``batch_size_per_replica`` rows, every rank of a replica the same ones
+with the same generator (the loop's replica is the data coordinate, so a
+model, seq or stage group draws the same negatives and dropout seeds).
+Under tensor and pipeline parallelism the whole model is made on the CPU
+from the seed and each rank moves its shards or its stage to the card
+(parallel/tp.shard_model, parallel/pp.split_stages); the checkpoints and
+final weights are gathered whole (checkpoint.py) and restore into any
+layout, and ``train_whisper`` returns the whole model on rank 0, on the
+host, under pipeline parallelism (JAX jobs.py:332-341).  The PP step owns the
+forward (parallel/pp.make_pp_train_step); ``remat``, ``grad_accum`` and
+``master_dtype`` pass through.  Wav2Vec2 runs the hardened step over the
+layout (parallel/dp.py's module doc).
 
 The single-card capacity modes of the JAX jobs: ``remat`` (the whole loss
 checkpointed, parallel/dp), ``grad_accum`` (microbatches accumulated in
@@ -75,7 +80,7 @@ from tethys_tpu_torch.models.whisper import (
     WhisperForConditionalGeneration,
     create_whisper_model,
 )
-from tethys_tpu_torch.parallel import dp, mesh, tp
+from tethys_tpu_torch.parallel import dp, mesh, pp, tp
 from tethys_tpu_torch.profiling import tensorsize
 from tethys_tpu_torch.profiling.comm import write_collective_report
 from tethys_tpu_torch.train.loop import TrainLoopResult, run_training
@@ -93,12 +98,13 @@ class TrainJob(NamedTuple):
     config: Union[WhisperConfig, Wav2Vec2Config]
 
 
-def parallel_layout(tensor_parallel: int = 1,
-                    seq_parallel: int = 1) -> mesh.Layout:
+def parallel_layout(tensor_parallel: int = 1, seq_parallel: int = 1,
+                    pipeline_parallel: int = 1) -> mesh.Layout:
     """The layout of a job (JAX jobs.py:181-197, :386-395): (data, model)
-    under ``tensor_parallel``, (data, seq) under ``seq_parallel``, else one
-    replica a rank."""
-    if tensor_parallel > 1 and seq_parallel > 1:
+    under ``tensor_parallel``, (data, seq) under ``seq_parallel``, (data,
+    stage) under ``pipeline_parallel``, else one replica a rank."""
+    if sum(n > 1 for n in (tensor_parallel, seq_parallel,
+                           pipeline_parallel)) > 1:
         raise ValueError(
             "tensor_parallel / seq_parallel / pipeline_parallel are "
             "mutually exclusive")
@@ -106,6 +112,8 @@ def parallel_layout(tensor_parallel: int = 1,
         return mesh.make_2d_mesh(model_parallel=tensor_parallel)
     if seq_parallel > 1:
         return mesh.make_seq_mesh(seq_parallel=seq_parallel)
+    if pipeline_parallel > 1:
+        return mesh.make_pp_mesh(pipeline_parallel=pipeline_parallel)
     return mesh.make_data_mesh()
 
 
@@ -123,23 +131,29 @@ def make_whisper_job(
     master_dtype: str = "float32",
     tensor_parallel: int = 1,
     seq_parallel: int = 1,
+    pipeline_parallel: int = 1,
+    num_microbatches: int = 2,
 ) -> TrainJob:
     """The model with ``master_dtype`` master weights (in train mode), the
-    plain step with ``whisper_optimizer``, ``remat`` and ``grad_accum``,
+    plain step with ``whisper_optimizer``, ``remat`` and ``grad_accum``
+    (under ``pipeline_parallel`` the PP step with ``num_microbatches``),
     the synthetic dataset; over ``parallel_layout(tensor_parallel,
-    seq_parallel)``."""
-    layout = parallel_layout(tensor_parallel, seq_parallel)
+    seq_parallel, pipeline_parallel)``."""
+    layout = parallel_layout(tensor_parallel, seq_parallel, pipeline_parallel)
     device = require_cuda() if device is None else torch.device(device)
-    sharded = layout.axis == "model" and layout.inner > 1
+    split = layout.axis in ("model", "stage") and layout.inner > 1
     # create_whisper_model draws the weights in f32 and casts them once;
-    # under tensor parallelism on the CPU, and each rank moves its shards.
+    # under tensor or pipeline parallelism on the CPU, and each rank moves
+    # its shards or its stage.
     model, config = create_whisper_model(
-        model_type, device="cpu" if sharded else device, seed=seed,
+        model_type, device="cpu" if split else device, seed=seed,
         param_dtype=resolve_dtype(master_dtype),
         compute_dtype=compute_dtype, **(config_overrides or {}))
-    if sharded:
+    if split and layout.axis == "model":
         tp.check_divides(config, layout.inner, f"whisper {model_type}")
         model = tp.shard_model(model, layout).to(device)
+    elif split:
+        model = pp.split_stages(model, layout).to(device)
     model.train()
     optimizer = dp.whisper_optimizer(model.parameters(), learning_rate)
 
@@ -153,10 +167,16 @@ def make_whisper_job(
         return (torch.from_numpy(features).to(device),
                 torch.from_numpy(labels).to(device))
 
+    if layout.axis == "stage":
+        step = pp.make_pp_train_step(model, optimizer, layout,
+                                     num_microbatches, remat=remat,
+                                     grad_accum=grad_accum)
+    else:
+        step = dp.make_train_step(loss_fn, optimizer, hardened=False,
+                                  remat=remat, grad_accum=grad_accum,
+                                  layout=layout)
     return TrainJob(
-        dp.make_train_step(loss_fn, optimizer, hardened=False, remat=remat,
-                           grad_accum=grad_accum, layout=layout),
-        dp.TrainState(model, optimizer, layout),
+        step, dp.TrainState(model, optimizer, layout),
         data_lib.create_whisper_dummy_dataset(
             batch_size_per_replica, n_mels=config.n_mels, seq_len=data_seq_len),
         prepare_batch, config)
@@ -263,18 +283,24 @@ def train_whisper(
     master_dtype: str = "float32",
     tensor_parallel: int = 1,
     seq_parallel: int = 1,
+    pipeline_parallel: int = 1,
+    num_microbatches: int = 2,
 ):
     """End-to-end Whisper training (reference train_whisper,
     speech_jobs/whisper_dist.py:894-958).  With ``profiler``, the
     tensorsize instrumentation of whisper_dist_tensorsize.py; ``remat``,
-    ``grad_accum``, ``master_dtype``, ``tensor_parallel`` and
-    ``seq_parallel`` as in the module doc.  Returns (result, model,
-    config)."""
+    ``grad_accum``, ``master_dtype``, ``tensor_parallel``,
+    ``seq_parallel``, ``pipeline_parallel`` and ``num_microbatches`` as in
+    the module doc.  Returns (result, model, config): under pipeline
+    parallelism the model is the whole one on rank 0, on the host (the
+    stage's elsewhere), and ``result.state`` the stage state."""
     job = make_whisper_job(
         model_type, batch_size_per_replica, learning_rate, compute_dtype,
         seed, data_seq_len, config_overrides, device, remat=remat,
         grad_accum=grad_accum, master_dtype=master_dtype,
-        tensor_parallel=tensor_parallel, seq_parallel=seq_parallel)
+        tensor_parallel=tensor_parallel, seq_parallel=seq_parallel,
+        pipeline_parallel=pipeline_parallel,
+        num_microbatches=num_microbatches)
     if profiler is not None:
         profiler.log_model_parameters(job.state.model)
         step_hooks = tuple(step_hooks) + (_profiler_hooks(
@@ -291,7 +317,26 @@ def train_whisper(
         replica=job.state.layout.data_rank)
     if collective_report:
         _emit_collective_report(job.step_fn)
-    return result, job.state.model, job.config
+    model = job.state.model
+    if job.state.layout.axis == "stage":
+        model = _whole_model(job.state) or model
+    return result, model, job.config
+
+
+def _whole_model(state: dp.TrainState):
+    """The whole model of a stage state on rank 0, on the host as JAX's
+    ``gather_unpacked_params`` returns it (a stage's card need not hold
+    the whole model), in the stage model's mode (None elsewhere); a
+    collective of the first stage group."""
+    layout = state.layout
+    whole = (pp.gather_params(state.model, layout)
+             if layout.data_rank == 0 else None)
+    if mesh.rank() != 0:
+        return None
+    with torch.device("meta"):
+        model = WhisperForConditionalGeneration(state.model.config)
+    model.load_state_dict(whole, assign=True)
+    return model.train(state.model.training)
 
 
 def make_wav2vec2_job(
