@@ -68,8 +68,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    flash bench: phase 14, frontend: phase 15, training bench: phase 16,
    resume: phase 17, data parallel: phase 18, tensorsize: phase 19,
    capacity: phase 20, parallel: phase 21 (a, b, c, e), Wav2Vec2
-   parallel: phase 22 (a, b, c), pipeline: phase 23, with the launches of
-   the processes they start)
+   parallel: phase 22 (a, b, c), pipeline: phase 23, scan and flat:
+   phase 24, with the launches of the processes they start)
    and read after it; every kernel of a path must have launched during it,
    and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
    as often as gn_grad_sums;
@@ -166,7 +166,7 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    take CUDA tensors, and the process's are logged by (backend, device,
    op)): (a) python -m tethys_tpu_torch.jobs.whisper_dist --model_size
    large-v3 --tp 2 --remat_layers --batch_size 1 --num_batches 4 --dtype
-   bfloat16 --backend gloo from torchrun's env, large-v3 cut to 8 + 8
+   bfloat16 --backend gloo from torchrun's env, large-v3 cut to 4 + 4
    of its 32 + 32 layers at its full width (PAR_V3_DEPTH): both ranks exit 0 with one
    finite loss a step, launch flash_fwd_dropout, flash_bwd, split_heads,
    merge_heads and dropout, and hold at most 0.55 of the unsharded f32
@@ -223,7 +223,26 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    process: the loss within 1e-5 relative, gradients and parameters
    within phase 6's bounds, the replicated parameters bitwise equal on
    both ranks, the encoder's flash forward launched at the microbatch
-   shape once a layer and microbatch and once more in remat's replay.
+   shape once a layer and microbatch and once more in remat's replay;
+24. the last modules of the port on the bench's steps: (a, b) through
+   profiling/step_profile.py (3 warm-up, 3 timed and 3 traced steps; wall
+   and device ms a step, the idle share, launches a step and Adam's),
+   wav2vec2-base b32 bf16 unrolled, --scan_layers, --flat_opt, both,
+   unrolled again, whisper-base b16 per tensor, --flat_opt, per tensor
+   again; then 5 steps of each under cuDNN's and torch's deterministic
+   algorithms: Wav2Vec2's scanned and flat steps take unrolled per
+   tensor's first gradients bit for bit, their first loss equal and every
+   loss within 1e-2 (the clip's norm in another f32 order, which the
+   quantizer's argmin turns into other codes at near-ties), Whisper's
+   flat step within 10 times the gap of two per-tensor runs or 1e-4 (the
+   flash backward's dq atomics); (b') the bench twin with --scan_layers
+   --flat_opt, and with --flat_opt --remat, which prints bench.py's note;
+   (c) phase 18(a')'s f32 b2 steps in an NCCL world of one on the flat
+   buffer: exactly one gradient all_reduce a step, of the flat gradient
+   in place (4 x total bytes), then the loss's 4; the first loss equal to
+   the per-tensor step's, the losses within 1e-5 and the parameters
+   within 1e-6; both reducers timed alone; (d) the decode-floor twin's
+   whisper-base b16 row beside phase 13's ms a decode step.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -306,6 +325,10 @@ PATH_KERNELS = {
     # Each rank of 23(a) launches every one of them.
     "pipeline": ("split_heads", "merge_heads", "flash_fwd_dropout",
                  "flash_bwd", "dropout"),
+    # Phase 24: the bench's two steps, scanned and on the flat buffer.
+    "scan_flat": ("split_heads", "merge_heads", "flash_fwd_dropout",
+                  "flash_bwd", "dropout", "gn_stats", "gn_grad_sums",
+                  "gn_apply", "gn_apply_bwd"),
 }
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
@@ -1961,6 +1984,10 @@ def run_long_audio_large_v3(gpu: str) -> dict:
     return stats
 
 
+# Phase 13's ms a decode step by (kv_quant, fused), for phase 24(d).
+DECODE_MS = {}
+
+
 def run_bench_twin() -> None:
     """Phase 13: the serving bench's twin at whisper-base b16 bf16."""
     from tethys_tpu_torch.ops import qkv
@@ -1976,6 +2003,7 @@ def run_bench_twin() -> None:
         with fused_qkv(fused):
             result = bench_generate.main(base + ["--kv_quant", kv_quant])
         encode_ms[(kv_quant, fused)] = result["encode_ms"]
+        DECODE_MS[(kv_quant, fused)] = result["per_token_latency_ms"]
     log(f"  int8 encode: fused projections {encode_ms[('int8', True)]:.3f} "
         f"ms, F.linear + split_heads {encode_ms[('int8', False)]:.3f} ms")
     # The bf16 fused run takes both Hopper routes: wgmma in the encoder and
@@ -2348,16 +2376,24 @@ def w2v_dp_setup(device, global_batch: int):
     return model, batches, loss_fn
 
 
-def w2v_dp_steps(device, rank: int = 0, ranks: int = 1):
+def w2v_dp_steps(device, rank: int = 0, ranks: int = 1,
+                 flat_opt: bool = False):
     """Phase 18's hardened steps on this process's rows of the global
     batch: the step, the logged losses, the global norm of the gradient the
     optimizer takes (the sum over the replicas), the final parameters (on
-    the host) and the last gradients."""
-    from tethys_tpu_torch.parallel import dp
+    the host) and the last gradients (``flat_opt``: the flat optimizer of
+    parallel/flat.py, and its one flat gradient)."""
+    from tethys_tpu_torch.parallel import dp, flat
 
     model, batches, loss_fn = w2v_dp_setup(device, W2V_F32_BATCH * ranks)
-    opt = dp.wav2vec2_optimizer(model.parameters(), W2V_LR)
-    step = dp.make_train_step(loss_fn, opt, hardened=True)
+    spec = None
+    if flat_opt:
+        spec = flat.FlatSpec(model)
+        spec.bind(model)
+        opt = flat.wav2vec2_optimizer(spec, W2V_LR)
+    else:
+        opt = dp.wav2vec2_optimizer(model.parameters(), W2V_LR)
+    step = dp.make_train_step(loss_fn, opt, hardened=True, flat_spec=spec)
     norms, adam_step = [], opt.step
 
     def record():
@@ -2373,10 +2409,11 @@ def w2v_dp_steps(device, rank: int = 0, ranks: int = 1):
         state, loss = step(state, (audio[rows], negatives[rows]),
                            dp.step_generator(SEED, i, rank))
         losses_seen.append(loss.item())
+    grads = ([spec.param.grad] if flat_opt else
+             [p.grad for p in model.parameters() if p.grad is not None])
     return step, losses_seen, norms, {
         n: p.detach().to("cpu", copy=True) for n, p in
-        model.named_parameters()}, [p.grad for p in model.parameters()
-                                    if p.grad is not None]
+        model.named_parameters()}, grads
 
 
 @contextlib.contextmanager
@@ -3167,11 +3204,11 @@ def run_convergence() -> None:
 # the collectives' speed.
 PAR_RANKS = 2
 PAR_V3_STEPS = 4
-# 21(a)'s depth: 8 + 8 of large-v3's 32 + 32 layers at its full width,
-# which keeps the whole script, phase 23 included, well inside its time
-# limit (the model's making, its checkpoint and the resume scale with the
-# depth).
-PAR_V3_DEPTH = 8
+# 21(a)'s depth: 4 + 4 of large-v3's 32 + 32 layers at its full width,
+# which keeps the whole script, phases 23 and 24 included, well inside its
+# time limit (the model's making, its checkpoint and the resume scale with
+# the depth).
+PAR_V3_DEPTH = 4
 PAR_SP_STEPS = 4
 PAR_STEPS = 2
 PAR_BATCH = 2           # rows a replica in (b), (c) and (e)
@@ -4194,6 +4231,267 @@ def run_pp_equality(child: dict) -> None:
         "ranks")
 
 
+# Phase 24: the last modules of the port (scan_layers, the flat optimizer,
+# the decode floor), A/B'd on the bench's steps.
+AB_WARMUP = 3
+AB_STEPS = 3
+LOSS_STEPS = 5
+# Deterministic runs (cuDNN's and torch's deterministic algorithms): a
+# Wav2Vec2 step scanned or on the flat buffer takes the per-tensor step's
+# gradients bit for bit, but its global clip sums the squares of 56
+# stacked tensors or one flat vector where per tensor it sums 232, so the
+# clip's scale, then Adam's update, may differ in their last bits, and the
+# quantizer's argmin turns a last-bit change of the features into another
+# code at a near-tie: on an H100 the scanned losses part at step 3 by
+# 3e-5 and at step 4 by 3e-3 (PERF.md).  Held: the first loss and the
+# first gradients bitwise, every loss within W2V_LOSS_REL.
+W2V_LOSS_REL = 1e-2
+# Whisper's flash backward adds dq by atomics, so two runs of the same
+# step differ in dq's last bits from the first backward on: the flat step
+# is held to FLAT_LOSS_SPREAD times the gap of two per-tensor runs, and
+# at least to WHISPER_LOSS_REL.
+FLAT_LOSS_SPREAD = 10.0
+WHISPER_LOSS_REL = 1e-4
+
+
+def profile_bench_step(family: str, *flags: str) -> dict:
+    """step_profile (profiling/step_profile.py) of the bench's step:
+    wav2vec2-base b32 or whisper-base b16, bf16 on f32 masters, AB_WARMUP
+    steps, AB_STEPS timed and AB_STEPS traced, ``flags`` added; the card's
+    memory freed after."""
+    import gc
+
+    from tethys_tpu_torch.profiling import step_profile
+
+    result = step_profile.main(["--model", family, "--warmup",
+                                str(AB_WARMUP), "--steps", str(AB_STEPS),
+                                *flags])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and torch's deterministic
+    implementations (a warning where an op has none)."""
+    with deterministic_cudnn():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def bench_losses(family: str, *flags: str):
+    """LOSS_STEPS losses of the bench twin's step (its job, weights, batch
+    and generators; scripts/bench.build_family_step) with ``flags``, under
+    ``deterministic()``, and the first step's gradients before the global
+    clip by parameter name, unstacked (Wav2Vec2's hardened step; None for
+    Whisper's, which has no clip)."""
+    import gc
+    import warnings
+
+    from tethys_tpu_torch.models import wav2vec2
+    from tethys_tpu_torch.parallel import dp
+    from tethys_tpu_torch.scripts import bench
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    args = bench.parse_args(["--family", family, *flags])
+    first, real_clip = {}, dp.clip_by_global_norm
+
+    def snapshot(grads, *clip_args):
+        if not first:
+            spec = job.step_fn.flat_spec
+            if spec is not None:
+                named = spec.unflatten(grads[0])
+            else:
+                named = dict(zip([n for n, p in
+                                  job.state.model.named_parameters()
+                                  if p.grad is not None], grads))
+            first.update(wav2vec2.unstack_layer_params(
+                {n: g.detach().clone() for n, g in named.items()}))
+        return real_clip(grads, *clip_args)
+
+    dp.clip_by_global_norm = snapshot
+    try:
+        with deterministic(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            job, batch, *_ = bench.build_family_step(args, family,
+                                                     require_cuda())
+            state, losses = job.state, []
+            for i in range(LOSS_STEPS):
+                state, loss = job.step_fn(
+                    state, batch, dp.step_generator(bench.STEP_SEED, i))
+                losses.append(loss.item())
+    finally:
+        dp.clip_by_global_norm = real_clip
+    del job, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, first or None
+
+
+def log_profile(label: str, r: dict, gpu: str) -> None:
+    opt = "optimizer + clips"
+    log(f"  24 {label}: wall {r['wall_ms_per_step']:.2f} ms/step, device "
+        f"{r['device_ms_per_step']:.2f}, idle {r['idle_share']:.4f}, "
+        f"{r['launches_per_step']:.1f} launches a step, "
+        f"{r['launches_per_step_by_category'].get(opt, 0):.1f} of them "
+        f"Adam and the clips ({r['ms_per_step_by_category'].get(opt, 0):.3f}"
+        f" ms); host ms {r['host_ms_per_step']} ({gpu})")
+    log("  24 " + json.dumps({k: v for k, v in r.items() if k != "losses"}))
+
+
+def loss_gap(got: list, want: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def run_scan_flat_ab(gpu: str) -> None:
+    """Phase 24(a, b): the bench's steps, wav2vec2-base b32 unrolled,
+    --scan_layers, --flat_opt, both, unrolled again, then whisper-base b16
+    per tensor, --flat_opt, per tensor again, each through step_profile
+    (wall and device ms a step, idle share, launches, Adam's launches);
+    then their losses under ``deterministic()``: Wav2Vec2's scanned and
+    flat steps take the first gradients of unrolled per tensor bit for bit
+    and their losses stay within W2V_LOSS_REL; Whisper's flat step's
+    within FLAT_LOSS_SPREAD times the gap of two per-tensor runs."""
+    runs = (("wav2vec2",), ("wav2vec2", "--scan_layers"),
+            ("wav2vec2", "--flat_opt"),
+            ("wav2vec2", "--scan_layers", "--flat_opt"), ("wav2vec2",),
+            ("whisper",), ("whisper", "--flat_opt"), ("whisper",))
+    for key in runs:
+        log_profile(" ".join(key), profile_bench_step(*key), gpu)
+    want, want_grads = bench_losses("wav2vec2")
+    log(f"  24(a) wav2vec2 per tensor, unrolled: losses {want}")
+    for flags in (("--scan_layers",), ("--flat_opt",),
+                  ("--scan_layers", "--flat_opt")):
+        got, grads = bench_losses("wav2vec2", *flags)
+        gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        differ = [n for n, g in want_grads.items()
+                  if not torch.equal(grads[n], g)]
+        extra = [n for n in grads if n not in want_grads and grads[n].any()]
+        log(f"  24(a) wav2vec2 {' '.join(flags)}: losses {got}, relative "
+            f"gaps {[f'{g:.3e}' for g in gaps]} (limit {W2V_LOSS_REL}); "
+            f"first gradients bitwise equal in {len(want_grads) - len(differ)}"
+            f" of {len(want_grads)} tensors")
+        require(not differ and not extra, f"24(a) {flags}: the first "
+                f"gradients differ in {differ[:5]}, nonzero in {extra[:5]}")
+        require(got[0] == want[0] and max(gaps) <= W2V_LOSS_REL,
+                f"24(a) {flags}: losses {got} against {want}")
+    del want_grads, grads
+    (want, _), (again, _) = bench_losses("whisper"), bench_losses("whisper")
+    got, _ = bench_losses("whisper", "--flat_opt")
+    spread = loss_gap(again, want)
+    limit = max(FLAT_LOSS_SPREAD * spread, WHISPER_LOSS_REL)
+    gap = loss_gap(got, want)
+    log(f"  24(b) whisper per tensor: losses {want} and {again} (gap "
+        f"{spread:.3e}); --flat_opt {got}: gap {gap:.3e} (limit "
+        f"{limit:.3e})")
+    require(got[0] == want[0], "24(b): whisper's first losses differ")
+    require(gap <= limit, f"24(b): whisper --flat_opt losses {gap:.3e} off")
+
+
+def run_bench_flags() -> None:
+    """Phase 24(b'): the bench twin with --scan_layers --flat_opt
+    (wav2vec2-base b32), and with --flat_opt --remat (whisper-base b16),
+    which must print bench.py's note and run without remat."""
+    import io
+
+    from tethys_tpu_torch.scripts import bench
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rows = bench.main(["--family", "wav2vec2", "--scan_layers",
+                           "--flat_opt", "--steps", str(AB_STEPS),
+                           "--warmup", "2"])
+        rows += bench.main(["--family", "whisper", "--flat_opt", "--remat",
+                            "--steps", str(AB_STEPS), "--warmup", "2"])
+    for row in rows:
+        log(f"  24(b') bench {row['metric']}: "
+            f"{row['step_time_s'] * 1e3:.2f} ms/step, mfu {row['mfu']}")
+        require(np.isfinite(row["value"]) and 0 < row["mfu"] <= 1,
+                f"24(b') bench row {row}")
+    require("--flat_opt ignores --remat" in err.getvalue(),
+            f"24(b'): no --remat note on stderr: {err.getvalue()!r}")
+    log(f"  24(b') the bench's note: {err.getvalue().strip()}")
+
+
+def run_flat_nccl() -> None:
+    """Phase 24(c): phase 18(a')'s f32 b2 hardened steps (rates 0, cuDNN
+    deterministic) in an NCCL world of one, per tensor and on the flat
+    buffer: each flat step hands all_reduce exactly two tensors, the flat
+    gradient itself in place (4 x total bytes) and the loss (4); the flat
+    step's losses and parameters equal the per-tensor step's within the
+    clips' f32 order (the first loss bitwise, the others within 1e-5
+    relative, parameters within 1e-6 but the two whose gradient is
+    rounding alone); each reducer timed alone."""
+    from tethys_tpu_torch.parallel import mesh
+    from tethys_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    real_all_reduce, calls = torch.distributed.all_reduce, []
+
+    def counting(tensor, *args, **kwargs):
+        calls.append((tensor.numel() * tensor.element_size(),
+                      tensor.data_ptr()))
+        return real_all_reduce(tensor, *args, **kwargs)
+
+    with deterministic_cudnn(), torchrun_env(1, 0, free_port()):
+        mesh.initialize_distributed()
+        try:
+            backend = torch.distributed.get_backend()
+            per_tensor = w2v_dp_steps(dev)
+            reducer_times(per_tensor[0].reducer, per_tensor[4])
+            torch.distributed.all_reduce = counting
+            try:
+                flat = w2v_dp_steps(dev, flat_opt=True)
+            finally:
+                torch.distributed.all_reduce = real_all_reduce
+            reducer_times(flat[0].reducer, flat[4])
+        finally:
+            mesh.shutdown_distributed()
+    require(backend == "nccl", f"backend {backend}")
+    spec = flat[0].flat_spec
+    want_calls = [(4 * spec.total, spec.param.grad.data_ptr())]
+    log(f"  24(c) flat: all_reduce calls (bytes) "
+        f"{[n for n, _ in calls]}, {W2V_F32_STEPS} steps; collective bytes "
+        f"{flat[0].collective_bytes}; per tensor "
+        f"{per_tensor[0].collective_bytes} in "
+        f"{len(per_tensor[0].reducer.buckets(per_tensor[4]))} buckets")
+    require([c for c in calls if c[0] != 4] == want_calls * W2V_F32_STEPS
+            and len(calls) == 2 * W2V_F32_STEPS,
+            f"24(c): the flat step's all_reduce calls {calls}")
+    require(flat[0].collective_bytes == {"all-reduce": 4 * spec.total + 4},
+            f"24(c): collective bytes {flat[0].collective_bytes}")
+    gap = loss_gap(flat[1], per_tensor[1])
+    worst = max(max_err(flat[3][n], p) for n, p in per_tensor[3].items()
+                if not n.endswith(ROUNDING_ONLY))
+    log(f"  24(c) losses flat {flat[1]}, per tensor {per_tensor[1]} "
+        f"(gap {gap:.3e}); summed-gradient norms {flat[2]} / "
+        f"{per_tensor[2]}; parameters within {worst:.3e}")
+    require(flat[1][0] == per_tensor[1][0] and gap <= 1e-5,
+            f"24(c): flat losses {gap:.3e} off")
+    require(worst <= 1e-6, f"24(c): flat parameters {worst:.3e} off")
+
+
+def run_decode_floor(gpu: str) -> None:
+    """Phase 24(d): the decode-floor twin's whisper-base b16 row (3.35
+    TB/s) beside phase 13's measured ms a decode step."""
+    from tethys_tpu_torch.scripts import decode_floor
+
+    row = decode_floor.floor_row(MODEL, BENCH_BATCH, decode_floor.H100_HBM_GBPS,
+                                 length=BENCH_STEPS)
+    log("  24(d) " + json.dumps(row))
+    for (kv_quant, fused), ms in DECODE_MS.items():
+        floor = (row["int8_cross_floor_ms"] if kv_quant == "int8"
+                 else row["floor_ms_per_token"])
+        log(f"  24(d) kv_quant {kv_quant}{' fused' if fused else ''}: "
+            f"{ms:.4f} ms a decode step (phase 13) against the floor "
+            f"{floor} ms: {ms / floor:.1f}x ({gpu})")
+    require(DECODE_MS, "24(d): phase 13 recorded no decode step")
+
+
 def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -4355,6 +4653,15 @@ def main() -> int:
         ("[23b] a PP whisper-base f32 step, M 4 with remat, two gloo ranks "
          "against one process", run_pp_equality, child)),
         child_counts=child)
+    scan_flat = drive_path("scan_flat", (
+        ("[24a, b] the bench's steps scanned and on the flat buffer "
+         "against per tensor, wav2vec2-base b32 and whisper-base b16",
+         run_scan_flat_ab, gpu),
+        ("[24b'] the bench twin with --scan_layers --flat_opt, and with "
+         "--flat_opt --remat", run_bench_flags),
+        ("[24c] the flat step in an nccl world of one: one all-reduce",
+         run_flat_nccl),
+        ("[24d] the decode floor beside phase 13", run_decode_floor, gpu)))
     log(f"  21-23: the collectives of their processes (rank 0 of each TP "
         f"and SP world, both ranks of the PP world, every rank of each CLI) "
         f"by backend, device and op: {PAR_TRANSPORTS}")
@@ -4364,7 +4671,7 @@ def main() -> int:
     counts = {k: serving[k] + training[k] + w2v[k] + long_audio[k]
               + flash_bench[k] + frontend[k] + train_bench[k] + resume[k]
               + data_parallel[k] + tensorsize[k] + capacity[k] + parallel[k]
-              + w2v_parallel[k] + pipeline[k] for k in serving}
+              + w2v_parallel[k] + pipeline[k] + scan_flat[k] for k in serving}
     log(f"[10] launches on the paths: {counts}")
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")

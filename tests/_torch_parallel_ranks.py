@@ -1,6 +1,7 @@
 """The ranks of the tensor-, sequence- and pipeline-parallel worlds of
 tests/test_torch_tp.py, tests/test_torch_sp.py,
-tests/test_torch_w2v_parallel.py and tests/test_torch_pp.py, and the
+tests/test_torch_w2v_parallel.py and tests/test_torch_pp.py, of the flat
+optimizer's world of tests/test_torch_flat.py, and the
 helpers that start them (gloo on 127.0.0.1, torchrun's env or a
 TF_CONFIG).
 
@@ -31,7 +32,14 @@ from tethys_tpu_torch.models.whisper import (  # noqa: E402
     greedy_generate,
 )
 from tethys_tpu_torch.ops import sharding  # noqa: E402
-from tethys_tpu_torch.parallel import dp, mesh, pp, sp, tp  # noqa: E402
+from tethys_tpu_torch.parallel import (  # noqa: E402
+    dp,
+    flat,
+    mesh,
+    pp,
+    sp,
+    tp,
+)
 
 TIMEOUT_S = 180
 TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT",
@@ -474,8 +482,69 @@ def rank_w2v_job(workdir: str, *argv: str) -> None:
     wav2vec2_dist.main(list(argv))
 
 
+def rank_flat(workdir: str) -> None:
+    """A rank of the 2-process world of tests/test_torch_flat.py: the
+    spec's tiny Wav2Vec2 hardened step (its weights, the loss scaled by
+    ``scale``) on this rank's rows of each batch, per tensor and on the
+    flat buffer (parallel/flat.py) in turn; writes each one's losses,
+    final parameters, collective bytes and, a step, the bytes of every
+    all_reduce call and whether it reduced the flat gradient itself."""
+    mesh.initialize_distributed(timeout_s=60, device="cpu")
+    rank, n = mesh.rank(), mesh.world_size()
+    spec = torch.load(os.path.join(workdir, "spec.pt"))
+    cfg = Wav2Vec2Config(**spec["config"])
+    real_all_reduce, out = torch.distributed.all_reduce, {}
+
+    def loss_fn(m, batch, generator):
+        audio, negatives = batch
+        loss, aux = w2v.pretraining_loss(cfg, m(audio, generator=generator),
+                                         negative_indices=negatives)
+        return loss * spec["scale"], aux
+
+    for kind in ("per_tensor", "flat"):
+        model = w2v.Wav2Vec2ForPreTraining(cfg)
+        model.load_state_dict(spec["state_dict"])
+        model.train()
+        fspec = None
+        if kind == "flat":
+            fspec = flat.FlatSpec(model)
+            fspec.bind(model)
+            opt = flat.wav2vec2_optimizer(fspec, spec["lr"])
+        else:
+            opt = dp.wav2vec2_optimizer(model.parameters(), spec["lr"])
+        step = dp.make_train_step(loss_fn, opt, hardened=True,
+                                  flat_spec=fspec)
+        calls, losses = [], []
+
+        def counting(tensor, *args, **kwargs):
+            calls[-1].append((tensor.numel() * tensor.element_size(),
+                              fspec is not None and tensor.data_ptr()
+                              == fspec.param.grad.data_ptr()))
+            return real_all_reduce(tensor, *args, **kwargs)
+
+        torch.distributed.all_reduce = counting
+        try:
+            state = dp.TrainState(model, opt)
+            for i, batch in enumerate(spec["batches"]):
+                rows = len(batch[0]) // n
+                local = tuple(a[rank * rows:(rank + 1) * rows] for a in batch)
+                calls.append([])
+                state, loss = step(state, local, dp.step_generator(0, i, rank))
+                losses.append(loss.item())
+        finally:
+            torch.distributed.all_reduce = real_all_reduce
+        out[kind] = {"losses": losses, "calls": calls,
+                     "collective_bytes": dict(step.collective_bytes),
+                     "total": None if fspec is None else fspec.total,
+                     "params": {k: p.detach().clone() for k, p in
+                                model.named_parameters()}}
+    torch.save(out, os.path.join(workdir, f"rank_{rank}.pt"))
+    mesh.shutdown_distributed()
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
     {"tp": rank_tp, "sp": rank_sp, "pp": rank_pp, "job": rank_job,
-     "w2v": rank_w2v, "w2v_job": rank_w2v_job}[sys.argv[1]](*sys.argv[2:])
+     "w2v": rank_w2v, "w2v_job": rank_w2v_job,
+     "flat": rank_flat}[sys.argv[1]](*sys.argv[2:])
     sys.exit(0)

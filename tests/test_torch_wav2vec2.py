@@ -50,8 +50,9 @@ def test_presets_match_jax_field_for_field(size):
     cfg, jcfg = Wav2Vec2Config.from_size(size), JaxConfig.from_size(size)
     for n in (32000, 80000, 401, 1):
         assert cfg.downsampled_length(n) == jcfg.downsampled_length(n)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        Wav2Vec2Config.from_size(size, scan_layers=True)
+    scanned = Wav2Vec2Config.from_size(size, scan_layers=True)
+    assert scanned.scan_layers and dataclasses.asdict(scanned) == (
+        dataclasses.asdict(JaxConfig.from_size(size, scan_layers=True)))
 
 
 @pytest.mark.parametrize("groups,t", [(4, 37), (16, 20)])

@@ -180,14 +180,10 @@ class Wav2Vec2Config:
     # Accelerator additions.
     compute_dtype: str = "float32"
     # The JAX package's [L, ...]-stacked nn.scan layout of the encoder
-    # layers: a compile-time layout that computes nothing new.
+    # layers: each layer parameter held once, stacked, and one layer body
+    # run L times on its slices (models/wav2vec2.py).  Same math; the
+    # layouts convert with models.wav2vec2.stack_layer_params / unstack.
     scan_layers: bool = False
-
-    def __post_init__(self):
-        if self.scan_layers:
-            raise NotImplementedError(
-                "scan_layers=True (the stacked nn.scan layer layout) is not "
-                "ported yet (ROADMAP.md, queue 1 item 7)")
 
     @property
     def dtype(self) -> torch.dtype:

@@ -16,11 +16,19 @@ Flax paths become module paths: ``model/encoder/layers_0/self_attn/q_proj``
 Values stay f32; ``load_state_dict`` casts them to the dtype the model
 holds (config.dtype).
 
+Wav2Vec2's stacked ``scan_layers`` tree: a leaf under a ``layers`` part
+with no index after it (flax ``encoder/layers/...``, torch
+``encoder.layers.attention...``) carries the layers in a leading [L] dim,
+which stays first: a stacked Dense kernel [L, in, out] -> [L, out, in].
+Whether a leaf is stacked is read from its path, never from its rank (a
+stacked LayerNorm scale is 2-D, a stacked Dense kernel 3-D).
+
 The inverse: ``flax_path(name, ndim)`` and ``flax_shape(name, shape)`` give
 a state_dict leaf's flax path and shape (a ``weight`` of rank 1 is a
 LayerNorm ``scale``, of rank 3 a Conv ``kernel``, of rank 2 a Dense
-``kernel`` unless it is an embedding's table; Dense and Conv kernels are
-transposed back), and ``flax_from_state_dict`` the whole nested tree, so
+``kernel`` unless it is an embedding's table, each rank one more when
+stacked; Dense and Conv kernels are transposed back), and
+``flax_from_state_dict`` the whole nested tree, so
 ``params_from_flax(flax_from_state_dict(sd))`` equals ``sd``.  The
 tensorsize profiler names its parameter and gradient rows with them, as the
 JAX profiler names them from the flax tree.
@@ -65,14 +73,32 @@ def torch_name(flax_path: tuple) -> str:
     return ".".join(parts)
 
 
+def stacked(parts: Sequence[str]) -> bool:
+    """Whether the leaf at ``parts`` (a flax path, or a torch name split at
+    its dots) lies in the stacked ``scan_layers`` layout: under a
+    ``layers`` part with no layer index after it."""
+    parts = list(parts)
+    return any(part == "layers" and not _INDEX.match(parts[i + 1])
+               for i, part in enumerate(parts[:-1]))
+
+
+def _kernel_axes(ndim: int, stack: bool) -> Tuple[int, ...]:
+    """The transposition between a flax kernel and a torch weight (its own
+    inverse): all dims reversed, but a stacked leaf's leading [L]."""
+    lead = 1 if stack else 0
+    if ndim - lead not in (2, 3):   # Dense [in, out], Conv [k, in, out]
+        raise ValueError(f"kernel of rank {ndim}")
+    return tuple(range(lead)) + tuple(range(ndim - 1, lead - 1, -1))
+
+
 def _convert_leaf(flax_path: tuple, value: np.ndarray) -> np.ndarray:
     leaf = flax_path[-1]
     if leaf == "kernel":
-        if value.ndim == 2:                       # Dense [in, out]
-            return value.T
-        if value.ndim == 3:                       # Conv [k, in, out]
-            return value.transpose(2, 1, 0)
-        raise ValueError(f"{'/'.join(flax_path)}: kernel of rank {value.ndim}")
+        try:
+            return value.transpose(_kernel_axes(value.ndim,
+                                                stacked(flax_path)))
+        except ValueError as e:
+            raise ValueError(f"{'/'.join(flax_path)}: {e}") from None
     if leaf in ("bias", "scale", "embedding") + _NAMED:
         return value
     raise ValueError(f"{'/'.join(flax_path)}: unknown leaf {leaf!r}")
@@ -102,16 +128,18 @@ def flax_module_path(name: str) -> Tuple[str, ...]:
 
 def flax_path(name: str, ndim: int) -> Tuple[str, ...]:
     """'model.encoder.layers.0.fc1.weight' (of rank ``ndim``) -> ('model',
-    'encoder', 'layers_0', 'fc1', 'kernel'): the inverse of ``torch_name``."""
+    'encoder', 'layers_0', 'fc1', 'kernel'): the inverse of ``torch_name``.
+    A stacked leaf's rank counts its leading [L]."""
     parts = name.split(".")
     path = list(flax_module_path(".".join(parts[:-1])))
     leaf = parts[-1]
     if leaf == "weight":
-        if ndim == 1:
+        rank = ndim - stacked(parts)
+        if rank == 1:
             leaf = "scale"
-        elif ndim == 2 and path[-1] in _EMBEDDINGS:
+        elif rank == 2 and path[-1] in _EMBEDDINGS:
             leaf = "embedding"
-        elif ndim in (2, 3):
+        elif rank in (2, 3):
             leaf = "kernel"
         else:
             raise ValueError(f"{name}: weight of rank {ndim}")
@@ -122,10 +150,12 @@ def flax_path(name: str, ndim: int) -> Tuple[str, ...]:
 
 def flax_shape(name: str, shape: Sequence[int]) -> Tuple[int, ...]:
     """The flax shape of the state_dict leaf ``name`` of ``shape``: Dense
-    kernels [in, out], Conv kernels [k, in / groups, out]."""
+    kernels [in, out], Conv kernels [k, in / groups, out] (behind a
+    stacked leaf's [L])."""
     shape = tuple(int(n) for n in shape)
     if flax_path(name, len(shape))[-1] == "kernel":
-        return shape[::-1]
+        return tuple(shape[i] for i in _kernel_axes(
+            len(shape), stacked(name.split("."))))
     return shape
 
 
@@ -137,7 +167,7 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> dict:
         value = tensor.detach().cpu().float().numpy()
         path = flax_path(name, value.ndim)
         if path[-1] == "kernel":
-            value = value.transpose(tuple(range(value.ndim))[::-1])
+            value = value.transpose(_kernel_axes(value.ndim, stacked(path)))
         node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})

@@ -67,7 +67,9 @@ drops.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import re
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +77,7 @@ from torch import nn
 
 from tethys_tpu_torch import losses
 from tethys_tpu_torch.configs import Wav2Vec2Config
+from tethys_tpu_torch.convert import stacked
 from tethys_tpu_torch.models.whisper import init_weights as _init_linear_conv
 from tethys_tpu_torch.ops import sharding
 from tethys_tpu_torch.ops.activations import gelu
@@ -316,12 +319,24 @@ class Wav2Vec2EncoderLayer(nn.Module):
 
 
 class Wav2Vec2Encoder(nn.Module):
+    """``scan_layers``: ``layers`` is one Wav2Vec2EncoderLayer whose every
+    parameter is stacked [L, ...] (flax's nn.scan'd ``layers``), and the
+    forward runs its body L times, layer i on slice i of each stacked
+    parameter (module doc)."""
+
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         self.config = config
-        self.layers = nn.ModuleList(
-            Wav2Vec2EncoderLayer(config)
-            for _ in range(config.num_hidden_layers))
+        if config.scan_layers:
+            self.layers = Wav2Vec2EncoderLayer(config)
+            for module, name, p in self._stacked():
+                module._parameters[name] = nn.Parameter(
+                    p.new_empty((config.num_hidden_layers, *p.shape)),
+                    requires_grad=p.requires_grad)
+        else:
+            self.layers = nn.ModuleList(
+                Wav2Vec2EncoderLayer(config)
+                for _ in range(config.num_hidden_layers))
         if config.use_weighted_layer_sum:
             self.layer_weights = nn.Parameter(
                 torch.full((config.num_hidden_layers,),
@@ -336,9 +351,13 @@ class Wav2Vec2Encoder(nn.Module):
         rules = sharding.current_seq_rules()
         seq = None if rules is None else sharding.SeqShard(rules, x.shape[1])
         if seq is not None:
+            if self.config.scan_layers:
+                raise NotImplementedError(
+                    "sequence parallelism on the stacked scan_layers layout "
+                    "is not ported (ROADMAP.md, queue 1)")
             x = seq.split(x)
         outputs = []
-        for layer in self.layers:
+        for layer in self._layer_bodies():
             x = sharding.seq_constrain(layer(x, bias, generator, seq), seq)
             outputs.append(x)
         if self.config.use_weighted_layer_sum:
@@ -347,6 +366,33 @@ class Wav2Vec2Encoder(nn.Module):
         if seq is not None:
             x = seq.gather(x)
         return {"last_hidden_state": x}
+
+    def _stacked(self):
+        """(module, name, parameter) of the layer body's parameters
+        (stacked under ``scan_layers``), in ``named_parameters`` order."""
+        return [(module, name, p) for module in self.layers.modules()
+                for name, p in module._parameters.items()]
+
+    def _layer_bodies(self):
+        """The layers, in order.  Under ``scan_layers`` the one body, with
+        slice i of every stacked parameter in place while layer i runs:
+        the stacks are unbound once a forward, so their gradient is one
+        ``stack`` of the slices' (``stacked[i]`` per layer would add L
+        full-size zero-padded gradients), and the generator's draws come
+        in the unrolled order."""
+        if not self.config.scan_layers:
+            yield from self.layers
+            return
+        stacked = self._stacked()
+        slices = [p.unbind(0) for _, _, p in stacked]
+        try:
+            for i in range(self.config.num_hidden_layers):
+                for (module, name, _), layer_slices in zip(stacked, slices):
+                    module._parameters[name] = layer_slices[i]
+                yield self.layers
+        finally:
+            for module, name, p in stacked:
+                module._parameters[name] = p
 
 
 class Wav2Vec2ProjectionHead(nn.Module):
@@ -631,7 +677,59 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 cv.copy_(torch.randn(cv.shape, generator=generator).to(cv))
             elif isinstance(module, Wav2Vec2Encoder) and hasattr(
                     module, "layer_weights"):
-                module.layer_weights.fill_(1.0 / len(module.layers))
+                module.layer_weights.fill_(
+                    1.0 / module.config.num_hidden_layers)
+
+
+# An unrolled encoder layer's state_dict key: (encoder prefix, index, leaf).
+_LAYER_KEY = re.compile(r"^((?:.*\.)?encoder\.layers)\.(\d+)\.(.+)$")
+
+
+def stack_layer_params(state: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """An unrolled state dict (``...encoder.layers.{i}.<leaf>``) -> the
+    ``scan_layers`` one (``...encoder.layers.<leaf>``, the layers stacked
+    [L, ...] in order, where layer 0's leaf stood); other keys untouched
+    (JAX ``stack_layer_params``)."""
+    out, layers = {}, {}
+    for key, value in state.items():
+        m = _LAYER_KEY.match(key)
+        if m is None:
+            out[key] = value
+            continue
+        stacked_key = f"{m.group(1)}.{m.group(3)}"
+        if stacked_key not in layers:
+            layers[stacked_key] = {}
+            out[stacked_key] = None             # holds the place
+        layers[stacked_key][int(m.group(2))] = value
+    for key, by_index in layers.items():
+        out[key] = torch.stack([by_index[i] for i in range(len(by_index))])
+    return out
+
+
+def unstack_layer_params(state: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``stack_layer_params``: each stacked leaf's slices
+    (views) under ``...encoder.layers.{i}.<leaf>``, layer by layer, where
+    the stack stood."""
+    out, pending = {}, []
+
+    def flush():
+        for i in range(pending[0][1].shape[0] if pending else 0):
+            for (prefix, leaf), value in pending:
+                out[f"{prefix}.{i}.{leaf}"] = value[i]
+        pending.clear()
+
+    for key, value in state.items():
+        prefix, _, leaf = key.partition(".layers.")
+        if leaf and prefix.split(".")[-1] == "encoder" and stacked(
+                key.split(".")):
+            pending.append(((prefix + ".layers", leaf), value))
+            continue
+        flush()
+        out[key] = value
+    flush()
+    return out
 
 
 def create_full_model(model_type: str = "pretraining",
@@ -650,15 +748,22 @@ def create_full_model(model_type: str = "pretraining",
         model_size, num_negatives=num_negatives,
         mask_time_prob=mask_time_prob, mask_time_length=mask_time_length,
         **overrides)
-    with torch.device("meta"):
-        if model_type == "pretraining":
-            model = Wav2Vec2ForPreTraining(config)
-        elif model_type == "asr":
-            model = Wav2Vec2ForCTC(config, real_ctc=real_ctc)
-        elif model_type == "classification":
-            model = Wav2Vec2ForSequenceClassification(config)
-        else:
-            model = Wav2Vec2Model(config)
+    def build(config):
+        with torch.device("meta"):
+            if model_type == "pretraining":
+                return Wav2Vec2ForPreTraining(config)
+            if model_type == "asr":
+                return Wav2Vec2ForCTC(config, real_ctc=real_ctc)
+            if model_type == "classification":
+                return Wav2Vec2ForSequenceClassification(config)
+            return Wav2Vec2Model(config)
+
+    # The weights are drawn unrolled, so scan_layers stacks the same ones.
+    model = build(dataclasses.replace(config, scan_layers=False))
     model = model.to_empty(device=device)
     init_weights(model, torch.Generator().manual_seed(seed))
+    if config.scan_layers:
+        state = stack_layer_params(model.state_dict())
+        model = build(config)
+        model.load_state_dict(state, assign=True)
     return model.to(param_dtype).eval(), config

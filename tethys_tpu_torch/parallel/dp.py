@@ -39,7 +39,12 @@
 * ``GradientReducer``: the SUM all-reduce as flat buckets of about 25 MB,
   one dtype each, taken after the backward (``DistributedDataParallel``
   would average, and would start reducing before the hardened clip has
-  seen the replica's whole gradient).
+  seen the replica's whole gradient).  A bucket of one contiguous tensor,
+  the flat gradient of ``flat_spec``, is reduced in place.
+* ``flat_spec`` of ``make_train_step`` (parallel/flat.py, ``--flat_opt``):
+  the parameters and gradients are views of one flat f32 master and its
+  gradient buffer, so the clips, the all-reduce (one collective, then the
+  loss's) and Keras Adam each act on one vector.
 * ``layout`` of ``make_train_step`` (parallel/mesh: ``make_2d_mesh``,
   ``make_seq_mesh``): a replica is one model or seq group, so the replica
   count is the data group's size, and the gradients, the logged loss and
@@ -165,6 +170,11 @@ class KerasAdam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       clipnorm=clipnorm))
 
+    def clip(self, grads: List[torch.Tensor], max_norm: float) -> None:
+        """Keras ``clipnorm``, each gradient by its own norm (the flat
+        optimizer's, parallel/flat.py, by each variable's slice)."""
+        per_variable_clipnorm(grads, max_norm, self.squared_norms)
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
@@ -183,8 +193,7 @@ class KerasAdam(torch.optim.Optimizer):
             count = self.state[params[0]]["step"]
             grads = [p.grad for p in params]
             if group["clipnorm"] is not None:
-                per_variable_clipnorm(grads, group["clipnorm"],
-                                      self.squared_norms)
+                self.clip(grads, group["clipnorm"])
             ms = [self.state[p]["m"] for p in params]
             vs = [self.state[p]["v"] for p in params]
             b1, b2 = group["b1"], group["b2"]
@@ -274,14 +283,19 @@ class GradientReducer:
         dist = torch.distributed
         moved = 0
         for bucket in self.buckets(grads, split) if grads else ():
-            flat = torch.cat([g.reshape(-1) for g in bucket])
+            # A bucket of one contiguous tensor (the flat gradient of
+            # parallel/flat.py) is reduced in place: no concat, no copy.
+            alone = len(bucket) == 1 and bucket[0].is_contiguous()
+            flat = (bucket[0].view(-1) if alone
+                    else torch.cat([g.reshape(-1) for g in bucket]))
             if self.src is None:
                 dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
             else:
                 dist.broadcast(flat, self.src, group=self.group)
-            torch._foreach_copy_(bucket, [
-                part.view_as(g) for part, g in
-                zip(flat.split([g.numel() for g in bucket]), bucket)])
+            if not alone:
+                torch._foreach_copy_(bucket, [
+                    part.view_as(g) for part, g in
+                    zip(flat.split([g.numel() for g in bucket]), bucket)])
             moved += flat.numel() * flat.element_size()
         if loss is not None:
             loss = loss.clone()
@@ -383,7 +397,7 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                     hardened: bool = False, return_aux: bool = False,
                     grad_aux_fn: Optional[Callable] = None,
                     remat: bool = False, grad_accum: int = 1,
-                    layout: Optional[mesh.Layout] = None):
+                    layout: Optional[mesh.Layout] = None, flat_spec=None):
     """step(state, batch, generator) -> (state, loss) on one replica.
 
     loss_fn(model, batch, generator) -> (scalar loss, aux).  The model and
@@ -413,8 +427,24 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
 
     ``layout``: the module doc.  ``step.collective_bytes`` holds the bytes
     the last step handed to each kind of collective (the gradient reduces
-    and, under a layout, the model's own)."""
+    and, under a layout, the model's own).
+
+    ``flat_spec`` (a ``parallel/flat.FlatSpec`` bound to the model, with
+    its ``flat.*_optimizer``; JAX's ``flat_spec=``): the gradients exist
+    only in the spec's flat buffer, which the step zeroes in place; the
+    NaN scrub and 1/N act on the loss as before, the global clip, the one
+    all-reduce of the whole buffer (then the loss's) and Adam on the flat
+    vector; ``grad_aux_fn`` still sees the gradients by name.  It takes no
+    ``grad_accum`` above 1, no ``remat`` and no layout but data
+    parallelism: no JAX entry point combines them."""
     layout = layout or mesh.make_data_mesh()
+    if flat_spec is not None:
+        for flag, on in (("grad_accum > 1", grad_accum > 1),
+                         ("--remat", remat),
+                         ("TP, SP or PP layout", layout.inner > 1)):
+            if on:
+                raise ValueError(f"flat_spec (--flat_opt) takes no {flag}: "
+                                 "no JAX entry point combines them")
     n_replicas = layout.data
     inner = None
     if layout.inner > 1:
@@ -450,7 +480,10 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
         return loss.detach(), aux
 
     def step(state: TrainState, batch, generator: torch.Generator):
-        optimizer.zero_grad(set_to_none=True)
+        if flat_spec is None:
+            optimizer.zero_grad(set_to_none=True)
+        else:
+            flat_spec.zero_grad()
         before = dict(sharding.BYTES)
         with sharding.seq_axis_rules(seq):
             if grad_accum > 1:
@@ -458,8 +491,9 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                                        grad_accum, value_and_grad)
             else:
                 loss, aux = value_and_grad(state.model, batch, generator)
-        named = [(n, p.grad) for n, p in state.model.named_parameters()
-                 if p.grad is not None]
+        named = [] if flat_spec is not None else [
+            (n, p.grad) for n, p in state.model.named_parameters()
+            if p.grad is not None]
         own, norms = [], None
         if seq_reducer is not None:
             # The row-sharded submodules' partial sums.
@@ -474,7 +508,8 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
         # Every other gradient as the group's first rank computed it,
         # first in the list, so that the reducer buckets it apart.
         mine = {id(g) for g in own}
-        replicated = [g for _, g in named if id(g) not in mine]
+        replicated = ([flat_spec.gather_grad()] if flat_spec is not None
+                      else [g for _, g in named if id(g) not in mine])
         grads = replicated + own
         if broadcast is not None:
             broadcast(replicated, None)
@@ -495,15 +530,20 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
         if return_aux:
             aux = dict(replica_mean(aux or {}, layout))
             if grad_aux_fn is not None:
-                aux["grad_aux"] = grad_aux_fn({
-                    name: torch.zeros_like(p) if p.grad is None else p.grad
-                    for name, p in state.model.named_parameters()})
+                aux["grad_aux"] = grad_aux_fn(
+                    flat_spec.named_grads() if flat_spec is not None else {
+                        name: torch.zeros_like(p) if p.grad is None
+                        else p.grad
+                        for name, p in state.model.named_parameters()})
         optimizer.step()
+        if flat_spec is not None:
+            flat_spec.scatter()
         if return_aux:
             return state, loss, aux
         return state, loss
 
     step.reducer = reducer
+    step.flat_spec = flat_spec
     step.remat = remat
     step.collective_bytes = {}
     return step

@@ -22,6 +22,10 @@ dim 0 of the torch weight):
   pretraining heads.
 
 A rank holds exactly the shard JAX's ``param_shardings`` gives its device.
+``param_shardings`` also reads Wav2Vec2's stacked ``scan_layers`` tree as
+JAX's ``_spec_for`` does (the stack dim first, never split), but
+``shard_model`` refuses a scanned model: no JAX entry point runs one
+under tensor parallelism.
 A dim the group does not divide, which JAX's NamedSharding refuses (the
 vocab of whisper-large-v3, 51866, over 4), splits in chunks of
 ceil(n / tp), the last one shorter (ops/sharding.shard_range).
@@ -42,7 +46,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from tethys_tpu_torch.convert import flax_path
+from tethys_tpu_torch.convert import flax_path, stacked
 from tethys_tpu_torch.ops import sharding
 from tethys_tpu_torch.parallel import dp
 from tethys_tpu_torch.parallel.mesh import Layout, make_2d_mesh
@@ -110,8 +114,11 @@ def shard_dim(name: str, ndim: int) -> Optional[int]:
     if "model" not in spec:
         return None
     dim = spec.index("model")
-    # Dense and Conv kernels are stored transposed (convert.py).
-    return ndim - 1 - dim if path[-1] == "kernel" else dim
+    # Dense and Conv kernels are stored transposed (convert.py), behind a
+    # stacked leaf's [L].
+    if path[-1] != "kernel":
+        return dim
+    return ndim - dim if stacked(path) else ndim - 1 - dim
 
 
 def param_shardings(params) -> Dict[str, Optional[int]]:
@@ -231,6 +238,10 @@ def shard_model(model: torch.nn.Module, layout: Layout) -> torch.nn.Module:
     identity at tp 1."""
     if layout.inner == 1:
         return model
+    if getattr(getattr(model, "config", None), "scan_layers", False):
+        raise NotImplementedError(
+            "tensor parallelism on the stacked scan_layers layout is not "
+            "ported (ROADMAP.md, queue 1)")
     if hasattr(model, "config"):
         check_divides(model.config, layout.inner)
     params = dict(model.named_parameters())

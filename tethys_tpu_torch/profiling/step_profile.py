@@ -7,12 +7,16 @@
     python -m tethys_tpu_torch.profiling.step_profile --model whisper \
         --model_size large-v3 --batch_size 4 --remat_layers \
         --master_dtype bfloat16
+    python -m tethys_tpu_torch.profiling.step_profile [--model whisper] \
+        --flat_opt [--scan_layers]
 
 Builds the job's step (train/jobs.make_wav2vec2_job: the hardened step on
 2 s clips by default; make_whisper_job: the plain step on 30 s inputs; the
 config's dropout; the capacity modes of the jobs' CLIs: --remat,
 --grad_accum and --master_dtype, and Whisper's --remat_layers with
---remat_policy), runs warm-up steps, then:
+--remat_policy; the bench's --flat_opt, the flat-buffer optimizer of
+parallel/flat.py (scripts/profile_step.py's flag), and Wav2Vec2's
+--scan_layers), runs warm-up steps, then:
 - times ``--steps`` steps pipelined as the loop runs them (the host fetches
   step i-1's loss while the device runs step i), host clock, no profiler:
   wall ms per step, and the host's ms per step spent taking and uploading
@@ -23,11 +27,13 @@ config's dropout; the capacity modes of the jobs' CLIs: --remat,
   operation that launched it: the kernel's own name for the port's kernels,
   else the nearest enclosing operation (conv, GroupNorm, attention,
   dense GEMMs, LayerNorm, GELU, the optimizer and its clips).  It also
-  counts the kernel launches a step makes.
+  counts the kernel launches a step makes, in all and by category.
 
 Prints the top kernels and one JSON line: wall and device ms per step, the
-device's idle share (1 - device / wall) and ms per category.  ``--out``
-also writes the JSON there.  Needs a CUDA device (no CPU fallback).
+device's idle share (1 - device / wall), ms and launches per category and
+the loss of every step in order (the same seeds for every flag, so two
+runs' losses compare).  ``--out`` also writes the JSON there.  Needs a
+CUDA device (no CPU fallback).
 """
 
 from __future__ import annotations
@@ -111,9 +117,13 @@ def main(argv=None) -> dict:
                         help="whisper only")
     parser.add_argument("--remat_policy", default="save_flash",
                         choices=["save_flash", "none"])
+    parser.add_argument("--flat_opt", action="store_true",
+                        help="profile the flat-buffer optimizer path")
+    parser.add_argument("--scan_layers", action="store_true",
+                        help="wav2vec2 only: the stacked encoder layout")
     args = parser.parse_args(argv)
     capacity = dict(remat=args.remat, grad_accum=args.grad_accum,
-                    master_dtype=args.master_dtype)
+                    master_dtype=args.master_dtype, flat_opt=args.flat_opt)
 
     from tethys_tpu_torch.parallel.dp import step_generator
     from tethys_tpu_torch.train.jobs import make_wav2vec2_job, make_whisper_job
@@ -132,9 +142,9 @@ def main(argv=None) -> dict:
         job = make_wav2vec2_job(
             "pretraining", args.model_size, batch_size,
             compute_dtype=args.dtype, audio_length=args.audio_length,
-            device=device, seed=0, **capacity)
+            device=device, seed=0, scan_layers=args.scan_layers, **capacity)
     batches = iter(job.dataset)
-    state, count = job.state, 0
+    state, count, losses = job.state, 0, []
     host = collections.Counter()  # seconds of host time by stage
 
     def run(n):
@@ -148,12 +158,12 @@ def main(argv=None) -> dict:
             t2 = time.perf_counter()
             count += 1
             if pending is not None:
-                pending.item()
+                losses.append(pending.item())
             host["batch"] += t1 - t0
             host["queue_step"] += t2 - t1
             host["wait_previous_loss"] += time.perf_counter() - t2
             pending = loss
-        pending.item()
+        losses.append(pending.item())
 
     run(args.warmup)
     torch.cuda.synchronize()
@@ -176,9 +186,12 @@ def main(argv=None) -> dict:
                    if evt.name in ("cudaLaunchKernel", "cuLaunchKernel",
                                    "cudaLaunchKernelExC", "cuLaunchKernelEx"))
     by_category = collections.Counter()
+    launches_by_category = collections.Counter()
     by_kernel = collections.Counter()
     for name, us, chain in kernels:
-        by_category[categorise(name, chain)] += us / 1e3 / args.steps
+        category = categorise(name, chain)
+        by_category[category] += us / 1e3 / args.steps
+        launches_by_category[category] += 1 / args.steps
         by_kernel[name] += us / 1e3 / args.steps
     device_ms = sum(by_category.values())
     for name, ms in by_kernel.most_common(25):
@@ -188,13 +201,17 @@ def main(argv=None) -> dict:
         **({"audio_length": args.audio_length}
            if args.model == "wav2vec2" else {}),
         "dtype": args.dtype, **{k: v for k, v in vars(args).items()
-                                if k in capacity or k.startswith("remat")},
+                                if k in capacity or k.startswith("remat")
+                                or k == "scan_layers"},
         "steps": args.steps, "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "launches_per_step": launches / args.steps,
         "host_ms_per_step": host_ms,
         "idle_share": 1.0 - device_ms / wall_ms,
         "ms_per_step_by_category": dict(by_category.most_common()),
+        "launches_per_step_by_category": dict(
+            launches_by_category.most_common()),
+        "losses": losses,
         "gpu": torch.cuda.get_device_name(0),
     }
     print(json.dumps(result), flush=True)

@@ -38,6 +38,13 @@ forward (parallel/pp.make_pp_train_step); ``remat``, ``grad_accum`` and
 ``master_dtype`` pass through.  Wav2Vec2 runs the hardened step over the
 layout (parallel/dp.py's module doc).
 
+The JAX bench's options (``scripts/bench``): ``flat_opt`` (both
+families) binds the parameters as views of one flat f32 master and runs
+the step on the flat vector (parallel/flat.py; no TP, SP or PP, no
+``remat``, ``grad_accum`` 1), and Wav2Vec2's ``scan_layers`` builds the
+stacked encoder layout (one replica a rank).  No job CLI takes either, as
+none of the JAX jobs' does.
+
 The single-card capacity modes of the JAX jobs: ``remat`` (the whole loss
 checkpointed, parallel/dp), ``grad_accum`` (microbatches accumulated in
 f32, parallel/dp), Whisper's ``remat_layers`` and ``remat_policy`` through
@@ -80,7 +87,7 @@ from tethys_tpu_torch.models.whisper import (
     WhisperForConditionalGeneration,
     create_whisper_model,
 )
-from tethys_tpu_torch.parallel import dp, mesh, pp, tp
+from tethys_tpu_torch.parallel import dp, flat, mesh, pp, tp
 from tethys_tpu_torch.profiling import tensorsize
 from tethys_tpu_torch.profiling.comm import write_collective_report
 from tethys_tpu_torch.train.loop import TrainLoopResult, run_training
@@ -133,13 +140,16 @@ def make_whisper_job(
     seq_parallel: int = 1,
     pipeline_parallel: int = 1,
     num_microbatches: int = 2,
+    flat_opt: bool = False,
 ) -> TrainJob:
     """The model with ``master_dtype`` master weights (in train mode), the
     plain step with ``whisper_optimizer``, ``remat`` and ``grad_accum``
     (under ``pipeline_parallel`` the PP step with ``num_microbatches``),
     the synthetic dataset; over ``parallel_layout(tensor_parallel,
-    seq_parallel, pipeline_parallel)``."""
+    seq_parallel, pipeline_parallel)``.  ``flat_opt``: the flat-buffer
+    optimizer (module doc)."""
     layout = parallel_layout(tensor_parallel, seq_parallel, pipeline_parallel)
+    _check_flat_opt(flat_opt, layout)
     device = require_cuda() if device is None else torch.device(device)
     split = layout.axis in ("model", "stage") and layout.inner > 1
     # create_whisper_model draws the weights in f32 and casts them once;
@@ -155,7 +165,9 @@ def make_whisper_job(
     elif split:
         model = pp.split_stages(model, layout).to(device)
     model.train()
-    optimizer = dp.whisper_optimizer(model.parameters(), learning_rate)
+    spec = _flat_spec(model) if flat_opt else None
+    optimizer = (flat.whisper_optimizer(spec, learning_rate) if flat_opt
+                 else dp.whisper_optimizer(model.parameters(), learning_rate))
 
     def loss_fn(model, batch, generator):
         features, labels = batch
@@ -174,12 +186,25 @@ def make_whisper_job(
     else:
         step = dp.make_train_step(loss_fn, optimizer, hardened=False,
                                   remat=remat, grad_accum=grad_accum,
-                                  layout=layout)
+                                  layout=layout, flat_spec=spec)
     return TrainJob(
         step, dp.TrainState(model, optimizer, layout),
         data_lib.create_whisper_dummy_dataset(
             batch_size_per_replica, n_mels=config.n_mels, seq_len=data_seq_len),
         prepare_batch, config)
+
+
+def _check_flat_opt(flat_opt: bool, layout: mesh.Layout) -> None:
+    if flat_opt and layout.inner > 1:
+        raise ValueError("--flat_opt takes no --tp, --sp or --pp: no JAX "
+                         "entry point combines them")
+
+
+def _flat_spec(model: torch.nn.Module) -> flat.FlatSpec:
+    """The model's parameters bound as views of one flat master."""
+    spec = flat.FlatSpec(model)
+    spec.bind(model)
+    return spec
 
 
 Inventories = List[Tuple[List[tensorsize.Row], str]]
@@ -356,11 +381,15 @@ def make_wav2vec2_job(
     master_dtype: str = "float32",
     tensor_parallel: int = 1,
     seq_parallel: int = 1,
+    scan_layers: bool = False,
+    flat_opt: bool = False,
 ) -> TrainJob:
     """The model with ``master_dtype`` master weights (in train mode), the
     hardened step with ``wav2vec2_optimizer``, ``remat`` and
     ``grad_accum``, the synthetic dataset; over ``parallel_layout(
-    tensor_parallel, seq_parallel)``.  Each step (each microbatch
+    tensor_parallel, seq_parallel)``.  ``scan_layers``: the stacked
+    encoder layout (one replica a rank only); ``flat_opt``: the
+    flat-buffer optimizer (module doc).  Each step (each microbatch
     under ``grad_accum``) draws its contrastive negatives, then its dropout
     seeds, from its CPU generator.  ``profile_values``: the step returns
     (state, loss, aux),
@@ -369,6 +398,11 @@ def make_wav2vec2_job(
     ``grad_aux``, by flax path (one replica a rank only: the tensorsize
     jobs take no parallel flag)."""
     layout = parallel_layout(tensor_parallel, seq_parallel)
+    _check_flat_opt(flat_opt, layout)
+    if scan_layers and layout.inner > 1:
+        raise ValueError("tensor and sequence parallelism on the stacked "
+                         "scan_layers layout are not ported (ROADMAP.md, "
+                         "queue 1)")
     if profile_values and layout.inner > 1:
         raise ValueError("profile_values takes one replica a rank (the "
                          "tensorsize jobs take no parallel flag)")
@@ -379,12 +413,15 @@ def make_wav2vec2_job(
     model, config = wav2vec2_lib.create_full_model(
         model_type, model_size, device="cpu" if sharded else device,
         seed=seed, real_ctc=real_ctc, param_dtype=resolve_dtype(master_dtype),
-        compute_dtype=compute_dtype, **(config_overrides or {}))
+        compute_dtype=compute_dtype,
+        **{"scan_layers": scan_layers, **(config_overrides or {})})
     if sharded:
         tp.check_divides(config, layout.inner, f"wav2vec2 {model_size}")
         model = tp.shard_model(model, layout).to(device)
     model.train()
-    optimizer = dp.wav2vec2_optimizer(model.parameters(), learning_rate)
+    spec = _flat_spec(model) if flat_opt else None
+    optimizer = (flat.wav2vec2_optimizer(spec, learning_rate) if flat_opt
+                 else dp.wav2vec2_optimizer(model.parameters(), learning_rate))
     frames = config.downsampled_length(audio_length)
 
     def loss_fn(model, batch, generator):
@@ -426,7 +463,8 @@ def make_wav2vec2_job(
     return TrainJob(
         dp.make_train_step(loss_fn, optimizer, hardened=True,
                            return_aux=profile_values, grad_aux_fn=grad_aux_fn,
-                           remat=remat, grad_accum=grad_accum, layout=layout),
+                           remat=remat, grad_accum=grad_accum, layout=layout,
+                           flat_spec=spec),
         dp.TrainState(model, optimizer, layout),
         data_lib.create_wav2vec2_dummy_dataset(batch_size_per_replica,
                                                audio_length=audio_length),
