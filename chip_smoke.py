@@ -27,7 +27,9 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    its three TF32 passes (the f32 FFMA bound in the note); split_heads at
    [16, 1500, 512] and [4, 1500, 512] and, at a decode step [16, 1, 512],
    the main path's call (a view, no launch) beside split_heads_cuda;
-   dropout beside F.dropout; and Wav2Vec2's GroupNorm at its seven inputs
+   dropout at the whole tensors of the two bench steps (whisper-base
+   b16, wav2vec2-base b32), f32 and bf16, forward and backward, beside
+   F.dropout; and Wav2Vec2's GroupNorm at its seven inputs
    [32, T, 512] (and a 5 s clip's T = 250), f32 and bf16: the moments
    (gn_stats), apply, grad sums and apply_bwd kernels each against its
    plain version, the forward and the backward beside F.group_norm and
@@ -181,11 +183,12 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    over (data 1, seq 2) with the config's dropout (attention's 0) against
    one process, as (b), the flash forward launched at Tq 750 against Tk
    1500 and dropout_window launched by every rank; (d) dropout.cu on a
-   shard of [16, 1500, 512] bf16 (750 rows; 256 columns) equals its plain
-   version and the slice of the whole tensor's launch bit for bit, its
-   time beside the whole's (outside the path's counts); (e) greedy decoding of whisper-base f32 over (data 1,
-   model 2), kv_quant none and int8, emits one process's tokens and
-   length, decode_self and q8_cross launched on 4 of 8 heads;
+   shard of [16, 1500, 512] (750 rows; 256 columns), f32 and bf16,
+   forward and backward, equals its plain version and the slice of the
+   whole tensor's launch bit for bit, its bf16 time beside the whole's
+   (outside the path's counts); (e) greedy decoding of whisper-base f32
+   over (data 1, model 2), kv_quant none and int8, emits one process's
+   tokens and length, decode_self and q8_cross launched on 4 of 8 heads;
 22. Wav2Vec2's tensor and sequence parallelism, each world 2 gloo ranks
    sharing the card, as in 21: (a) python -m tethys_tpu_torch.jobs.
    wav2vec2_dist --model_size base --tp 2 --batch_size 8 --num_batches 4
@@ -205,8 +208,9 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    gn_apply_bwd on the channel shard [32, 6400, 256], 8 groups, bf16,
    against their plain versions, timed beside F.group_norm; dropout.cu on
    the [8, 12, 99, 99] probabilities' head window (6 of 12) and query-row
-   window (49 of 99), each equal to its plain version and to the slice of
-   the whole launch, timed beside F.dropout;
+   window (49 of 99), f32 and bf16, forward and backward, each equal to
+   its plain version and to the slice of the whole launch, timed in bf16
+   beside F.dropout;
 23. Whisper's pipeline parallelism, 2 gloo ranks sharing the card, as in
    21: (a) python -m tethys_tpu_torch.jobs.whisper_dist --pp 2
    --microbatches 2 --batch_size 4 --num_batches 4 --dtype bfloat16
@@ -680,11 +684,103 @@ def check_split_heads(record, randn) -> None:
         f"{event_ms(lambda: transpose.split_heads(x1, 8)):.4f} ms")
 
 
+# dropout.cu's whole tensors on the main path: the dropout sites of the
+# bench's two steps (bf16 there), forward and backward, all but
+# wav2vec2's 6 smallest launches a step (python -m
+# tethys_tpu_torch.scripts.dropout_probe counts them); wav2vec2 at T 99,
+# where the bench's 2 s clips give T 100.
+DROPOUT_SHAPES = (
+    ("whisper-base b16 encoder hidden", (16, 1500, 512)),
+    ("whisper-base b16 decoder hidden", (16, 100, 512)),
+    ("whisper-base b16 decoder self-attention probabilities",
+     (16, 8, 100, 100)),
+    ("wav2vec2-base b32 hidden", (32, 99, 768)),
+    ("wav2vec2-base b32 FFN activation", (32, 99, 3072)),
+    ("wav2vec2-base b32 attention probabilities", (32, 12, 99, 99)),
+)
+
+
+def check_dropout_launch(name: str, x, seed: int, window=None, want=None):
+    """dropout.cu forward on x and FusedDropout's backward (the same launch
+    on dy) at ``window``, each bit for bit against plain_dropout, and the
+    forward against ``want`` (the slice of the whole launch) where given;
+    returns the forward's output and its largest error (0)."""
+    from tethys_tpu_torch.ops import dropout
+
+    window = window or dropout.Window()
+    xg = x.detach().clone().requires_grad_()
+    y = dropout.fused_dropout(xg, DROPOUT_RATE, seed, window)
+    dy = torch.randn(x.shape, device=x.device).to(x.dtype)
+    y.backward(dy)
+    plain = dropout.plain_dropout(x, DROPOUT_RATE, seed, window)
+    plain_dx = dropout.plain_dropout(dy, DROPOUT_RATE, seed, window)
+    err = check(f"{name} forward", max_err(y, plain), 0.0)
+    check(f"{name} backward", max_err(xg.grad, plain_dx), 0.0)
+    require(torch.equal(y, plain) and torch.equal(xg.grad, plain_dx),
+            f"{name}: not bit for bit its plain version")
+    if want is not None:
+        require(torch.equal(y, want), f"{name}: not the slice of the whole "
+                "tensor's launch")
+    return y.detach(), err
+
+
+def dropout_times(x, window=None, shard=None):
+    """(kernel ms, bound, plain ms, F.dropout ms) of dropout.cu on x at
+    ``window``; F.dropout takes the shard itself (``shard``, default x)."""
+    from tethys_tpu_torch.ops import dropout
+
+    window = window or dropout.Window()
+    # 2 or 4 bytes in and out, one f32 product each
+    return (event_ms(lambda: dropout.dropout_cuda(x, DROPOUT_RATE, 4321,
+                                                  window)),
+            bound(2 * x.numel() * x.element_size(), x.numel(), "f32"),
+            event_ms(lambda: dropout.plain_dropout(x, DROPOUT_RATE, 4321,
+                                                   window), reps=3),
+            event_ms(lambda: F.dropout(x if shard is None else shard,
+                                       DROPOUT_RATE, training=True)))
+
+
+def log_dropout_plan(name: str, x, window=None) -> None:
+    """The launch ops/dropout.py plans for x (blocks, slots, vectors)."""
+    from tethys_tpu_torch.ops import dropout
+
+    log(f"  {name}: plan {dropout.launch_plan(x, window or dropout.Window())}")
+
+
+def check_dropout(record, randn) -> None:
+    """Phase 3, csrc/dropout.cu on the main path's whole tensors
+    (DROPOUT_SHAPES) in f32 and bf16: forward and backward bit for bit
+    against plain_dropout, each timed beside its byte bound, its plain
+    version and F.dropout (PyTorch's own bits; the port never calls it),
+    beside the timing floor and, at [16, 1500, 512], a torch multiply of the
+    same bytes; the kernel table's entry is [16, 1500, 512] bf16."""
+    errs, entry = [], None
+    one = torch.zeros(1, device="cuda")
+    log(f"  dropout: timing floor (one-element add_) "
+        f"{event_ms(lambda: one.add_(1)):.4f} ms")
+    for name, shape in DROPOUT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(*shape, dtype=dtype)
+            tag = f"dropout {str(dtype)[6:]} {list(shape)} ({name})"
+            errs.append(check_dropout_launch(tag, x, 1234)[1])
+            log_dropout_plan(tag, x)
+            ms, bound_ms, plain_ms, library_ms = dropout_times(x)
+            log_row("dropout", tag[8:], ms, bound_ms, plain_ms, library_ms)
+            if shape == (16, 1500, 512) and dtype == torch.bfloat16:
+                entry = (ms, plain_ms, library_ms)
+                log(f"  dropout {tag[8:]}: torch.mul of the same bytes "
+                    f"{event_ms(lambda: torch.mul(x, 1.1)):.4f} ms")
+    ms, plain_ms, library_ms = entry
+    numel = 16 * 1500 * 512
+    record("dropout", errs, ms, plain_ms, 2 * numel * 2, numel, "f32",
+           library_ms)
+
+
 def check_training_kernels(record, randn) -> None:
     """Phase 3, the training path's kernels at whisper-base b16's shapes:
     B*H = 128, encoder self-attention 1500 x 1500, cross-attention
     100 x 1500, D = 64."""
-    from tethys_tpu_torch.ops import dropout, flash_attention, transpose
+    from tethys_tpu_torch.ops import flash_attention, transpose
 
     f32, bf16 = torch.float32, torch.bfloat16
     seed, rate = 1234, DROPOUT_RATE
@@ -704,24 +800,7 @@ def check_training_kernels(record, randn) -> None:
            2 * x.numel() * 2, 0, "bf16",
            event_ms(lambda: x.permute(0, 2, 1, 3).contiguous()))
 
-    # dropout: hidden states of the encoder and the decoder, and the
-    # decoder self-attention's probabilities; bit-exact (the same Philox).
-    errs = []
-    for dtype in (f32, bf16):
-        for shape in ((16, 1500, 512), (16, 100, 512), (16, 8, 100, 100)):
-            x = randn(*shape, dtype=dtype)
-            errs.append(check(
-                f"dropout {dtype} {list(shape)}",
-                max_err(dropout.dropout_cuda(x, rate, seed),
-                        dropout.plain_dropout(x, rate, seed)), 0.0))
-    x = randn(16, 1500, 512, dtype=bf16)
-    # The library call: F.dropout at the same rate, the same function with
-    # PyTorch's own random bits (the port never calls it).
-    record("dropout", errs,
-           event_ms(lambda: dropout.dropout_cuda(x, rate, seed)),
-           event_ms(lambda: dropout.plain_dropout(x, rate, seed)),
-           2 * x.numel() * 2, x.numel(), "f32",
-           event_ms(lambda: F.dropout(x, rate, training=True)))
+    check_dropout(record, randn)
 
     def qkv(tq, tk, dtype):
         return (randn(128, tq, 64, dtype=dtype, scale=64 ** -0.5),
@@ -3719,51 +3798,46 @@ def run_sp(child: dict) -> None:
 
 
 def run_dropout_window(gpu: str, results: dict) -> None:
-    """Phase 21(d): csrc/dropout.cu on a shard of [16, 1500, 512] bf16 (the
-    last 750 rows; the last 256 columns) equals its plain version and the
-    slice of the whole tensor's launch, bit for bit; the shards' times
-    beside the whole's.  The row shard is the kernel table's
-    dropout_window entry."""
+    """Phase 21(d): csrc/dropout.cu on a shard of [16, 1500, 512] (the last
+    750 rows; the last 256 columns), f32 and bf16, forward and backward,
+    equals its plain version and the slice of the whole tensor's launch,
+    bit for bit; the bf16 shards' times beside the whole's and F.dropout's
+    on the shard.  The bf16 row shard is the kernel table's dropout_window
+    entry."""
     from tethys_tpu_torch.ops import dropout
 
-    x = torch.randn(16, 1500, 512, device="cuda").bfloat16()
-    whole = dropout.dropout_cuda(x, DROPOUT_RATE, 4321)
-    require(torch.equal(whole, dropout.plain_dropout(x, DROPOUT_RATE, 4321)),
-            "21(d) the whole tensor's launch is not its plain version")
-    shards = {
-        "rows 750-1499 of 1500": (x[:, 750:].contiguous(),
-                                  dropout.Window(row0=750, rows=1500),
-                                  whole[:, 750:]),
-        "columns 256-511 of 512": (x[..., 256:].contiguous(),
-                                   dropout.Window(col0=256, cols=512),
-                                   whole[..., 256:]),
-    }
-    whole_ms = event_ms(lambda: dropout.dropout_cuda(x, DROPOUT_RATE, 4321))
-    log(f"  dropout.cu [16, 1500, 512] bf16 whole: {whole_ms:.4f} ms ({gpu})")
-    for name, (shard, window, want) in shards.items():
-        got = dropout.dropout_cuda(shard, DROPOUT_RATE, 4321, window)
-        plain = dropout.plain_dropout(shard, DROPOUT_RATE, 4321, window)
-        require(torch.equal(got, plain), f"21(d) the shard ({name}) is not "
-                "its plain version")
-        require(torch.equal(got, want), f"21(d) the shard ({name}) is not "
-                "the slice of the whole tensor's mask")
-        log(f"  dropout_window {name}: max_abs_err "
-            f"{max_err(got, plain):.3e} against its plain version "
-            "(tolerance 0)")
-        ms = event_ms(lambda: dropout.dropout_cuda(shard, DROPOUT_RATE, 4321,
-                                                   window))
-        plain_ms = event_ms(lambda: dropout.plain_dropout(
-            shard, DROPOUT_RATE, 4321, window), reps=3)
-        library = event_ms(lambda: F.dropout(shard, DROPOUT_RATE))
-        # phase 3's dropout bound: 2 bytes in and out, one f32 product each
-        bound_ms = bound(2 * shard.numel() * 2, shard.numel(), "f32")
-        log_row("dropout_window", f"[16, 1500, 512] bf16, {name}", ms,
-                bound_ms, plain_ms, library_ms=library)
-        if "rows" in name:
-            results["dropout_window"] = {
-                "max_abs_err": max_err(got, plain), "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms[0],
-                "bound_by": bound_ms[1], "library_ms": library}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(16, 1500, 512, device="cuda").to(dtype)
+        tag = str(dtype)[6:]
+        whole, _ = check_dropout_launch(f"21(d) dropout {tag} [16, 1500, 512]",
+                                        x, 4321)
+        shards = {
+            "rows 750-1499 of 1500": (x[:, 750:].contiguous(),
+                                      dropout.Window(row0=750, rows=1500),
+                                      whole[:, 750:]),
+            "columns 256-511 of 512": (x[..., 256:].contiguous(),
+                                       dropout.Window(col0=256, cols=512),
+                                       whole[..., 256:]),
+        }
+        if dtype == torch.bfloat16:
+            whole_ms = event_ms(lambda: dropout.dropout_cuda(
+                x, DROPOUT_RATE, 4321))
+            log(f"  dropout.cu [16, 1500, 512] bf16 whole: {whole_ms:.4f} ms "
+                f"({gpu})")
+        for name, (shard, window, want) in shards.items():
+            label = f"21(d) dropout_window {tag} [16, 1500, 512], {name}"
+            got, err = check_dropout_launch(label, shard, 4321, window, want)
+            log_dropout_plan(label, shard, window)
+            if dtype != torch.bfloat16:
+                continue
+            ms, bound_ms, plain_ms, library = dropout_times(shard, window)
+            log_row("dropout_window", f"[16, 1500, 512] bf16, {name}", ms,
+                    bound_ms, plain_ms, library_ms=library)
+            if "rows" in name:
+                results["dropout_window"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
+                    "library_ms": library}
 
 
 # Phase 22: Wav2Vec2's tensor and sequence parallelism, 2 gloo ranks
@@ -3973,13 +4047,8 @@ def run_w2v_shard_kernels(gpu: str) -> None:
     """Phase 22(d), outside the path's counts: the GroupNorm kernels on the
     channel shard GN_SHARD in bf16 against their plain versions (phase 3's
     tolerances), with their times and bounds beside F.group_norm; then
-    dropout.cu on the head window and on the query-row window of the
-    probabilities PROBS (bf16), each against its plain version and against
-    the slice of the whole tensor's launch, bit for bit, with its time,
-    bound and F.dropout's."""
-    from tethys_tpu_torch.ops import dropout
+    dropout.cu on the probabilities' windows (run_probs_windows)."""
     from tethys_tpu_torch.ops import group_norm as gn
-    from tethys_tpu_torch.ops.attention import ProbsWindow, probs_dropout
 
     gen = torch.Generator(device="cuda").manual_seed(22)
     b, t, c, groups = GN_SHARD
@@ -4011,42 +4080,53 @@ def run_w2v_shard_kernels(gpu: str) -> None:
     gn_times(gn, x, dy, gamma, beta, groups)
     del x, dy
 
-    probs = torch.softmax(torch.randn(*PROBS, device="cuda", generator=gen),
-                          -1).bfloat16()
+    run_probs_windows(gpu)
+
+
+def run_probs_windows(gpu: str) -> None:
+    """Phase 22(d)'s dropout: dropout.cu on the probabilities PROBS' head
+    window (6 of 12) and query-row window (rows 50-98 of 99), f32 and bf16,
+    forward and backward, each bit for bit against its plain version and
+    the slice of the whole tensor's launch; the bf16 windows timed beside
+    their bound and F.dropout on the shard.  T = 99 puts every segment of
+    both windows off a multiple of 4 (the head window's base 6 * 99 * 99 is
+    2 mod 4; the row window's segments start 2 or 0 mod 4)."""
+    from tethys_tpu_torch.ops import dropout
+    from tethys_tpu_torch.ops.attention import ProbsWindow, probs_dropout
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
     seed, heads, rows = 4321, PROBS[1], PROBS[2]
-    whole = probs_dropout(probs, DROPOUT_RATE, seed)
-    shards = {
-        f"heads {heads // 2}-{heads - 1} of {heads}": (
-            probs[:, heads // 2:].contiguous(),
-            ProbsWindow(head0=heads // 2, heads=heads),
-            whole[:, heads // 2:]),
-        f"query rows {-(-rows // 2)}-{rows - 1} of {rows}": (
-            probs[:, :, -(-rows // 2):].contiguous(),
-            ProbsWindow(row0=-(-rows // 2), rows=rows),
-            whole[:, :, -(-rows // 2):]),
-    }
-    for name, (shard, window, want_slice) in shards.items():
-        got = probs_dropout(shard, DROPOUT_RATE, seed, window)
-        flat = shard.flatten(1, 2) if window.heads else shard
-        mask = (dropout.Window(row0=window.head0 * rows, rows=heads * rows)
-                if window.heads else
-                dropout.Window(row0=window.row0, rows=rows))
-        plain = dropout.plain_dropout(flat, DROPOUT_RATE, seed, mask)
-        require(torch.equal(got, plain.view_as(got)), f"22(d) dropout on "
-                f"the probabilities' {name} is not its plain version")
-        require(torch.equal(got, want_slice), f"22(d) dropout on the "
-                f"probabilities' {name} is not the slice of the whole launch")
-        ms = event_ms(lambda: dropout.dropout_cuda(flat, DROPOUT_RATE, seed,
-                                                   mask))
-        plain_ms = event_ms(lambda: dropout.plain_dropout(
-            flat, DROPOUT_RATE, seed, mask), reps=3)
-        library = event_ms(lambda: F.dropout(shard, DROPOUT_RATE))
-        # 2 bytes in and out, one f32 product each (phase 3's bound)
-        bound_ms = bound(2 * shard.numel() * 2, shard.numel(), "f32")
-        log(f"  22(d) dropout_window {name}: max_abs_err "
-            f"{max_err(got, plain.view_as(got)):.3e} (tolerance 0)")
-        log_row("dropout_window", f"{list(PROBS)} bf16 probabilities, "
-                f"{name}", ms, bound_ms, plain_ms, library_ms=library)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        probs = torch.softmax(torch.randn(*PROBS, device="cuda",
+                                          generator=gen), -1).to(dtype)
+        whole = probs_dropout(probs, DROPOUT_RATE, seed)
+        shards = {
+            f"heads {heads // 2}-{heads - 1} of {heads}": (
+                probs[:, heads // 2:].contiguous(),
+                ProbsWindow(head0=heads // 2, heads=heads),
+                whole[:, heads // 2:]),
+            f"query rows {-(-rows // 2)}-{rows - 1} of {rows}": (
+                probs[:, :, -(-rows // 2):].contiguous(),
+                ProbsWindow(row0=-(-rows // 2), rows=rows),
+                whole[:, :, -(-rows // 2):]),
+        }
+        for name, (shard, window, want_slice) in shards.items():
+            got = probs_dropout(shard, DROPOUT_RATE, seed, window)
+            require(torch.equal(got, want_slice), f"22(d) dropout on the "
+                    f"probabilities' {name} is not the slice of the whole "
+                    "launch")
+            flat = shard.flatten(1, 2) if window.heads else shard
+            mask = (dropout.Window(row0=window.head0 * rows, rows=heads * rows)
+                    if window.heads else
+                    dropout.Window(row0=window.row0, rows=rows))
+            label = f"22(d) dropout_window {tag} {list(PROBS)} {name}"
+            check_dropout_launch(label, flat, seed, mask,
+                                 want_slice.reshape(flat.shape))
+            log_dropout_plan(label, flat, mask)
+            if dtype == torch.bfloat16:
+                log_row("dropout_window", f"{list(PROBS)} bf16 probabilities, "
+                        f"{name}", *dropout_times(flat, mask, shard))
     log(f"  22(d) ({gpu})")
 
 

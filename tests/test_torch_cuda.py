@@ -410,6 +410,110 @@ def test_dropout_window_is_the_slice(cuda, dtype, shape, window):
         :, r:r + shape[1], c:c + shape[2]])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window,offset", [
+    # The attention probabilities' windows at T = 99: every segment starts
+    # off a multiple of 4 (or alternately on and off one).
+    ((8, 6 * 99, 99), dropout.Window(row0=6 * 99, rows=12 * 99), 0),
+    ((8, 12, 49, 99), dropout.Window(row0=50, rows=99), 0),
+    ((8, 12, 50, 99), dropout.Window(row0=49, rows=99), 0),
+    ((3, 10, 11), dropout.Window(col0=1, cols=12), 0),
+    ((2, 5, 7), dropout.Window(row0=3, rows=11, col0=5, cols=21), 0),
+    # A view 2 or 4 bytes past a 16-byte boundary: no vector at all.
+    ((8, 12, 49, 99), dropout.Window(row0=50, rows=99), 1),
+    ((4, 150, 512), dropout.Window(row0=150, rows=1500), 3),
+])
+def test_dropout_odd_windows_forward_backward(cuda, dtype, shape, window,
+                                              offset):
+    """Forward and FusedDropout's backward on a shard whose window is off
+    a multiple of 4: bit for bit the plain version and the slice of the
+    unsharded launch, each a launch on a window."""
+    rows = window.rows or shape[-2]
+    cols = window.cols or shape[-1]
+    whole = _randn(cuda, *shape[:-2], rows, cols, dtype=dtype, seed=5)
+    r, c = window.row0, window.col0
+    shard = whole[..., r:r + shape[-2], c:c + shape[-1]]
+    base = torch.empty(shard.numel() + offset, dtype=dtype, device=cuda)
+    x = base[offset:].view(shape)
+    x.copy_(shard)
+    dy = _randn(cuda, *shape, dtype=dtype, seed=6)
+    xg = x.detach().requires_grad_()
+    before = kernel_lib.DROPOUT_WINDOW.launches
+    y = dropout.fused_dropout(xg, 0.1, 99, window)
+    y.backward(dy)
+    assert kernel_lib.DROPOUT_WINDOW.launches == before + 2
+    assert torch.equal(y, dropout.plain_dropout(x, 0.1, 99, window))
+    assert torch.equal(xg.grad, dropout.plain_dropout(dy, 0.1, 99, window))
+    assert torch.equal(y, dropout.dropout_cuda(whole, 0.1, 99)[
+        ..., r:r + shape[-2], c:c + shape[-1]])
+
+
+def test_dropout_plan_on_the_card(cuda):
+    """The launch plan reads the kernel's occupancy and the card's SMs: a
+    large bf16 tensor fills one wave, a small one and f32 take one slot a
+    thread."""
+    blocks_per_sm, sms = dropout.occupancy(0, 1)
+    assert blocks_per_sm >= 1
+    assert sms == torch.cuda.get_device_properties(cuda).multi_processor_count
+    (big,) = dropout.launch_plan(_randn(cuda, 16, 1500, 512,
+                                        dtype=torch.bfloat16))
+    assert big.blocks == blocks_per_sm * sms and big.vectors
+    for x in (_randn(cuda, 8, 6, 99, 99, dtype=torch.bfloat16),
+              _randn(cuda, 16, 1500, 512)):
+        (p,) = dropout.launch_plan(x)
+        assert p.blocks == -(-p.slots // dropout.THREADS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window", [
+    ((4, 150, 512), dropout.Window()),
+    ((4, 75, 512), dropout.Window(row0=75, rows=150)),
+    ((4, 150, 256), dropout.Window(col0=256, cols=512)),
+    ((2, 6 * 99, 99), dropout.Window(row0=6 * 99, rows=12 * 99)),
+    ((2, 12, 49, 99), dropout.Window(row0=50, rows=99)),
+])
+@pytest.mark.parametrize("max_launch", [600, 5000])
+def test_dropout_split_launches(cuda, dtype, shape, window, max_launch,
+                                monkeypatch):
+    """A shard of more than MAX_LAUNCH elements (here made small) takes
+    several launches, each from its offset at its run's base: bit for bit
+    the plain version, forward and backward, one count a launch."""
+    monkeypatch.setattr(dropout, "MAX_LAUNCH", max_launch)
+    dropout._launch_plan.cache_clear()
+    try:
+        x = _randn(cuda, *shape, dtype=dtype, seed=8)
+        dy = _randn(cuda, *shape, dtype=dtype, seed=9)
+        xg = x.detach().requires_grad_()
+        n = len(dropout.launch_plan(x, window))
+        assert n > 1
+        kernel_lib.reset_launch_counts()
+        y = dropout.fused_dropout(xg, 0.1, 31, window)
+        y.backward(dy)
+        counts = (kernel_lib.DROPOUT.launches,
+                  kernel_lib.DROPOUT_WINDOW.launches)
+        assert counts == ((2 * n, 0) if window == dropout.Window()
+                          else (0, 2 * n))
+        assert torch.equal(y, dropout.plain_dropout(x, 0.1, 31, window))
+        assert torch.equal(xg.grad, dropout.plain_dropout(dy, 0.1, 31, window))
+    finally:
+        dropout._launch_plan.cache_clear()
+
+
+def test_dropout_past_two_to_the_thirty(cuda):
+    """2^30 + 2^15 bf16 elements, which one launch cannot count, take
+    three: the first and last rows are their plain version's."""
+    x = torch.randn(2 ** 15 + 1, 2 ** 15, device=cuda).bfloat16()
+    assert len(dropout.launch_plan(x)) == 3
+    before = kernel_lib.DROPOUT.launches
+    y = dropout.fused_dropout(x, 0.1, 5)
+    assert kernel_lib.DROPOUT.launches == before + 3
+    rows = x.shape[0]
+    for r in (0, 2 ** 14, rows - 2):
+        window = dropout.Window(row0=r, rows=rows)
+        assert torch.equal(y[r:r + 2], dropout.plain_dropout(
+            x[r:r + 2].contiguous(), 0.1, 5, window))
+
+
 def test_dropout_backward_is_the_same_mask(cuda):
     x = _randn(cuda, 16, 100, 100, dtype=torch.bfloat16).requires_grad_()
     y = dropout.fused_dropout(x, 0.1, 7)

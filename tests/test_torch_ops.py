@@ -91,11 +91,39 @@ def _qkv(rng, bh, t, d):
     return q, k, v
 
 
+def _float64_attention(q, k, v, kv_len):
+    """(o, lse) of softmax(q k^T) v over the first kv_len keys in float64,
+    on the [1, BH, T, D] inputs of _qkv."""
+    s64 = np.einsum("bqd,bkd->bqk", q[0].astype(np.float64),
+                    k[0].astype(np.float64))
+    s64[..., kv_len:] = -np.inf
+    m = s64.max(-1, keepdims=True)
+    p = np.exp(s64 - m)
+    return (p @ v[0].astype(np.float64) / p.sum(-1, keepdims=True),
+            (m + np.log(p.sum(-1, keepdims=True)))[..., 0])
+
+
+def _flash_state(o, lse, want_o, want_lse, q, k, v, kv_len) -> str:
+    """What a failure of test_plain_flash_matches_pallas should name: each
+    side's largest error against float64, and the settings a test file
+    run before it in the same process could have left behind."""
+    o64, lse64 = _float64_attention(q, k, v, kv_len)
+    return (f"largest error against float64: port o {np.abs(o - o64).max():.3e}"
+            f" lse {np.abs(lse - lse64).max():.3e}, pallas o "
+            f"{np.abs(want_o - o64).max():.3e} lse "
+            f"{np.abs(want_lse - lse64).max():.3e}; torch threads "
+            f"{torch.get_num_threads()}, float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r}; jax_enable_x64 "
+            f"{jax.config.jax_enable_x64}, jax_default_matmul_precision "
+            f"{jax.config.jax_default_matmul_precision!r}")
+
+
 @pytest.mark.parametrize("t,kv_len", [(128, 128), (200, 200), (200, 150)])
 def test_plain_flash_matches_pallas(monkeypatch, t, kv_len):
     """o and lse of the plain flash forward against the Pallas forward
     (_fwd4 pads rows to its blocks and slices back), tolerance 2e-5 as in
-    tests/test_pallas_attention.py."""
+    tests/test_pallas_attention.py; a failure reports each side against
+    float64 and the process's numeric settings (_flash_state)."""
     monkeypatch.setattr(pa, "_INTERPRET", True)
     q, k, v = _qkv(np.random.default_rng(1), 2, t, 64)
     want_o, want_lse = pa._fwd4(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -103,10 +131,13 @@ def test_plain_flash_matches_pallas(monkeypatch, t, kv_len):
                                 kv_len=kv_len)
     o, lse = flash_attention.flash_attention_fwd(_t(q[0]), _t(k[0]), _t(v[0]),
                                                  kv_len)
-    np.testing.assert_allclose(o.numpy(), np.asarray(want_o)[0],
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[0, :, 0],
-                               rtol=2e-5, atol=2e-5)
+    want_o, want_lse = np.asarray(want_o)[0], np.asarray(want_lse)[0, :, 0]
+    state = _flash_state(o.numpy(), lse.numpy(), want_o, want_lse, q, k, v,
+                         kv_len)
+    np.testing.assert_allclose(o.numpy(), want_o, rtol=2e-5, atol=2e-5,
+                               err_msg=state)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=2e-5, atol=2e-5,
+                               err_msg=state)
     full = flash_attention.flash_attention(_t(q), _t(k), _t(v), kv_len=kv_len)
     np.testing.assert_allclose(
         full.numpy(),
@@ -132,15 +163,9 @@ def test_flash_sides_match_float64(monkeypatch, side, t, kv_len):
                           jnp.zeros((1,), jnp.int32), dropout_rate=0.0,
                           kv_len=kv_len)
         o, lse = np.asarray(o)[0], np.asarray(lse)[0, :, 0]
-    s64 = np.einsum("bqd,bkd->bqk", q[0].astype(np.float64),
-                    k[0].astype(np.float64))
-    s64[..., kv_len:] = -np.inf
-    m = s64.max(-1, keepdims=True)
-    p = np.exp(s64 - m)
-    np.testing.assert_allclose(o, p @ v[0].astype(np.float64)
-                               / p.sum(-1, keepdims=True), rtol=0, atol=2e-6)
-    np.testing.assert_allclose(lse, (m + np.log(p.sum(-1, keepdims=True)))[
-        ..., 0], rtol=0, atol=2e-6)
+    o64, lse64 = _float64_attention(q, k, v, kv_len)
+    np.testing.assert_allclose(o, o64, rtol=0, atol=2e-6)
+    np.testing.assert_allclose(lse, lse64, rtol=0, atol=2e-6)
 
 
 def test_flash_dropout_not_ported():

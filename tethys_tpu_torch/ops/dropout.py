@@ -29,10 +29,19 @@ the unsharded one drops (the JAX dropout gathers the shard and draws at
 the global index, pallas_dropout.py:78-127).  The default window is the
 tensor itself: every element at its own flat index, the bits drawn
 before windows existed.
+
+csrc/dropout.cu takes the launches of a ``plan``: each segment of the
+window is cut into slots of 16 bytes of elements (8 bf16, 4 f32), each
+slot whole Philox counters of the unsharded index.  A bf16 grid fills the
+card once (the SM count and the occupancy the kernel reports) or less; an
+f32 grid has a thread a slot.  A shard of more than MAX_LAUNCH elements
+takes several launches, each its own run of the window.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -43,6 +52,10 @@ from tethys_tpu_torch.utils.device import check_kernel_inputs, cpu_or_raise
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MASK32 = 0xFFFFFFFF
+THREADS = 256            # threads a block (csrc/dropout.cu kThreads)
+VEC_BYTES = 16           # bytes a slot: one 16-byte access where aligned
+MAX_LAUNCH = 2 ** 29     # elements a launch, whose slots the kernel counts
+                         # in 32 bits
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 SEED_MAX = 2 ** 31 - 1   # seeds lie in [0, SEED_MAX), as seed_from_rng's
@@ -127,6 +140,84 @@ def window_segments(shape, window: Window) -> Tuple[int, int, int, int, int]:
     return max(numel, 1), 1, 0, 0, 0            # the whole tensor
 
 
+class Launch(NamedTuple):
+    """One launch of csrc/dropout.cu: ``numel`` elements of the shard from
+    its element ``offset``, in segments (``window_segments``'s form, the
+    bases those of this launch's first segment), ``vec`` elements a slot,
+    ``slots_per_seg`` slots a segment (slot 0 its head, the last its tail,
+    either possibly empty), ``slots`` in all, ``blocks`` of THREADS
+    threads, and whether both pointers allow 16-byte accesses."""
+    offset: int
+    numel: int
+    segments: Tuple[int, int, int, int, int]
+    vec: int
+    slots_per_seg: int
+    slots: int
+    blocks: int
+    vectors: bool
+
+
+def pieces(shape, window: Window):
+    """(offset, numel, segments) of each launch of a shard: whole segments,
+    at most MAX_LAUNCH elements a launch, or a segment longer than that in
+    runs of MAX_LAUNCH, so the kernel counts a segment and a launch's
+    slots in 32 bits."""
+    seg_len, per_outer, outer_stride, row_stride, base = window_segments(
+        shape, window)
+    numel = max(int(np.prod(shape)), 1)
+    group = seg_len * per_outer                 # elements an outer index
+    out = []
+    if seg_len > MAX_LAUNCH:                    # a segment in runs
+        for s in range(numel // seg_len):
+            u = (s // per_outer * outer_stride + s % per_outer * row_stride
+                 + base)
+            for o in range(0, seg_len, MAX_LAUNCH):
+                n = min(MAX_LAUNCH, seg_len - o)
+                out.append((s * seg_len + o, n, (n, 1, 0, 0, u + o)))
+    elif group > MAX_LAUNCH:                    # an outer index's segments
+        run = MAX_LAUNCH // seg_len
+        for o in range(numel // group):
+            for r in range(0, per_outer, run):
+                k = min(run, per_outer - r)
+                out.append(((o * per_outer + r) * seg_len, k * seg_len,
+                            (seg_len, k, 0, row_stride,
+                             base + o * outer_stride + r * row_stride)))
+    else:                                       # whole outer indices
+        run = MAX_LAUNCH // group
+        for o in range(0, numel // group, run):
+            k = min(run, numel // group - o)
+            out.append((o * group, k * group, (seg_len, per_outer,
+                                               outer_stride, row_stride,
+                                               base + o * outer_stride)))
+    return out
+
+
+def plan(shape, window: Window, elem: int, vectors: bool,
+         blocks_per_sm: int, sm_count: int) -> Tuple[Launch, ...]:
+    """The launches for a contiguous shard of ``shape`` (elements of
+    ``elem`` bytes) at ``window``, whose pointers allow 16-byte accesses
+    where ``vectors`` (``pieces``; one launch below MAX_LAUNCH elements).
+    A segment of L elements takes ceil(L / vec) + 1 slots (its ragged head
+    and tail in partial slots).  bf16: one slot a thread until the grid
+    fills the card (blocks_per_sm * sm_count blocks), then those threads
+    stride over the slots; f32, whose slot takes one Philox call where
+    bf16's takes two, gives every slot its own thread and leaves the
+    balance to the block scheduler.  Each grid was the faster for its
+    dtype on an H100 (PERF.md section 6)."""
+    vec = VEC_BYTES // elem
+    launches = []
+    for offset, numel, segments in pieces(shape, window):
+        per_seg = -(-segments[0] // vec) + 1
+        slots = numel // segments[0] * per_seg
+        blocks = -(-slots // THREADS)
+        if elem == 2:
+            blocks = max(1, min(blocks, blocks_per_sm * sm_count))
+        launches.append(Launch(offset, numel, segments, vec, per_seg, slots,
+                               blocks, bool(vectors)
+                               and offset * elem % VEC_BYTES == 0))
+    return tuple(launches)
+
+
 def window_indices(shape, window: Window, device=None) -> torch.Tensor:
     """The unsharded flat index (int64) of each element of a contiguous
     shard of ``shape``."""
@@ -175,18 +266,51 @@ def dropout_cuda(x: torch.Tensor, rate: float, seed: int,
         raise ValueError(f"dropout: unsupported dtype {x.dtype}")
     if not 0.0 < rate < 1.0 or not 0 <= seed < 2 ** 32:
         raise ValueError(f"dropout: rate {rate} or seed {seed} out of range")
-    segments = window_segments(x.shape, window)
+    segments = window_segments(x.shape, window)  # raises on a misfit one
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    whole = segments == (x.numel(), 1, 0, 0, 0)
-    kernel = kernel_lib.DROPOUT if whole else kernel_lib.DROPOUT_WINDOW
+    kernel = (kernel_lib.DROPOUT if segments == (x.numel(), 1, 0, 0, 0)
+              else kernel_lib.DROPOUT_WINDOW)
+    elem = x.element_size()
     with torch.cuda.device(x.device):
-        kernel(
-            x.data_ptr(), y.data_ptr(), x.numel(), *segments, int(seed),
-            dropout_threshold(rate), dropout_scale(rate),
-            int(x.dtype == torch.bfloat16), kernel_lib.stream_handle(x))
+        for p in launch_plan(x, window, y):
+            kernel(
+                x.data_ptr() + p.offset * elem, y.data_ptr() + p.offset * elem,
+                p.numel, *p.segments, p.blocks, int(p.vectors), int(seed),
+                dropout_threshold(rate), dropout_scale(rate),
+                int(x.dtype == torch.bfloat16), kernel_lib.stream_handle(x))
     return y
+
+
+def launch_plan(x: torch.Tensor, window: Window = Window(),
+                y: Optional[torch.Tensor] = None) -> Tuple[Launch, ...]:
+    """``plan`` for x (a CUDA tensor) and its output y (x's alignment where
+    not given), from the occupancy the kernel reports on x's card."""
+    y = x if y is None else y
+    return _launch_plan(torch.cuda.current_device(), tuple(x.shape),
+                        Window(*window), x.element_size(),
+                        x.data_ptr() % VEC_BYTES == 0 == y.data_ptr()
+                        % VEC_BYTES)
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(device: int, shape, window: Window, elem: int,
+                 vectors: bool) -> Tuple[Launch, ...]:
+    """launch_plan, once a shape: a step asks again for the same ones."""
+    return plan(shape, window, elem, vectors,
+                *occupancy(device, int(elem == 2)))
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(device: int, is_bf16: int) -> Tuple[int, int]:
+    """(blocks an SM, SMs) of csrc/dropout.cu on card ``device``."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = kernel_lib.library().tethys_dropout_occupancy(is_bf16, out)
+    if err != 0:
+        raise RuntimeError(f"tethys_dropout_occupancy: CUDA error {err}")
+    return tuple(out)
 
 
 def _dropout(x: torch.Tensor, rate: float, seed: int,

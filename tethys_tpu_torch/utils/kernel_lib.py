@@ -104,7 +104,7 @@ FLASH_BWD = Kernel(
     ":259 _bwd_dq_kernel, :308 _bwd_dkv_kernel")
 DROPOUT = Kernel(
     "dropout", "tethys_dropout",
-    (_P, _P, _L, _L, _L, _L, _L, _L, _U, _U, _F, _I, _P),
+    (_P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _U, _U, _F, _I, _P),
     "tethys_tpu_torch/csrc/dropout.cu",
     "tethys_tpu/ops/pallas_dropout.py:29")
 # The same kernel on a shard (a window other than the whole tensor),
@@ -160,12 +160,13 @@ MERGE_PROJ = Kernel(
 
 # Functions of the library that launch nothing: the cluster size the two
 # decode-step attention kernels take for given sizes, and the GroupNorm
-# kernels' occupancy (ops/group_norm.py).
+# and dropout kernels' occupancy (ops/group_norm.py, ops/dropout.py).
 _QUERIES = {
     "tethys_q8_cross_cluster": (_I, _I, _I),
     "tethys_decode_self_cluster": (_I, _I, _I, _I),
     "tethys_gn_stats_occupancy": (_I, _I, _I, _I, _P),
     "tethys_gn_apply_occupancy": (_I, _I, _I, _P),
+    "tethys_dropout_occupancy": (_I, _P),
 }
 
 KERNELS = (LOG_MEL, SPLIT_HEADS, MERGE_HEADS, FLASH_FWD, FLASH_FWD_DROPOUT,
