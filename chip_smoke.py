@@ -70,7 +70,7 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    flash bench: phase 14, frontend: phase 15, training bench: phase 16,
    resume: phase 17, data parallel: phase 18, tensorsize: phase 19,
    capacity: phase 20, parallel: phase 21 (a, b, c, e), Wav2Vec2
-   parallel: phase 22 (a, b, c), pipeline: phase 23, scan and flat:
+   parallel: phase 22 (a, b, c, e), pipeline: phase 23, scan and flat:
    phase 24, with the launches of the processes they start)
    and read after it; every kernel of a path must have launched during it,
    and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
@@ -113,12 +113,12 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    --resume and --jax_profile, prints ``Resumed from checkpoint
    model_epoch_1`` and writes a trace that holds the card's kernels;
 18. data parallelism: (a) the wav2vec2_dist CLI at wav2vec2-base b32
-   bf16, 10 steps, four times, each in a process of its own: alone, with
+   bf16, 10 steps, twice, each in a process of its own: alone, then with
    torchrun's env for a world of one (WORLD_SIZE=1, RANK=0, a free port on
-   127.0.0.1) twice, alone; in the world of one the group must be nccl,
-   its GroupNorm and dropout kernels must launch, and the second world
-   must resume the first's checkpoint with --resume (rank 0 reads it and
-   broadcasts it over NCCL); the four ms/step (steps 3-8 from the loop's
+   127.0.0.1) and --resume in the same workspace; in the world of one the
+   group must be nccl, its GroupNorm and dropout kernels must launch, and
+   it must resume the first run's checkpoint (rank 0 reads it and
+   broadcasts it over NCCL); the two ms/step (steps 3-8 from the loop's
    elapsed column) are logged beside phase 9's, with the bytes a step
    hands to all_reduce from the collective report; (a') f32 b2, 2 hardened steps,
    rates 0, cuDNN deterministic: the step under an NCCL group of one
@@ -133,14 +133,13 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    whisper_dist_tensorsize --batch_size 4 --num_batches 8 --dtype bfloat16
    and wav2vec2_dist_tensorsize --model_size base --batch_size 32
    --num_batches 8 --dtype bfloat16 run, each in a process of its own with
-   a workspace and a result dir of its own, then whisper_dist at the
-   whisper job's flags (unprofiled); each exits 0 and every file of the
-   JAX job's list exists and parses (the profiler's nine and the four
+   a workspace and a result dir of its own; each exits 0 and every file of
+   the JAX job's list exists and parses (the profiler's nine and the four
    /result copies), gpu_memory_mb > 0, every Wav2Vec2 value skew is
    finite; ms/step over steps 3-7 is logged beside phases 7, 9 and 18(a),
    the value skews of wav2vec2-base's gradients are timed batched and one
    tensor at a time, and each job's train call runs 10 steps in this
-   process without and with the profiler, in turns (off, on, on, off); (b) each step logged as many rows and as many MB
+   process without and then with the profiler; (b) each step logged as many rows and as many MB
    as the census computed here on the CPU at the same shapes; (c) every
    line of the daemon is the reference's, names torch's card, Mem Usage is
    nonzero and GPU Util nonzero on some line while a job ran;
@@ -153,10 +152,11 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    bf16 limit of plain's; peak memory and ms per step of each; (b)
    grad_accum 2 at b16 (f32, rates 0) against the unaccumulated step,
    loss and gradients within the bf16 limit; (c) the whisper_dist CLI at
-   whisper-large-v3 b8, --dtype bfloat16 --remat_layers --master_dtype
-   bfloat16 --grad_accum 2, 6 steps: every loss finite, ms/step, peak
-   memory, and the peak of the same batch without --remat_layers, which
-   must be higher; (d) the training bench's twin at whisper-large-v3 b4
+   whisper-large-v3 b8 (its full width, cut to 8 + 8 of its 32 + 32
+   layers), --dtype bfloat16 --remat_layers --master_dtype bfloat16
+   --grad_accum 2, 6 steps: every loss finite, ms/step, peak memory, and
+   the peak of the same batch without --remat_layers, which must be
+   higher; (d) the training bench's twin at whisper-large-v3 b4
    --remat_layers --master_dtype bfloat16: ms/step, FLOPs, 0 < mfu <= 1;
    (e) the wav2vec2_dist CLI at base b32 bf16 with --remat --grad_accum
    2, then the bench's wav2vec2-base with --master_dtype bfloat16, whose
@@ -168,21 +168,23 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    take CUDA tensors, and the process's are logged by (backend, device,
    op)): (a) python -m tethys_tpu_torch.jobs.whisper_dist --model_size
    large-v3 --tp 2 --remat_layers --batch_size 1 --num_batches 4 --dtype
-   bfloat16 --backend gloo from torchrun's env, large-v3 cut to 4 + 4
+   bfloat16 --backend gloo from torchrun's env, large-v3 cut to 2 + 2
    of its 32 + 32 layers at its full width (PAR_V3_DEPTH): both ranks exit 0 with one
    finite loss a step, launch flash_fwd_dropout, flash_bwd, split_heads,
    merge_heads and dropout, and hold at most 0.55 of the unsharded f32
    parameters and Adam moments (peak memory logged); rank 0's whole
-   checkpoint restores with --resume into a --tp 1 run; (b) whisper-base
+   checkpoint restores with --resume into the same CLI run alone (tp 1)
+   in this process; (b) whisper-base
    f32, rates 0, b2, 2 Keras-Adam steps over (data 1, model 2) against one
    process: losses, gradients, their norm and the parameters within phase
    6's tolerances; then the same with dropout and activation_dropout 0.1
    (attention's 0), fc1's columns launching dropout_window; (c)
    whisper_dist --model_size small --sp 2 --batch_size 2 --num_batches 4
    --dtype bfloat16 exits 0 on both ranks, then whisper-small f32 steps
-   over (data 1, seq 2) with the config's dropout (attention's 0) against
-   one process, as (b), the flash forward launched at Tq 750 against Tk
-   1500 and dropout_window launched by every rank; (d) dropout.cu on a
+   over (data 1, seq 2) with the config's dropout (attention's 0), run in
+   (b)'s world after its cases, against one process, as (b), the flash
+   forward launched at Tq 750 against Tk 1500 and dropout_window launched
+   by rank 0; (d) dropout.cu on a
    shard of [16, 1500, 512] (750 rows; 256 columns), f32 and bf16,
    forward and backward, equals its plain version and the slice of the
    whole tensor's launch bit for bit, its bf16 time beside the whole's
@@ -198,19 +200,32 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    0.55 of the unsharded f32 parameters and Adam moments, and end with
    every replicated parameter bitwise equal (a digest of its bytes);
    ms/step and peak memory are logged (gloo over one card says nothing of
-   NVLink); rank 0's whole checkpoint restores with --resume into a --tp 1
-   run; (b) the same CLI with --sp 2 (every parameter replicated and
+   NVLink); rank 0's whole checkpoint restores with --resume into the same
+   CLI run alone (tp 1) in this process; (b) the same CLI with --sp 2 (every parameter replicated and
    bitwise equal, the encoder's rows windows launching dropout_window);
-   (c) wav2vec2-base f32 b2, 2 hardened steps over (data 1, model 2) and
-   (data 1, seq 2), at rate 0 and at the config's dropout, against one
-   process within phase 8's tolerances (a quantizer flip only at a tie);
+   (c) wav2vec2-base f32 b2, 2 hardened steps over (data 1, model 2),
+   then over (data 1, seq 2) in the same 2-rank world, at rate 0 and at
+   the config's dropout, against one process within phase 8's tolerances
+   (a quantizer flip only at a tie);
    (d) outside the path's counts: gn_stats, gn_apply, gn_grad_sums and
    gn_apply_bwd on the channel shard [32, 6400, 256], 8 groups, bf16,
    against their plain versions, timed beside F.group_norm; dropout.cu on
    the [8, 12, 99, 99] probabilities' head window (6 of 12) and query-row
    window (49 of 99), f32 and bf16, forward and backward, each equal to
    its plain version and to the slice of the whole launch, timed in bf16
-   beside F.dropout;
+   beside F.dropout; (e) Wav2Vec2's stacked ``scan_layers`` layout in
+   (c)'s world, under each layout: (i) the hardened f32 steps of (c) on the stacked
+   layout, at rate 0 and at the config's dropout, against one stacked
+   process within phase 8's tolerances, and their first gradients as the
+   global clip takes them, unstacked, against the same world's unrolled
+   run (each within phase 6's bound; the bitwise ones counted); the
+   stacked runs must launch dropout_window and, under TP, GroupNorm's four
+   kernels on the channel shard; (ii) make_wav2vec2_job(scan_layers=True)
+   at (a, b)'s shape (base b8 bf16) under tensor_parallel 2 and
+   seq_parallel 2, 4 steps, the last profiled: ms/step, params + Adam a
+   rank (TP, at most 0.55 of the unsharded), the step's launches and
+   Adam's and the clips' beside (a, b)'s unrolled CLI, whose last step is
+   profiled alike, and the collectives by op;
 23. Whisper's pipeline parallelism, 2 gloo ranks sharing the card, as in
    21: (a) python -m tethys_tpu_torch.jobs.whisper_dist --pp 2
    --microbatches 2 --batch_size 4 --num_batches 4 --dtype bfloat16
@@ -221,7 +236,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    18,432,000 bytes of collective-permute a step (2 directions x 2
    microbatches x [2, 1500, 768] bf16) and end with their replicated
    parameters bitwise equal; ms/step and peak memory are logged; rank 0's
-   whole checkpoint restores with --resume into a --pp 1 run; (b)
+   whole checkpoint restores with --resume into the same CLI run alone
+   (pp 1) in this process; (b)
    whisper-base f32, rates 0, b4, one Keras-Adam step over (data 1, stage
    2) with 4 microbatches and remat against the plain step in one
    process: the loss within 1e-5 relative, gradients and parameters
@@ -231,9 +247,9 @@ Phases, each of which raises on failure (the exit code is then nonzero):
 24. the last modules of the port on the bench's steps: (a, b) through
    profiling/step_profile.py (3 warm-up, 3 timed and 3 traced steps; wall
    and device ms a step, the idle share, launches a step and Adam's),
-   wav2vec2-base b32 bf16 unrolled, --scan_layers, --flat_opt, both,
-   unrolled again, whisper-base b16 per tensor, --flat_opt, per tensor
-   again; then 5 steps of each under cuDNN's and torch's deterministic
+   wav2vec2-base b32 bf16 unrolled, --scan_layers, --flat_opt,
+   whisper-base b16 per tensor and --flat_opt; then 5 steps of each, and
+   of Wav2Vec2's with both flags, under cuDNN's and torch's deterministic
    algorithms: Wav2Vec2's scanned and flat steps take unrolled per
    tensor's first gradients bit for bit, their first loss equal and every
    loss within 1e-2 (the clip's norm in another f32 order, which the
@@ -2376,54 +2392,44 @@ def dist_cli(ws: str, group: bool, *flags: str) -> dict:
 
 
 def run_dist_cli(measured: dict, child: dict) -> None:
-    """Phase 18(a): the wav2vec2_dist CLI at wav2vec2-base b32 bf16 in an
-    NCCL world of one (torchrun's env) and alone, in turns: alone, world,
-    world, alone; each in a process of its own (``dist_cli``).  The
-    second world resumes from the first's checkpoint (``--resume``: rank
-    0 reads it and broadcasts it over NCCL)."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as world_ws:
-        runs = []
-        for group, flags in ((False, ()), (True, ()), (True, ("--resume",)),
-                             (False, ())):
-            if group:
-                runs.append(dist_cli(world_ws, group, *flags))
-                continue
-            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
-                runs.append(dist_cli(ws, group, *flags))
-    for run in runs:
+    """Phase 18(a): the wav2vec2_dist CLI at wav2vec2-base b32 bf16 alone,
+    then in an NCCL world of one (torchrun's env) with ``--resume`` in the
+    same workspace, each in a process of its own (``dist_cli``): the
+    world resumes the first run's checkpoint (rank 0 reads it and
+    broadcasts it over NCCL)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+        alone = dist_cli(ws, False)
+        grouped = dist_cli(ws, True, "--resume")
+    for run in (alone, grouped):
         add_counts(child, run["counts"])
-    alone, grouped = runs[0::3], runs[1:3]
     log("  a world of one, its lines: " + " | ".join(
-        line for line in grouped[0]["out"] if not line.startswith(
+        line for line in grouped["out"] if not line.startswith(
             ("LAUNCHES", "=", "network")) and line))
-    for run in grouped:
-        require("process group: nccl, rank 0 of 1" in run["out"],
-                "the CLI did not join an nccl group of one")
-        require(run["report"][0] == "kind,bytes_per_step"
-                and run["report"][-1].startswith("total,"),
-                f"collective report {run['report']}")
-    require("Resumed from checkpoint model_epoch_1" in grouped[1]["out"],
-            "the second world of one did not resume the first's checkpoint")
-    for run in alone:
-        require(not any(line.startswith("process group")
-                        for line in run["out"]) and run["report"] is None,
-                "the CLI without torchrun's env joined a group")
-    log(f"  the CLI's launches in a world of one: {grouped[0]['counts']}")
+    require("process group: nccl, rank 0 of 1" in grouped["out"],
+            "the CLI did not join an nccl group of one")
+    require(grouped["report"][0] == "kind,bytes_per_step"
+            and grouped["report"][-1].startswith("total,"),
+            f"collective report {grouped['report']}")
+    require("Resumed from checkpoint model_epoch_1" in grouped["out"],
+            "the world of one did not resume the first run's checkpoint")
+    require(not any(line.startswith("process group")
+                    for line in alone["out"]) and alone["report"] is None,
+            "the CLI without torchrun's env joined a group")
+    log(f"  the CLI's launches in a world of one: {grouped['counts']}")
     rose = ("gn_stats", "gn_grad_sums", "gn_apply", "gn_apply_bwd", "dropout")
-    require(all(grouped[0]["counts"][k] > 0 for k in rose),
+    require(all(grouped["counts"][k] > 0 for k in rose),
             f"the CLI launched no "
-            f"{[k for k in rose if not grouped[0]['counts'][k]]}")
+            f"{[k for k in rose if not grouped['counts'][k]]}")
     first, last = TRAIN_WARMUP, W2V_STEPS - 2
     phase9 = measured["w2v_step_ms"][first + 1:last + 1]
-    measured["w2v_cli_ms"] = [round(runs[0]["ms"], 2), round(runs[3]["ms"], 2)]
+    measured["w2v_cli_ms"] = round(alone["ms"], 2)
     log(f"  18(a) wav2vec2-base b{W2V_BATCH} bf16, ms/step over steps "
         f"{first + 1}-{last} (each run a process of its own): alone "
-        f"{runs[0]['ms']:.2f}, nccl world of one {runs[1]['ms']:.2f}, "
-        f"{runs[2]['ms']:.2f} (resumed), alone {runs[3]['ms']:.2f}; phase 9 "
-        f"(in this process, no group) {statistics.mean(phase9):.2f} over "
-        "the same steps")
-    log(f"  collective report: {grouped[0]['report']}; all_reduce bytes a "
-        f"step {int(grouped[0]['report'][-1].split(',')[1])}")
+        f"{alone['ms']:.2f}, nccl world of one {grouped['ms']:.2f} "
+        f"(resumed); phase 9 (in this process, no group) "
+        f"{statistics.mean(phase9):.2f} over the same steps")
+    log(f"  collective report: {grouped['report']}; all_reduce bytes a "
+        f"step {int(grouped['report'][-1].split(',')[1])}")
 
 
 def w2v_dp_setup(device, global_batch: int):
@@ -2852,11 +2858,11 @@ def skew_times() -> None:
         f"{loop_ms:.4f} ms (device time, CUDA events)")
 
 
-def profiler_cost() -> None:
+def profiler_cost() -> dict:
     """Phase 19: what the profiler costs a step, in this process: each
     tensorsize job's train call at the jobs' shapes, 10 steps, without and
-    with a TensorProfiler in turns (off, on, on, off); the median of steps
-    3-9 of the loop's step times."""
+    then with a TensorProfiler; the median of steps 3-9 of the loop's step
+    times, {flavor: {profiled: ms}}."""
     from tethys_tpu_torch.profiling.tensorsize import TensorProfiler
     from tethys_tpu_torch.train import jobs
     from tethys_tpu_torch.utils.device import require_cuda
@@ -2873,9 +2879,10 @@ def profiler_cost() -> None:
             batch_size_per_replica=W2V_BATCH, audio_length=W2V_SAMPLES,
             **common, **kw),
     }
+    out = {}
     for flavor, train in runs.items():
-        ms = {False: [], True: []}
-        for on in (False, True, True, False):
+        ms = out[flavor] = {}
+        for on in (False, True):
             times = []
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as logs:
                 profiler = (TensorProfiler(log_dir=logs, flavor=flavor,
@@ -2884,18 +2891,18 @@ def profiler_cost() -> None:
                     lambda i, loss, dur, aux: times.append(dur),))
                 if profiler is not None:
                     profiler.close()
-            ms[on].append(round(statistics.median(times[3:]) * 1e3, 2))
+            ms[on] = round(statistics.median(times[3:]) * 1e3, 2)
         log(f"  19 {flavor} in this process, ms/step (median of steps "
-            f"3-{TRAIN_STEPS - 1}), off/on/on/off: {ms[False][0]}, "
-            f"{ms[True][0]}, {ms[True][1]}, {ms[False][1]}")
+            f"3-{TRAIN_STEPS - 1}), off/on: {ms[False]}, {ms[True]}")
+    return out
 
 
 def run_tensorsize(measured: dict, child: dict) -> None:
-    """Phase 19: (a) the NVML monitor daemon, then the two tensorsize jobs
-    and whisper_dist at the whisper job's flags, each in a process of its
-    own: exit 0, every artifact present and parsed, the Wav2Vec2 value
-    skews finite, ms/step beside phases 7 and 9 and phase 18(a)'s CLI,
-    and each job's train call without and with the profiler in turns;
+    """Phase 19: (a) the NVML monitor daemon, then the two tensorsize jobs,
+    each in a process of its own: exit 0, every artifact present and
+    parsed, the Wav2Vec2 value skews finite, ms/step beside phases 7 and 9
+    and phase 18(a)'s CLI, and each job's train call without and with the
+    profiler in this process;
     (b) each step's rows and total equal the census computed here on the
     CPU at the same shapes; (c) the daemon's lines name the card, with a
     nonzero Mem Usage, and a nonzero GPU Util while a job ran."""
@@ -2944,11 +2951,7 @@ def run_tensorsize(measured: dict, child: dict) -> None:
                 add_counts(child, runs[label]["counts"])
                 log(f"  {label}: {runs[label]['ms']:.2f} ms/step over steps "
                     f"3-7, {runs[label]['seconds']:.1f} s in its process")
-            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
-                plain = run_module(ws, "tethys_tpu_torch.jobs.whisper_dist",
-                                   *TS_JOBS[0][2])
-            add_counts(child, plain["counts"])
-            profiler_cost()
+            in_process = profiler_cost()
         finally:
             monitor.terminate()
             monitor.wait(timeout=30)
@@ -2970,8 +2973,9 @@ def run_tensorsize(measured: dict, child: dict) -> None:
         f"{statistics.median(during)} over {len(during)} samples")
     phase9 = measured["w2v_step_ms"][3:8]
     log(f"  19 ms/step over steps 3-7, bf16: whisper-small b"
-        f"{TS_WHISPER_BATCH} profiled {runs['whisper-small']['ms']:.2f}, "
-        f"unprofiled (whisper_dist, same flags) {plain['ms']:.2f}; "
+        f"{TS_WHISPER_BATCH} profiled {runs['whisper-small']['ms']:.2f} "
+        f"(its train call in this process, off/on: "
+        f"{in_process['whisper'][False]}, {in_process['whisper'][True]}); "
         f"wav2vec2-base b{W2V_BATCH} profiled "
         f"{runs['wav2vec2-base']['ms']:.2f}, unprofiled: phase 18(a)'s CLI "
         f"alone {measured['w2v_cli_ms']}, phase 9 (in this process) "
@@ -2988,6 +2992,9 @@ CAP_MODES = (
 )
 CAP_V3_BATCH = 8
 CAP_V3_STEPS = 6
+# 20(c)'s depth: 8 + 8 of large-v3's 32 + 32 layers at its full width (the
+# model's making, its checkpoints and the steps scale with the depth).
+CAP_V3_DEPTH = 8
 CAP_V3_BENCH_BATCH = 4
 CAP_W2V_STEPS = 4
 CAP_CONVERGENCE_STEPS = 20
@@ -3132,22 +3139,25 @@ def run_grad_accum() -> None:
                       runs[1]["grads"])
 
 
-def run_job_cli(module, argv) -> dict:
-    """A job CLI's main(argv) in this process, in a fresh workspace: its
-    step lines (index, loss, elapsed s), peak memory over what was
-    allocated before it, and ms/step from the elapsed column over steps
-    2 .. last-1."""
+def run_job_cli(module, argv, ws: str = None) -> dict:
+    """A job CLI's main(argv) in this process, in the workspace ``ws`` (a
+    fresh one by default): its stdout lines, step lines (index, loss,
+    elapsed s), peak memory over what was allocated before it, and ms/step
+    from the elapsed column over steps 2 .. last-1."""
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()
     tee = Tee(sys.stdout)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
+    with contextlib.ExitStack() as stack:
+        if ws is None:
+            ws = stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="chip_smoke_"))
         os.environ["TETHYS_WORKSPACE"] = ws
         os.environ["TETHYS_RESULT"] = ws
         with open(os.path.join(ws, "model.txt"), "w") as fh:
             fh.write("chip_smoke")
-        os.makedirs(os.path.join(ws, "chip_smoke"))
+        os.makedirs(os.path.join(ws, "chip_smoke"), exist_ok=True)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3172,30 +3182,70 @@ def run_job_cli(module, argv) -> dict:
     ms = ((steps[-2][2] - steps[1][2]) / (n - 3) * 1e3 if n > 3
           else float("nan"))
     return {"losses": [loss for _, loss, _ in steps], "peak_gib": peak,
-            "ms": ms, "seconds": seconds}
+            "ms": ms, "seconds": seconds, "out": text.splitlines()}
+
+
+def run_resume(tag: str, module, ws: str, flags, checkpoint: str,
+               depth: int = 0) -> None:
+    """The job CLI ``module`` with ``flags``, --num_batches 1 and --resume
+    in this process (one replica, no group), in the workspace ``ws`` of a
+    parallel run, Whisper cut to ``depth`` layers (0: its own): it must
+    resume that run's whole checkpoint ``checkpoint`` and log one finite
+    loss."""
+    with whisper_depth(depth) if depth else contextlib.nullcontext():
+        run = run_job_cli(module, [*flags, "--num_batches", "1", "--resume"],
+                          ws)
+    require(f"Resumed from checkpoint {checkpoint}" in run["out"],
+            f"{tag}: the one-process run did not resume rank 0's checkpoint")
+    require(len(run["losses"]) == 1 and np.isfinite(run["losses"]).all(),
+            f"{tag}: resumed losses {run['losses']}")
+    log(f"  {tag} --resume in one process, without the parallel flag: loss "
+        f"{run['losses']}, peak {run['peak_gib']:.3f} GiB, "
+        f"{run['seconds']:.1f} s")
+
+
+@contextlib.contextmanager
+def whisper_depth(depth: int):
+    """``WhisperConfig.from_size`` gives ``depth`` encoder and decoder
+    layers (the size's own width) for the duration."""
+    from tethys_tpu_torch.configs import WhisperConfig
+
+    own = WhisperConfig.__dict__["from_size"]
+    sized = WhisperConfig.from_size
+    WhisperConfig.from_size = lambda model_type="small", **kw: sized(
+        model_type, **{"encoder_layers": depth, "decoder_layers": depth,
+                       **kw})
+    try:
+        yield
+    finally:
+        WhisperConfig.from_size = own
 
 
 def run_large_v3_cli(gpu: str) -> None:
     """Phase 20(c): the whisper_dist CLI at whisper-large-v3 (full width,
-    32 + 32 layers) b8, bf16 compute on bf16 master weights, gradients
-    accumulated over 2 microbatches of 4, every layer checkpointed under
-    save_flash: every loss finite, ms/step, peak memory; then the same
-    batch without --remat_layers for its peak."""
+    CAP_V3_DEPTH + CAP_V3_DEPTH layers) b8, bf16 compute on bf16 master
+    weights, gradients accumulated over 2 microbatches of 4, every layer
+    checkpointed under save_flash: every loss finite, ms/step, peak
+    memory; then the same batch without --remat_layers for its peak."""
     from tethys_tpu_torch.jobs import whisper_dist
 
     flags = ["--model_size", "large-v3", "--batch_size", str(CAP_V3_BATCH),
              "--dtype", "bfloat16", "--master_dtype", "bfloat16",
              "--grad_accum", "2"]
-    remat = run_job_cli(whisper_dist, flags + [
-        "--remat_layers", "--num_batches", str(CAP_V3_STEPS)])
-    plain = run_job_cli(whisper_dist, flags + ["--num_batches", "2"])
-    log(f"  whisper-large-v3 b{CAP_V3_BATCH} bf16 master, grad_accum 2, "
+    with whisper_depth(CAP_V3_DEPTH):
+        remat = run_job_cli(whisper_dist, flags + [
+            "--remat_layers", "--num_batches", str(CAP_V3_STEPS)])
+        plain = run_job_cli(whisper_dist, flags + ["--num_batches", "2"])
+    log(f"  whisper-large-v3 ({CAP_V3_DEPTH} + {CAP_V3_DEPTH} layers) "
+        f"b{CAP_V3_BATCH} bf16 master, grad_accum 2, "
         f"--remat_layers: {remat['ms']:.2f} ms/step (steps 2-"
         f"{CAP_V3_STEPS - 2}), peak {remat['peak_gib']:.3f} GiB; without "
         f"--remat_layers: peak {plain['peak_gib']:.3f} GiB; losses "
         f"{remat['losses']} ({gpu})")
-    log("  large_v3_cli " + json.dumps({"remat_layers": remat,
-                                        "no_remat_layers": plain, "gpu": gpu}))
+    log("  large_v3_cli " + json.dumps({
+        "remat_layers": {k: v for k, v in remat.items() if k != "out"},
+        "no_remat_layers": {k: v for k, v in plain.items() if k != "out"},
+        "gpu": gpu}))
     require(remat["peak_gib"] < plain["peak_gib"],
             "--remat_layers did not lower the peak")
 
@@ -3283,11 +3333,11 @@ def run_convergence() -> None:
 # the collectives' speed.
 PAR_RANKS = 2
 PAR_V3_STEPS = 4
-# 21(a)'s depth: 4 + 4 of large-v3's 32 + 32 layers at its full width,
+# 21(a)'s depth: 2 + 2 of large-v3's 32 + 32 layers at its full width,
 # which keeps the whole script, phases 23 and 24 included, well inside its
 # time limit (the model's making, its checkpoint and the resume scale with
 # the depth).
-PAR_V3_DEPTH = 4
+PAR_V3_DEPTH = 2
 PAR_SP_STEPS = 4
 PAR_STEPS = 2
 PAR_BATCH = 2           # rows a replica in (b), (c) and (e)
@@ -3303,29 +3353,64 @@ PAR_DECODES = (("none", False), ("int8", False), ("int8", True))
 # is 0.
 PAR_TP_DROPOUT = {"attention_dropout": 0.0, "activation_dropout": DROPOUT_RATE}
 PAR_ADAM_SHARE = 0.55   # one rank's params + Adam over the unsharded total
+
+
+class ProfiledStep:
+    """A train step whose call number ``at`` (from 0) runs under
+    torch.profiler: ``counts`` holds that step's kernel launches (counted
+    as profiling/step_profile.py counts them), those of Adam and the
+    clips, and their device ms; every attribute but these is the step's
+    own (its ``collective_bytes``, ``reducer``)."""
+
+    def __init__(self, step, at: int):
+        self.step, self.at, self.calls, self.counts = step, at, 0, None
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        if self.calls - 1 != self.at:
+            return self.step(*args, **kwargs)
+        from tethys_tpu_torch.profiling import step_profile
+
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            out = self.step(*args, **kwargs)
+            torch.cuda.synchronize()
+        kernels = step_profile.kernel_times(prof)
+        adam = [us for name, us, chain in kernels
+                if step_profile.categorise(name, chain) == "optimizer + clips"]
+        self.counts = {
+            "launches": sum(1 for evt in prof.events()
+                            if evt.name in step_profile.LAUNCH_EVENTS),
+            "adam_launches": len(adam),
+            "device_ms": sum(us for _, us, _ in kernels) / 1e3,
+            "adam_ms": sum(adam) / 1e3}
+        return out
 # Runs ``python -m <module> <flags>`` (the module is the first argument),
 # Whisper cut to $CHIP_SMOKE_DEPTH encoder and decoder layers where it is
 # set, then prints the process's launch counts, the collectives it made by
 # (backend, device, op), and, from the job's final state, its peak memory,
 # the bytes of its parameters and Adam's moments and a digest of each of
 # its replicated parameters' bytes, with the seconds it took to make the
-# job, save and restore checkpoints, reach the final save and end; a run
-# past 600 s prints every thread's stack and exits.
+# job, save and restore checkpoints, reach the final save and end, and,
+# where $CHIP_SMOKE_PROFILE_STEP names a step of a Wav2Vec2 job, that
+# step's launches (``ProfiledStep``); a run past 600 s prints every
+# thread's stack and exits.
 PAR_CLI = (
-    "import faulthandler, hashlib, json, os, runpy, sys, time, torch\n"
+    "import contextlib, faulthandler, hashlib, json, os, runpy, sys, time\n"
+    "import torch\n"
     "t0 = time.perf_counter()\n"
     "faulthandler.dump_traceback_later(600, exit=True)\n"
     "from tethys_tpu_torch.ops import sharding\n"
     "from tethys_tpu_torch.train import jobs\n"
     "from tethys_tpu_torch.utils import kernel_lib\n"
     "from tethys_tpu_torch import checkpoint\n"
-    "from tethys_tpu_torch.configs import WhisperConfig\n"
+    "from chip_smoke import ProfiledStep, whisper_depth\n"
     "depth = int(os.environ.get('CHIP_SMOKE_DEPTH', '0'))\n"
-    "if depth:\n"
-    "    sized = WhisperConfig.from_size\n"
-    "    WhisperConfig.from_size = lambda model_type='small', **kw: sized(\n"
-    "        model_type, **{'encoder_layers': depth, 'decoder_layers': depth,\n"
-    "                       **kw})\n"
     "seen, real = {}, jobs.finalize_job\n"
     "def timed(name, fn):\n"
     "    def run(*args, **kwargs):\n"
@@ -3339,6 +3424,15 @@ PAR_CLI = (
     "cm.restore_like = timed('s_checkpoint_restore', cm.restore_like)\n"
     "jobs.make_whisper_job = timed('s_make_job', jobs.make_whisper_job)\n"
     "jobs.make_wav2vec2_job = timed('s_make_job', jobs.make_wav2vec2_job)\n"
+    "profile_at = int(os.environ.get('CHIP_SMOKE_PROFILE_STEP', '-1'))\n"
+    "profiled, made = [], jobs.make_wav2vec2_job\n"
+    "def with_profile(*args, **kwargs):\n"
+    "    job = made(*args, **kwargs)\n"
+    "    if profile_at < 0:\n"
+    "        return job\n"
+    "    profiled.append(ProfiledStep(job.step_fn, profile_at))\n"
+    "    return job._replace(step_fn=profiled[-1])\n"
+    "jobs.make_wav2vec2_job = with_profile\n"
     "def finalize(result, *args, **kwargs):\n"
     "    st = result.state\n"
     "    seen['param_bytes'] = sum(p.numel() * p.element_size()\n"
@@ -3348,6 +3442,8 @@ PAR_CLI = (
     "                             for t in s.values()\n"
     "                             if torch.is_tensor(t) and t.dim())\n"
     "    seen['peak_bytes'] = torch.cuda.max_memory_allocated()\n"
+    "    if profiled:\n"
+    "        seen['profiled_step'] = profiled[-1].counts\n"
     "    sharded = getattr(st.model, '_tp_full_sizes', {})\n"
     "    seen['replicated'] = {n: hashlib.sha256(p.detach().cpu().contiguous()\n"
     "        .view(torch.uint8).numpy().tobytes()).hexdigest()\n"
@@ -3357,7 +3453,8 @@ PAR_CLI = (
     "    seen['s_to_end'] = time.perf_counter() - t0\n"
     "jobs.finalize_job = finalize\n"
     "sys.argv[0] = sys.argv.pop(1)\n"
-    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+    "with whisper_depth(depth) if depth else contextlib.nullcontext():\n"
+    "    runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
     "print('LAUNCHES ' + json.dumps(kernel_lib.launch_counts()))\n"
     "print('TRANSPORTS ' + json.dumps({' '.join(k): n for k, n in\n"
     "                                  sharding.TRANSPORTS.items()}))\n"
@@ -3382,12 +3479,13 @@ def wait_all(procs, timeout: int) -> list:
 
 
 def par_cli(ws: str, ranks: int, *flags: str, module: str = PAR_WHISPER,
-            depth: int = 0) -> list:
+            depth: int = 0, profile_step: int = -1) -> list:
     """``module`` (whisper_dist by default) with ``flags`` in ``ranks``
     processes of their own on the card (torchrun's env, every rank on
     cuda:0; ``ranks`` 1: no env, no group), in the workspace ``ws``,
-    Whisper cut to ``depth`` encoder and decoder layers (0: its own): per
-    rank its lines, step losses, launch counts, transports and memory."""
+    Whisper cut to ``depth`` encoder and decoder layers (0: its own), a
+    Wav2Vec2 job's step ``profile_step`` profiled (-1: none): per rank its
+    lines, step losses, launch counts, transports and memory."""
     with open(os.path.join(ws, "model.txt"), "w") as fh:
         fh.write("chip_smoke")
     os.makedirs(os.path.join(ws, "chip_smoke"), exist_ok=True)
@@ -3398,7 +3496,8 @@ def par_cli(ws: str, ranks: int, *flags: str, module: str = PAR_WHISPER,
     for r in range(ranks):
         env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
         env.update(TETHYS_WORKSPACE=ws, TETHYS_RESULT=ws, PYTHONPATH=ROOT,
-                   CHIP_SMOKE_DEPTH=str(depth))
+                   CHIP_SMOKE_DEPTH=str(depth),
+                   CHIP_SMOKE_PROFILE_STEP=str(profile_step))
         if ranks > 1:
             env.update(WORLD_SIZE=str(ranks), RANK=str(r), LOCAL_RANK="0",
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
@@ -3447,8 +3546,11 @@ def run_tp_large_v3(gpu: str, child: dict) -> None:
     world of 2 gloo ranks on the card, at PAR_V3_DEPTH layers: both exit 0
     with one finite loss a step, launch the training kernels and keep at
     most PAR_ADAM_SHARE of the unsharded f32 parameters and Adam moments;
-    rank 0's checkpoint then restores with --resume into a --tp 1 run."""
+    rank 0's checkpoint then restores with --resume into a one-process run
+    (``run_resume``)."""
     import shutil
+
+    from tethys_tpu_torch.jobs import whisper_dist
 
     whole = whisper_numel("large-v3", encoder_layers=PAR_V3_DEPTH,
                           decoder_layers=PAR_V3_DEPTH) * 4 * 3  # params, m, v
@@ -3498,31 +3600,20 @@ def run_tp_large_v3(gpu: str, child: dict) -> None:
         log(f"  21(a) the TP world took {seconds:.1f} s (two processes: "
             "model made on the CPU, sharded, 4 steps, the whole checkpoint "
             "and final weights gathered and written by rank 0)")
-        t0 = time.perf_counter()
-        (resumed,) = par_cli(ws, 1, *flags, "--num_batches", "1",
-                             "--resume", depth=PAR_V3_DEPTH)
-        add_counts(child, resumed["counts"])
-        require("Resumed from checkpoint whisper_large-v3_epoch_1"
-                in resumed["out"], "the --tp 1 run did not resume rank 0's "
-                "checkpoint")
-        require(np.isfinite(resumed["losses"]).all() and len(
-            resumed["losses"]) == 1, f"resumed losses {resumed['losses']}")
-        log(f"  21(a) --resume seconds: "
-            f"{ {k: round(v, 1) for k, v in resumed['memory'].items() if k.startswith('s_')} }")
-        log(f"  21(a) --resume into --tp 1: resumed, loss "
-            f"{resumed['losses']}, peak "
-            f"{resumed['memory']['peak_bytes'] / 2 ** 30:.3f} GiB, "
-            f"{time.perf_counter() - t0:.1f} s")
+        run_resume("21(a)", whisper_dist, ws, flags,
+                   "whisper_large-v3_epoch_1", depth=PAR_V3_DEPTH)
 
 
 def par_rank(mode: str, rank: str, port: str, out_dir: str) -> int:
-    """A rank of phase 21(b, e), (c), 22(c) or 23(b) (``chip_smoke.py
+    """A rank of phase 21(b, c, e), 22(c, e) or 23(b) (``chip_smoke.py
     --par_rank MODE R PORT DIR``): "tp" whisper-base f32 over (data 1,
     model 2): 2 Keras-Adam steps, rates 0, then greedy decoding (kv_quant
-    none and int8); "sp" whisper-small f32 over (data 1, seq 2), the
-    config's dropout and activation_dropout, attention's 0; "w2v_tp" and
-    "w2v_sp" wav2vec2-base f32 over (data 1, model 2) and (data 1, seq 2):
-    2 hardened steps at rate 0, then at the config's dropout; "pp"
+    none and int8), then whisper-small f32 over (data 1, seq 2) in the
+    same world, the config's dropout and activation_dropout, attention's
+    0 (21(c)); "w2v" wav2vec2-base f32 over (data 1, model 2), then over
+    (data 1, seq 2) in the same world: 2 hardened steps at rate 0, then
+    at the config's dropout, unrolled and then on the stacked layout
+    (22(e), with the stacked bf16 job's steps; ``w2v_world``); "pp"
     whisper-base f32 over (data 1, stage 2): one PP step (``pp_steps``),
     every rank's results saved."""
     sys.path.insert(0, ROOT)
@@ -3557,22 +3648,27 @@ def par_rank(mode: str, rank: str, port: str, out_dir: str) -> int:
                     kernel_lib.DROPOUT_WINDOW.launches - window)
                 out["decode"] = {v: par_decode(dev, *v, layout)
                                  for v in PAR_DECODES}
-            elif mode == "sp":
+                # 21(c)'s SP steps in the same world, over (data 1, seq 2).
                 layout = mesh.make_seq_mesh(seq_parallel=PAR_RANKS)
+                window, start = kernel_lib.DROPOUT_WINDOW.launches, len(shapes)
+                t0 = time.perf_counter()
                 with deterministic_cudnn():
-                    out = par_steps(dev, "small", layout,
-                                    {"attention_dropout": 0.0})
+                    out["sp"] = par_steps(dev, "small", layout,
+                                          {"attention_dropout": 0.0})
+                out["sp"]["seconds"] = time.perf_counter() - t0
+                out["sp"]["window_launches"] = (
+                    kernel_lib.DROPOUT_WINDOW.launches - window)
+                out["sp"]["flash_shapes"] = shapes[start:]
             elif mode == "pp":   # 23(b)
                 layout = mesh.make_pp_mesh(PAR_RANKS)
                 with deterministic_cudnn():
                     out = pp_steps(dev, layout)
-            else:   # 22(c): Wav2Vec2 over (data 1, model 2) or (data 1, seq 2)
-                layout = (mesh.make_2d_mesh(model_parallel=PAR_RANKS)
-                          if mode == "w2v_tp" else
-                          mesh.make_seq_mesh(seq_parallel=PAR_RANKS))
-                with deterministic_cudnn():
-                    out = w2v_par_steps(dev, layout, W2V_NO_DROPOUT)
-                    out["dropout"] = w2v_par_steps(dev, layout, {})
+            else:   # 22(c, e): Wav2Vec2 over (data 1, model 2), then over
+                # (data 1, seq 2) in the same world
+                out = {"w2v_tp": w2v_world(dev, "w2v_tp", mesh.make_2d_mesh(
+                    model_parallel=PAR_RANKS))}
+                out["w2v_sp"] = w2v_world(dev, "w2v_sp", mesh.make_seq_mesh(
+                    seq_parallel=PAR_RANKS))
         finally:
             mesh.shutdown_distributed()
     out.update(launches=kernel_lib.launch_counts(), flash_shapes=shapes,
@@ -3715,14 +3811,20 @@ def check_par_steps(name: str, got: dict, want: dict,
               for n, p in want["params"].items()), 2 * lr * steps)
 
 
+# 21(c)'s SP steps, which run in 21(b)'s world after its TP cases.
+PAR_SP_WORLD: dict = {}
+
+
 def run_tp_equality(child: dict) -> None:
     """Phase 21(b) and (e): a 2-rank TP world of whisper-base on the card
     (f32, rates 0, cuDNN deterministic; then greedy decoding) against one
-    process without a group."""
+    process without a group.  The world then runs 21(c)'s SP steps, which
+    ``run_sp`` checks."""
     from tethys_tpu_torch.utils.device import require_cuda
 
     got = par_world("tp")
     add_counts(child, got["launches"])
+    PAR_SP_WORLD.update(got.pop("sp"))
     dev = require_cuda()
     with deterministic_cudnn():
         want = par_steps(dev, MODEL, None, NO_DROPOUT)
@@ -3758,10 +3860,10 @@ def run_tp_equality(child: dict) -> None:
 
 def run_sp(child: dict) -> None:
     """Phase 21(c): whisper_dist --model_size small --sp 2 --batch_size 2
-    --num_batches 4 --dtype bfloat16 in a 2-rank gloo world, then a 2-rank
-    SP world of whisper-small f32 with the config's dropout (attention's
-    0) against one process: the dropout window holds the unsharded mask
-    through whole steps."""
+    --num_batches 4 --dtype bfloat16 in a 2-rank gloo world, then the SP
+    steps of whisper-small f32 with the config's dropout (attention's 0)
+    that 21(b)'s world ran, against one process: the dropout window holds
+    the unsharded mask through whole steps."""
     from tethys_tpu_torch.utils.device import require_cuda
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
@@ -3783,16 +3885,17 @@ def run_sp(child: dict) -> None:
         f"{runs[0]['losses']}, peak "
         f"{runs[0]['memory']['peak_bytes'] / 2 ** 30:.3f} GiB a rank; "
         f"collectives {runs[0]['transports']}")
-    got = par_world("sp")
-    add_counts(child, got["launches"])
-    require(got["launches"]["dropout_window"] > 0, "21(c) the SP world "
-            f"launched no dropout on a shard: {got['launches']}")
+    got = PAR_SP_WORLD
+    require(got["window_launches"] > 0, "21(c) the SP steps launched no "
+            "dropout on a shard")
     want = par_steps(require_cuda(), "small", None,
                      {"attention_dropout": 0.0})
     check_par_steps("21(c) SP whisper-small f32, dropout on", got, want)
     encoder = sorted({s for s in got["flash_shapes"] if s[0] != s[1]})
     log(f"  21(c) rank 0's flash forward launches at (Tq, Tk): "
-        f"{ {s: got['flash_shapes'].count(s) for s in set(got['flash_shapes'])} }")
+        f"{ {s: got['flash_shapes'].count(s) for s in set(got['flash_shapes'])} }"
+        f"; dropout_window {got['window_launches']}; the SP steps took "
+        f"{got['seconds']:.1f} s in 21(b)'s world")
     require((750, 1500) in encoder, f"no flash launch at Tq 750, Tk 1500: "
             f"{got['flash_shapes']}")
 
@@ -3847,6 +3950,11 @@ W2V_PAR_BATCH = 8        # rows a replica in 22(a, b): gloo copies each
 W2V_PAR_STEPS = 4        # conv's gathered channels through the host
 W2V_NO_DROPOUT = dict(hidden_dropout=0.0, activation_dropout=0.0,
                       attention_dropout=0.0)
+# 22(a, b) and 22(e)(ii) profile this step of W2V_PAR_STEPS (the last).
+W2V_PROFILED_STEP = W2V_PAR_STEPS - 1
+# 22(a, b)'s rank 0 by flag: ms/step, params + Adam share and the profiled
+# step's launches, which 22(e)(ii) logs beside the stacked layout's.
+W2V_UNROLLED: dict = {}
 # The kernels each rank of 22(a) and (b) must launch: GroupNorm's four on
 # the channel shards (TP) or the whole channels (SP), and dropout on the
 # shards' windows (TP: heads and the FFN's columns; SP: rows).
@@ -3859,14 +3967,18 @@ GN_SHARD = (32, 6400, 256, 8)
 PROBS = (W2V_PAR_BATCH, 12, 99, 99)
 
 
-def w2v_par_steps(device, layout, overrides: dict) -> dict:
+def w2v_par_steps(device, layout, overrides: dict, scan_layers: bool = False,
+                  clip_grads: bool = False) -> dict:
     """W2V_F32_STEPS hardened wav2vec2_optimizer steps of wav2vec2-base in
     f32 from SEED on W2V_F32_BATCH 2 s clips with fixed negatives, over
     ``layout`` (None: one process, no group) with ``overrides`` of the
-    config's dropout rates: the losses, the whole gradients of the first
+    config's dropout rates, on the stacked encoder layout with
+    ``scan_layers``: the losses, the whole gradients of the first
     step (what Adam takes, after both clips' inputs: the summed, clipped
     gradients), the whole parameters after the last, and the quantizer's
-    first indices and distances, on the host."""
+    first indices and distances, on the host; with ``clip_grads`` also
+    the first step's whole gradients as the global clip takes them (after
+    the model or seq group's sums), unstacked ("clip_grads")."""
     from tethys_tpu_torch import data, losses
     from tethys_tpu_torch.models import wav2vec2
     from tethys_tpu_torch.parallel import dp, tp
@@ -3874,7 +3986,7 @@ def w2v_par_steps(device, layout, overrides: dict) -> dict:
     sharded = layout is not None and layout.axis == "model"
     model, config = wav2vec2.create_full_model(
         "pretraining", W2V_MODEL, device="cpu" if sharded else device,
-        seed=SEED, **overrides)
+        seed=SEED, scan_layers=scan_layers, **overrides)
     if sharded:
         tp.shard_model(model, layout)
     model.to(device).train()
@@ -3906,21 +4018,119 @@ def w2v_par_steps(device, layout, overrides: dict) -> dict:
         adam_step()
 
     opt.step = record
+    at_clip, real_clip = [], dp.clip_by_global_norm
+
+    def snapshot(tensors, *args):
+        if not at_clip:
+            at_clip.append(wav2vec2.unstack_layer_params(whole(
+                {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None})))
+        return real_clip(tensors, *args)
+
+    if clip_grads:
+        dp.clip_by_global_norm = snapshot
     clips = iter(data.create_wav2vec2_dummy_dataset(W2V_F32_BATCH,
                                                     W2V_SAMPLES))
     frames = config.downsampled_length(W2V_SAMPLES)
     state, losses_seen = dp.TrainState(model, opt, layout), []
-    for i in range(W2V_F32_STEPS):
-        audio = torch.from_numpy(next(clips)[0]).to(device)
-        negatives = losses.sample_negative_indices(
-            torch.Generator().manual_seed(200 + i), W2V_F32_BATCH, frames,
-            config.num_negatives)
-        state, loss = step(state, (audio, negatives),
-                           dp.step_generator(SEED, i))
-        losses_seen.append(loss.item())
-    return {"losses": losses_seen, "grads": grads[0],
-            "params": whole(dict(model.named_parameters())),
-            "indices": codes[0][0], "distances": codes[0][1]}
+    try:
+        for i in range(W2V_F32_STEPS):
+            audio = torch.from_numpy(next(clips)[0]).to(device)
+            negatives = losses.sample_negative_indices(
+                torch.Generator().manual_seed(200 + i), W2V_F32_BATCH, frames,
+                config.num_negatives)
+            state, loss = step(state, (audio, negatives),
+                               dp.step_generator(SEED, i))
+            losses_seen.append(loss.item())
+    finally:
+        dp.clip_by_global_norm = real_clip
+    out = {"losses": losses_seen, "grads": grads[0],
+           "params": whole(dict(model.named_parameters())),
+           "indices": codes[0][0], "distances": codes[0][1]}
+    if clip_grads:
+        out["clip_grads"] = at_clip[0]
+    return out
+
+
+def w2v_world(device, mode: str, layout) -> dict:
+    """Phase 22(c, e) in a rank of the "w2v" world over ``layout``: the
+    hardened f32 steps at rate 0 (with the first gradients at the clip)
+    and at the config's dropout, unrolled, then on the stacked layout
+    ("scan"), then the stacked bf16 job (``w2v_scan_job``); the launches
+    of the whole and of the stacked runs ("scan_launches")."""
+    from tethys_tpu_torch.utils import kernel_lib
+
+    torch.cuda.synchronize()
+    start = kernel_lib.launch_counts()
+    with deterministic_cudnn():
+        out = w2v_par_steps(device, layout, W2V_NO_DROPOUT, clip_grads=True)
+        out["dropout"] = w2v_par_steps(device, layout, {})
+        torch.cuda.synchronize()
+        before = kernel_lib.launch_counts()
+        out["scan"] = w2v_par_steps(device, layout, W2V_NO_DROPOUT,
+                                    scan_layers=True, clip_grads=True)
+        out["scan"]["dropout"] = w2v_par_steps(device, layout, {},
+                                               scan_layers=True)
+    out["scan_job"] = w2v_scan_job(device, mode)
+    torch.cuda.synchronize()
+    after = kernel_lib.launch_counts()
+    out["launches"] = {k: n - start[k] for k, n in after.items()}
+    out["scan_launches"] = {k: n - before[k] for k, n in after.items()}
+    return out
+
+
+def w2v_scan_job(device, mode: str) -> dict:
+    """Phase 22(e)(ii), in a rank of the "w2v_tp" or "w2v_sp" world:
+    ``make_wav2vec2_job(scan_layers=True)`` at 22(a, b)'s shape
+    (wav2vec2-base b8 a replica, bf16 on f32 masters, the config's
+    dropout) under ``tensor_parallel`` or ``seq_parallel`` 2, W2V_PAR_STEPS
+    steps of its synthetic data, the last profiled (``ProfiledStep``):
+    the losses, ms/step over the unprofiled steps after the first (two
+    gloo ranks on one card: no speed claim), the profiled step's
+    launches, the bytes of the parameters and Adam's moments, and the
+    collectives the steps made by op and the bytes of the last one's."""
+    import gc
+
+    from tethys_tpu_torch.ops import sharding
+    from tethys_tpu_torch.parallel import dp
+    from tethys_tpu_torch.train import jobs
+
+    par = ({"tensor_parallel": PAR_RANKS} if mode == "w2v_tp"
+           else {"seq_parallel": PAR_RANKS})
+    job = jobs.make_wav2vec2_job(
+        "pretraining", W2V_MODEL, W2V_PAR_BATCH, compute_dtype="bfloat16",
+        audio_length=W2V_SAMPLES, device=device, seed=SEED,
+        scan_layers=True, **par)
+    step = ProfiledStep(job.step_fn, W2V_PROFILED_STEP)
+    state, batches = job.state, iter(job.dataset)
+    before = dict(sharding.TRANSPORTS)
+    losses, seconds = [], []
+    for i in range(W2V_PAR_STEPS):
+        batch = job.prepare_batch(next(batches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, dp.step_generator(
+            SEED, i, state.layout.data_rank))
+        losses.append(loss.item())
+        seconds.append(time.perf_counter() - t0)
+    out = {
+        "losses": losses,
+        "ms": statistics.mean(seconds[1:W2V_PROFILED_STEP]) * 1e3,
+        **step.counts,
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in state.model.parameters()),
+        "adam_bytes": sum(t.numel() * t.element_size()
+                          for s in state.optimizer.state.values()
+                          for t in s.values()
+                          if torch.is_tensor(t) and t.dim()),
+        "transports": {" ".join(k): n - before.get(k, 0)
+                       for k, n in sharding.TRANSPORTS.items()
+                       if n > before.get(k, 0)},
+        "collective_bytes": dict(step.collective_bytes)}
+    del job, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def argmin_flips(name: str, got, want, distances) -> int:
@@ -3944,8 +4154,9 @@ def run_w2v_par_cli(gpu: str, child: dict, flag: str) -> None:
     end with their replicated parameters bitwise equal; under TP each
     holds at most PAR_ADAM_SHARE of the unsharded f32 parameters and Adam
     moments, and rank 0's whole checkpoint then restores with --resume into
-    a --tp 1 run."""
+    a one-process run (``run_resume``)."""
     from tethys_tpu_torch.configs import Wav2Vec2Config
+    from tethys_tpu_torch.jobs import wav2vec2_dist
     from tethys_tpu_torch.models.wav2vec2 import Wav2Vec2ForPreTraining
 
     tag = {"--tp": "22(a)", "--sp": "22(b)"}[flag]
@@ -3959,24 +4170,30 @@ def run_w2v_par_cli(gpu: str, child: dict, flag: str) -> None:
         t0 = time.perf_counter()
         runs = par_cli(ws, PAR_RANKS, *flags, flag, str(PAR_RANKS),
                        "--num_batches", str(W2V_PAR_STEPS), "--backend",
-                       "gloo", module=W2V_DIST)
+                       "gloo", module=W2V_DIST,
+                       profile_step=W2V_PROFILED_STEP)
         seconds = time.perf_counter() - t0
         for r, run in enumerate(runs):
             add_counts(child, run["counts"])
             mem = run["memory"]
             share = (mem["param_bytes"] + mem["adam_bytes"]) / whole
-            ms = ((run["steps"][-2][2] - run["steps"][0][2])
-                  / (W2V_PAR_STEPS - 2) * 1e3)
+            # Step 1's line comes once step 2 is queued: one whole step
+            # (the profiled last step comes after step 2's line).
+            ms = (run["steps"][1][2] - run["steps"][0][2]) * 1e3
+            if r == 0:
+                W2V_UNROLLED[flag] = {"ms": ms, "share": share,
+                                      **mem["profiled_step"]}
             log(f"  {tag} rank {r}: losses {run['losses']}, {ms:.2f} ms/step "
-                f"over steps 1-{W2V_PAR_STEPS - 2} (two gloo ranks sharing "
+                f"over step 1 (two gloo ranks sharing "
                 f"one card: not NVLink's speed), peak "
                 f"{mem['peak_bytes'] / 2 ** 30:.3f} GiB, params + Adam "
                 f"{(mem['param_bytes'] + mem['adam_bytes']) / 2 ** 30:.3f} "
                 f"GiB = {share:.4f} of the unsharded {whole / 2 ** 30:.3f} "
                 f"GiB; seconds "
                 f"{ {k: round(v, 1) for k, v in mem.items() if k.startswith('s_')} }; "
-                f"launches {run['counts']}; collectives {run['transports']} "
-                f"({gpu})")
+                f"launches {run['counts']}; step {W2V_PROFILED_STEP} "
+                f"profiled: {mem['profiled_step']}; collectives "
+                f"{run['transports']} ({gpu})")
             require([i for i, _, _ in run["steps"]]
                     == list(range(W2V_PAR_STEPS))
                     and all(np.isfinite(run["losses"])),
@@ -3998,49 +4215,114 @@ def run_w2v_par_cli(gpu: str, child: dict, flag: str) -> None:
             f"on both ranks; the world took {seconds:.1f} s")
         if flag != "--tp":
             return
-        t0 = time.perf_counter()
-        (resumed,) = par_cli(ws, 1, *flags, "--num_batches", "1", "--resume",
-                             module=W2V_DIST)
-        add_counts(child, resumed["counts"])
-        require("Resumed from checkpoint model_epoch_1" in resumed["out"],
-                f"{tag}: the --tp 1 run did not resume rank 0's checkpoint")
-        require(len(resumed["losses"]) == 1
-                and np.isfinite(resumed["losses"]).all(),
-                f"{tag}: resumed losses {resumed['losses']}")
-        log(f"  {tag} --resume into --tp 1: loss {resumed['losses']}, peak "
-            f"{resumed['memory']['peak_bytes'] / 2 ** 30:.3f} GiB, "
-            f"{time.perf_counter() - t0:.1f} s")
+        run_resume(tag, wav2vec2_dist, ws, flags, "model_epoch_1")
 
 
 def run_w2v_par_equality(child: dict) -> None:
-    """Phase 22(c): wav2vec2-base f32 b2, 2 hardened steps over (data 1,
-    model 2) and (data 1, seq 2), two gloo ranks on the card (cuDNN
-    deterministic), at rate 0 and at the config's dropout, against one
-    process within phase 8's tolerances; the quantizer's indices flip only
-    at ties (and a flip leaves the run's losses unheld, as in phase 8)."""
+    """Phase 22(c) and (e): wav2vec2-base f32 b2, 2 hardened steps over
+    (data 1, model 2), then over (data 1, seq 2), in one world of two gloo
+    ranks on the card (cuDNN deterministic), at rate 0 and at the config's dropout, unrolled
+    and on the stacked layout, each against one process of its layout
+    within phase 8's tolerances; the quantizer's indices flip only at ties
+    (and a flip leaves the run's losses unheld, as in phase 8); then the
+    stacked layout's own checks under each layout (``check_scan_world``)."""
     from tethys_tpu_torch.utils.device import require_cuda
 
     dev = require_cuda()
     with deterministic_cudnn():
         want = {"rates 0": w2v_par_steps(dev, None, W2V_NO_DROPOUT),
                 "dropout on": w2v_par_steps(dev, None, {})}
+        want_scan = {
+            "rates 0": w2v_par_steps(dev, None, W2V_NO_DROPOUT,
+                                     scan_layers=True),
+            "dropout on": w2v_par_steps(dev, None, {}, scan_layers=True)}
+    world = par_world("w2v")
+    add_counts(child, world["launches"])
+    log(f"  22(c, e): rank 0's collectives {world['transports']}")
     for mode, name in (("w2v_tp", "TP (data 1, model 2)"),
                        ("w2v_sp", "SP (data 1, seq 2)")):
-        got = par_world(mode)
-        add_counts(child, got["launches"])
+        got = world[mode]
         require(got["launches"]["dropout_window"] > 0, f"22(c) {name}: no "
                 f"dropout on a shard: {got['launches']}")
-        for rates, run in (("rates 0", got), ("dropout on", got["dropout"])):
-            label = f"22(c) {name} wav2vec2-base f32, {rates}"
-            flips = argmin_flips(label, run["indices"], want[rates]["indices"],
-                                 want[rates]["distances"])
-            log(f"  {label}: {flips} quantizer indices flip at ties")
-            if flips:
-                log(f"  {label}: not held (a flip at a tie changes the "
-                    "targets by design)")
-                continue
-            check_par_steps(label, run, want[rates], lr=W2V_LR)
-        log(f"  22(c) {name}: rank 0's collectives {got['transports']}")
+        for tag, runs, refs in (("22(c)", got, want),
+                                ("22(e) stacked", got["scan"], want_scan)):
+            for rates, run in (("rates 0", runs),
+                               ("dropout on", runs["dropout"])):
+                label = f"{tag} {name} wav2vec2-base f32, {rates}"
+                flips = argmin_flips(label, run["indices"],
+                                     refs[rates]["indices"],
+                                     refs[rates]["distances"])
+                log(f"  {label}: {flips} quantizer indices flip at ties")
+                if flips:
+                    log(f"  {label}: not held (a flip at a tie changes the "
+                        "targets by design)")
+                    continue
+                check_par_steps(label, run, refs[rates], lr=W2V_LR)
+        check_scan_world(name, mode, got)
+
+
+def check_scan_world(name: str, mode: str, got: dict) -> None:
+    """Phase 22(e)'s checks of rank 0's runs under one layout (its f32
+    steps are held to one process by ``run_w2v_par_equality``): the
+    stacked layout's first gradients as the global clip takes them,
+    unstacked, against the same layout's unrolled run (each within phase 6's bound, the bitwise ones
+    counted); the kernels its runs launched (``dropout_window``; under TP
+    GroupNorm's four on the channel shard); the bf16 job's steps beside
+    22(a, b)'s unrolled run of the same shape: ms/step, params + Adam a
+    rank (TP), the profiled step's launches, Adam's and the clips' among
+    them, and the collectives by op."""
+    from tethys_tpu_torch.configs import Wav2Vec2Config
+    from tethys_tpu_torch.models.wav2vec2 import Wav2Vec2ForPreTraining
+
+    unrolled, stacked = got["clip_grads"], got["scan"]["clip_grads"]
+    require(list(stacked) == list(unrolled),
+            f"22(e) {name}: the gradients' names differ")
+    same, worst = 0, 0.0
+    for n, g in unrolled.items():
+        gap = (stacked[n] - g).norm().item()
+        bound = 1e-3 * g.norm().item() + 1e-6
+        require(gap <= bound, f"22(e) {name}: stacked gradient of {n} "
+                f"{gap:.3e} from the unrolled one's (> {bound:.3e})")
+        same += torch.equal(stacked[n], g)
+        worst = max(worst, (stacked[n] - g).abs().max().item())
+    log(f"  22(e) {name}: the first gradients at the global clip, stacked "
+        f"and unstacked against unrolled in the same world: {same} of "
+        f"{len(unrolled)} tensors bit for bit, largest difference "
+        f"{worst:.3e}")
+    counts = got["scan_launches"]
+    need = ("dropout_window",) + (("gn_stats", "gn_grad_sums", "gn_apply",
+                                   "gn_apply_bwd") if mode == "w2v_tp"
+                                  else ())
+    log(f"  22(e) {name}: rank 0's launches on the stacked layout {counts}")
+    missing = [k for k in need if not counts[k]]
+    require(not missing, f"22(e) {name}: the stacked layout launched no "
+            f"{missing}")
+    job = got["scan_job"]
+    flag = "--tp" if mode == "w2v_tp" else "--sp"
+    unrolled_job = W2V_UNROLLED[flag]
+    require(len(job["losses"]) == W2V_PAR_STEPS
+            and all(np.isfinite(job["losses"])),
+            f"22(e) {name}: bf16 losses {job['losses']}")
+    with torch.device("meta"):
+        numel = sum(p.numel() for p in Wav2Vec2ForPreTraining(
+            Wav2Vec2Config.from_size(W2V_MODEL)).parameters())
+    share = (job["param_bytes"] + job["adam_bytes"]) / (numel * 4 * 3)
+    if mode == "w2v_tp":
+        require(share <= PAR_ADAM_SHARE, f"22(e) {name}: rank 0 holds "
+                f"{share:.4f} of the unsharded params and Adam moments")
+    log(f"  22(e) {name} make_wav2vec2_job(scan_layers=True) base "
+        f"b{W2V_PAR_BATCH} bf16, rank 0: losses {job['losses']}, "
+        f"{job['ms']:.2f} ms/step (gloo on one card: no speed claim; "
+        f"unrolled {flag} 2: {unrolled_job['ms']:.2f}); params + Adam "
+        f"{share:.4f} of the unsharded f32 (unrolled "
+        f"{unrolled_job['share']:.4f}); step {W2V_PROFILED_STEP}: "
+        f"{job['launches']} launches, {job['adam_launches']} of them Adam "
+        f"and the clips ({job['adam_ms']:.3f} device ms), device "
+        f"{job['device_ms']:.2f} ms; unrolled {unrolled_job['launches']}, "
+        f"{unrolled_job['adam_launches']} ({unrolled_job['adam_ms']:.3f} "
+        f"ms), device {unrolled_job['device_ms']:.2f} ms; collectives by op "
+        f"{job['transports']}, the last step's bytes "
+        f"{job['collective_bytes']}")
 
 
 def run_w2v_shard_kernels(gpu: str) -> None:
@@ -4159,7 +4441,9 @@ def run_pp_cli(gpu: str, child: dict) -> None:
     hold PP_SHARE of the whole f32 parameters and Adam moments, report
     PP_PERMUTE_BYTES of "collective-permute" a step and end with their
     replicated parameters bitwise equal; rank 0's whole checkpoint then
-    restores with --resume into a --pp 1 run."""
+    restores with --resume into a one-process run (``run_resume``)."""
+    from tethys_tpu_torch.jobs import whisper_dist
+
     whole = whisper_numel("small") * 4 * 3              # f32 params, m, v
     flags = ("--batch_size", str(PP_BATCH), "--dtype", "bfloat16")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
@@ -4209,18 +4493,7 @@ def run_pp_cli(gpu: str, child: dict) -> None:
                 f"the ranks: {differ[:5]}")
         log(f"  23(a) {len(digests[0])} replicated parameters bitwise equal "
             f"on both ranks; the world took {seconds:.1f} s")
-        t0 = time.perf_counter()
-        (resumed,) = par_cli(ws, 1, *flags, "--num_batches", "1", "--resume")
-        add_counts(child, resumed["counts"])
-        require("Resumed from checkpoint whisper_small_epoch_1"
-                in resumed["out"], "23(a): the --pp 1 run did not resume "
-                "rank 0's checkpoint")
-        require(len(resumed["losses"]) == 1
-                and np.isfinite(resumed["losses"]).all(),
-                f"23(a): resumed losses {resumed['losses']}")
-        log(f"  23(a) --resume into --pp 1: loss {resumed['losses']}, peak "
-            f"{resumed['memory']['peak_bytes'] / 2 ** 30:.3f} GiB, "
-            f"{time.perf_counter() - t0:.1f} s")
+        run_resume("23(a)", whisper_dist, ws, flags, "whisper_small_epoch_1")
 
 
 def pp_steps(device, layout) -> dict:
@@ -4429,17 +4702,16 @@ def loss_gap(got: list, want: list) -> float:
 
 def run_scan_flat_ab(gpu: str) -> None:
     """Phase 24(a, b): the bench's steps, wav2vec2-base b32 unrolled,
-    --scan_layers, --flat_opt, both, unrolled again, then whisper-base b16
-    per tensor, --flat_opt, per tensor again, each through step_profile
+    --scan_layers and --flat_opt, then whisper-base b16 per tensor and
+    --flat_opt, each through step_profile
     (wall and device ms a step, idle share, launches, Adam's launches);
     then their losses under ``deterministic()``: Wav2Vec2's scanned and
     flat steps take the first gradients of unrolled per tensor bit for bit
     and their losses stay within W2V_LOSS_REL; Whisper's flat step's
     within FLAT_LOSS_SPREAD times the gap of two per-tensor runs."""
     runs = (("wav2vec2",), ("wav2vec2", "--scan_layers"),
-            ("wav2vec2", "--flat_opt"),
-            ("wav2vec2", "--scan_layers", "--flat_opt"), ("wav2vec2",),
-            ("whisper",), ("whisper", "--flat_opt"), ("whisper",))
+            ("wav2vec2", "--flat_opt"), ("whisper",),
+            ("whisper", "--flat_opt"))
     for key in runs:
         log_profile(" ".join(key), profile_bench_step(*key), gpu)
     want, want_grads = bench_losses("wav2vec2")
@@ -4572,6 +4844,19 @@ def run_decode_floor(gpu: str) -> None:
     require(DECODE_MS, "24(d): phase 13 recorded no decode step")
 
 
+# Seconds each phase took, by its tag ("3", "18a", "22c, e").
+PHASE_SECONDS: dict = {}
+
+
+def timed_phase(title: str, fn, *args) -> None:
+    """fn(*args), its seconds logged and kept under the title's tag."""
+    t0 = time.perf_counter()
+    fn(*args)
+    seconds = time.perf_counter() - t0
+    PHASE_SECONDS[title[1:title.index("]")]] = seconds
+    log(f"  ({seconds:.1f} s)")
+
+
 def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     """Runs a path's phases, (title, fn, *args) each, with the launch counts
     set to 0 just before and read just after; raises unless each of the
@@ -4583,9 +4868,7 @@ def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     kernel_lib.reset_launch_counts()
     for title, fn, *args in phases:
         log(title)
-        t0 = time.perf_counter()
-        fn(*args)
-        log(f"  ({time.perf_counter() - t0:.1f} s)")
+        timed_phase(title, fn, *args)
     torch.cuda.synchronize()
     counts = kernel_lib.launch_counts()
     if child_counts:
@@ -4603,6 +4886,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
+    started = time.perf_counter()
+    # Where Python writes no bytecode (PYTHONDONTWRITEBYTECODE) and the
+    # packages ship none, each process the script starts compiles torch's
+    # modules anew (3 s or more a process): their bytecode is kept in the
+    # checkout's build directory for the run.
+    pycache = os.path.join(ROOT, "tethys_tpu_torch", "_build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = pycache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix, sys.dont_write_bytecode = pycache, False
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tethys_tpu_torch.utils import kernel_lib
     from tethys_tpu_torch.utils.device import card_name_and_power
@@ -4626,7 +4918,7 @@ def main() -> int:
 
     log("[3] kernels against their plain versions on the card")
     results, measured = {}, {}
-    check_kernels(results)
+    timed_phase("[3]", check_kernels, results)
     torch.cuda.synchronize()
 
     serving = drive_path("serving", (
@@ -4689,7 +4981,8 @@ def main() -> int:
          "none, whole-loss remat", run_capacity_modes, gpu),
         ("[20b] grad_accum 2 against 1, whisper-base b16 f32, rates 0",
          run_grad_accum),
-        ("[20c] the whisper_dist CLI at whisper-large-v3 b8, remat_layers, "
+        (f"[20c] the whisper_dist CLI at whisper-large-v3 ({CAP_V3_DEPTH} + "
+         f"{CAP_V3_DEPTH} layers) b8, remat_layers, "
          "bf16 master, grad_accum 2", run_large_v3_cli, gpu),
         ("[20d] the training bench's twin at whisper-large-v3 b4, "
          "remat_layers, bf16 master", run_large_v3_bench, gpu),
@@ -4698,7 +4991,7 @@ def main() -> int:
         ("[20f] the convergence twin, whisper-base, f32 against bf16 master",
          run_convergence)))
     log("[21d] dropout.cu on a shard against the slice of the whole")
-    run_dropout_window(gpu, results)
+    timed_phase("[21d]", run_dropout_window, gpu, results)
     child = {}
     parallel = drive_path("parallel", (
         (f"[21a] whisper_dist --tp 2 at whisper-large-v3 ({PAR_V3_DEPTH} + "
@@ -4712,9 +5005,7 @@ def main() -> int:
         child_counts=child)
     log("[22d] GroupNorm's kernels on a channel shard, dropout.cu on the "
         "probabilities' head and row windows")
-    t0 = time.perf_counter()
-    run_w2v_shard_kernels(gpu)
-    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    timed_phase("[22d]", run_w2v_shard_kernels, gpu)
     child = {}
     w2v_parallel = drive_path("w2v_parallel", (
         ("[22a] wav2vec2_dist --tp 2 at wav2vec2-base b8 bf16, two gloo "
@@ -4722,8 +5013,10 @@ def main() -> int:
          child, "--tp"),
         ("[22b] wav2vec2_dist --sp 2 at wav2vec2-base b8 bf16, two gloo "
          "ranks on the card", run_w2v_par_cli, gpu, child, "--sp"),
-        ("[22c] TP and SP wav2vec2-base f32 hardened steps, rates 0 and "
-         "dropout on, against one process", run_w2v_par_equality, child)),
+        ("[22c, e] TP and SP wav2vec2-base f32 hardened steps, rates 0 and "
+         "dropout on, unrolled and stacked (scan_layers), against one "
+         "process; the stacked bf16 job's steps", run_w2v_par_equality,
+         child)),
         child_counts=child)
     child = {}
     pipeline = drive_path("pipeline", (
@@ -4756,6 +5049,10 @@ def main() -> int:
     missing = [name for name, n in counts.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")
 
+    slowest = sorted(PHASE_SECONDS.items(), key=lambda kv: -kv[1])[:5]
+    log(f"the run took {time.perf_counter() - started:.1f} s (nvcc "
+        f"{kernel_lib.build_seconds or 0:.1f} s of it); the five slowest phases: "
+        + ", ".join(f"{tag} {sec:.1f} s" for tag, sec in slowest))
     log(gpu)
     log(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

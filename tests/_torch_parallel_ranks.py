@@ -1,6 +1,7 @@
 """The ranks of the tensor-, sequence- and pipeline-parallel worlds of
 tests/test_torch_tp.py, tests/test_torch_sp.py,
-tests/test_torch_w2v_parallel.py and tests/test_torch_pp.py, of the flat
+tests/test_torch_w2v_parallel.py, tests/test_torch_scan_parallel.py and
+tests/test_torch_pp.py, of the flat
 optimizer's world of tests/test_torch_flat.py, and the
 helpers that start them (gloo on 127.0.0.1, torchrun's env or a
 TF_CONFIG).
@@ -357,14 +358,26 @@ def w2v_steps(spec, case, layout):
     rows), the loss scaled by spec["scale"]: the logged losses, the whole
     parameters after the last step, the quantizer's indices at the first,
     each rank's own replicated parameters and the step's collective
-    bytes."""
+    bytes.  A case with ``scan_layers`` runs the stacked encoder layout
+    (the spec's weights stacked; its parameters in the stacked names);
+    with the option ``grads`` it also gives the whole gradients of the
+    first step as the global clip takes them (after the model or seq
+    group's sums), unstacked, and with ``whole`` the whole checkpoint
+    (``checkpoint.whole_state_dicts``) after the last step, on rank 0."""
+    from tethys_tpu_torch.checkpoint import whole_state_dicts
+
     cfg = Wav2Vec2Config(**{**spec["configs"][case["config"]],
-                            **case.get("overrides", {})})
+                            **case.get("overrides", {}),
+                            "scan_layers": bool(case.get("scan_layers"))})
     options = dict(case.get("options", {}))
     head = options.pop("head", "pretraining")
+    want_grads = options.pop("grads", False)
+    want_whole = options.pop("whole", False)
     model = (w2v.Wav2Vec2ForCTC(cfg) if head == "asr"
              else w2v.Wav2Vec2ForPreTraining(cfg))
-    model.load_state_dict(spec["state_dicts"][case["config"]])
+    weights = spec["state_dicts"][case["config"]]
+    model.load_state_dict(w2v.stack_layer_params(weights) if cfg.scan_layers
+                          else weights)
     model.train()
 
     def make(params):
@@ -391,24 +404,46 @@ def w2v_steps(spec, case, layout):
                               layout=layout, **options)
     data, data_rank = (1, 0) if layout is None else (layout.data,
                                                      layout.data_rank)
+    first, real_clip = {}, dp.clip_by_global_norm
+
+    def snapshot(grads, *args):
+        if not first:
+            named = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+            if layout is not None and layout.axis == "model":
+                named = tp.gather_named(named, model, layout)
+            first.update(w2v.unstack_layer_params(named))
+        return real_clip(grads, *args)
+
+    if want_grads:
+        dp.clip_by_global_norm = snapshot
     losses = []
-    for i, batch in enumerate(spec["batches"][case["batches"]]):
-        rows = len(batch[0]) // data
-        mine = tuple(a[data_rank * rows:(data_rank + 1) * rows]
-                     for a in batch)
-        state, loss = step(state, mine,
-                           dp.step_generator(spec["seed"], i, data_rank))
-        losses.append(loss.item())
+    try:
+        for i, batch in enumerate(spec["batches"][case["batches"]]):
+            rows = len(batch[0]) // data
+            mine = tuple(a[data_rank * rows:(data_rank + 1) * rows]
+                         for a in batch)
+            state, loss = step(state, mine,
+                               dp.step_generator(spec["seed"], i, data_rank))
+            losses.append(loss.item())
+    finally:
+        dp.clip_by_global_norm = real_clip
     sizes = getattr(model, "_tp_full_sizes", {})
-    return {"losses": losses,
-            "params": (_whole(state) if layout is not None else
-                       {k: v.detach().clone()
-                        for k, v in model.state_dict().items()}),
-            "indices": indices[0] if indices else None,
-            "replicated": {n: p.detach().clone()
-                           for n, p in model.named_parameters()
-                           if n not in sizes},
-            "collective_bytes": dict(step.collective_bytes)}
+    out = {"losses": losses,
+           "params": (_whole(state) if layout is not None else
+                      {k: v.detach().clone()
+                       for k, v in model.state_dict().items()}),
+           "indices": indices[0] if indices else None,
+           "replicated": {n: p.detach().clone()
+                          for n, p in model.named_parameters()
+                          if n not in sizes},
+           "collective_bytes": dict(step.collective_bytes)}
+    if want_grads:
+        out["grads"] = first
+    if want_whole:
+        out["whole"] = whole_state_dicts(state)
+    return out
 
 
 def clip_shards(layout) -> dict:

@@ -13,6 +13,10 @@ its scale); a gradient that is zero but for rounding is held below 1e-6
 of the largest on both sides, as tests/test_torch_wav2vec2.py holds it.
 """
 
+import copy
+import functools
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +28,6 @@ from tethys_tpu.models import wav2vec2 as jax_w2v
 from tethys_tpu.parallel import tp as jax_tp
 from tethys_tpu.train.jobs import _init_wav2vec2
 from tethys_tpu_torch import convert
-from tethys_tpu_torch.configs import Wav2Vec2Config
 from tethys_tpu_torch.models import wav2vec2 as w2v
 from tethys_tpu_torch.ops import sharding
 from tethys_tpu_torch.parallel import dp, mesh, tp
@@ -222,27 +225,200 @@ def _nest(keys, value):
     return tree
 
 
-def test_tp_and_sp_refuse_the_stacked_layout(monkeypatch):
-    """No JAX entry point runs a scanned model under TP or SP: shard_model,
-    the encoder under a seq group and make_wav2vec2_job refuse it by name."""
+class _ThreadGroup:
+    """A group of ``n`` ranks in one process, each a thread: the
+    all_gather and SUM all_reduce that ops/sharding.py hands to
+    torch.distributed, met at a barrier (no process group, no gloo)."""
+
+    def __init__(self, n: int):
+        self.n, self.slots = n, [None] * n
+        self.barrier = threading.Barrier(n, timeout=60)
+        self.local = threading.local()
+
+    def _meet(self, t):
+        self.slots[self.local.rank] = t.clone()
+        self.barrier.wait()
+        every = list(self.slots)
+        self.barrier.wait()
+        return every
+
+    def all_gather(self, parts, t, group=None):
+        for part, piece in zip(parts, self._meet(t)):
+            part.copy_(piece)
+
+    def all_reduce(self, t, op=None, group=None):
+        every = self._meet(t)
+        t.copy_(functools.reduce(torch.add, every))
+
+    def run(self, fn):
+        """fn(rank) on every rank at once; the results in rank order."""
+        out, errors = [None] * self.n, []
+
+        def body(rank):
+            self.local.rank = rank
+            try:
+                out[rank] = fn(rank)
+            except BaseException as exc:     # noqa: BLE001
+                errors.append(exc)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+@pytest.fixture
+def thread_group(monkeypatch):
+    group = _ThreadGroup(2)
+    monkeypatch.setattr(torch.distributed, "all_gather", group.all_gather)
+    monkeypatch.setattr(torch.distributed, "all_reduce", group.all_reduce)
+    monkeypatch.setattr(sharding, "_note", lambda *args, **kwargs: None)
+    return group
+
+
+def _tp_layout(rank: int) -> mesh.Layout:
+    return mesh.Layout(axis="model", data=1, inner=2, data_rank=0,
+                       inner_rank=rank)
+
+
+def test_tp_and_sp_take_the_stacked_layout(monkeypatch, thread_group):
+    """shard_model, the encoder under a seq group and make_wav2vec2_job
+    take the stacked layout, on two ranks met as threads: each stacked
+    leaf holds its rank's slice on JAX's dim, the layer body's attention
+    and feed-forward the group, and the sharded pretraining forward (rates
+    0) and the encoder under seq rules give the unsharded scanned model's
+    outputs (1e-5, the encoder tests' tolerance)."""
     from tethys_tpu_torch.train import jobs
 
-    cfg = Wav2Vec2Config(**{**_configs()[1].__dict__, "scan_layers": True})
-    model = w2v.Wav2Vec2ForPreTraining(cfg)
-    layout = mesh.Layout(axis="model", data=1, inner=2, data_rank=0,
-                         inner_rank=0, data_group=None, inner_group=None)
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        tp.shard_model(model, layout)
-    seq = sharding.Shard(None, 2, 0)
-    with sharding.seq_axis_rules(seq), pytest.raises(
-            NotImplementedError, match="scan_layers"):
-        model.wav2vec2.encoder(torch.zeros(1, 8, cfg.hidden_size))
+    _, cfg = _configs(scan_layers=True)
+    tiny = {k: v for k, v in cfg.__dict__.items()
+            if k not in ("model_size", "scan_layers")}
+    whole, _ = w2v.create_full_model("pretraining", "tiny", device="cpu",
+                                     seed=3, **{**tiny, "scan_layers": True})
+    whole.train()
+    audio = _t(_audio())
+    with torch.no_grad():
+        want = whole(audio, generator=torch.Generator().manual_seed(0))
+    state = whole.state_dict()
+
+    def tp_rank(rank):
+        layout = _tp_layout(rank)
+        model, _ = w2v.create_full_model("pretraining", "tiny", device="cpu",
+                                         seed=3, **{**tiny,
+                                                    "scan_layers": True})
+        tp.shard_model(model.train(), layout)
+        body = model.wav2vec2.encoder.layers
+        assert body.attention.tp == body.feed_forward.tp == sharding.Shard(
+            None, 2, rank)
+        mine = tp.shard_params(state, layout)
+        for name, p in model.state_dict().items():
+            assert torch.equal(p, mine[name]), name
+        with torch.no_grad():
+            return model(audio, generator=torch.Generator().manual_seed(0))
+
+    for got in thread_group.run(tp_rank):
+        for key in ("projected_states", "projected_quantized_features"):
+            _close(got[key], want[key], atol=1e-5, msg=key)
+        assert torch.equal(got["codevector_indices"],
+                           want["codevector_indices"])
+    q = "wav2vec2.encoder.layers.attention.q_proj.weight"
+    encoder = whole.wav2vec2.encoder.eval()
+    hidden = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 21, cfg.hidden_size)).astype(np.float32))
+    with torch.no_grad():
+        want_h = encoder(hidden)["last_hidden_state"]
+
+    copies = [copy.deepcopy(encoder) for _ in range(2)]   # one a rank
+
+    def sp_rank(rank):
+        with sharding.seq_axis_rules(sharding.Shard(None, 2, rank)), \
+                torch.no_grad():
+            return copies[rank](hidden)["last_hidden_state"]
+
+    for got in thread_group.run(sp_rank):
+        _close(got, want_h, atol=1e-5)
+
     for axis in ("model", "seq"):
         monkeypatch.setattr(jobs, "parallel_layout",
-                            lambda *a: layout._replace(axis=axis))
-        with pytest.raises(ValueError, match="scan_layers"):
-            jobs.make_wav2vec2_job("pretraining", "tiny", 1,
-                                   scan_layers=True, device="cpu")
+                            lambda *a, axis=axis: _tp_layout(0)._replace(
+                                axis=axis))
+        job = jobs.make_wav2vec2_job("pretraining", "tiny", 1,
+                                     scan_layers=True, device="cpu")
+        model = job.state.model
+        assert model.config.scan_layers and job.state.layout.axis == axis
+        size = model.config.hidden_size
+        assert model.state_dict()[q].shape == (
+            model.config.num_hidden_layers,
+            size // 2 if axis == "model" else size, size)
+
+
+def test_scanned_tp_checkpoint_gathers_and_shards(thread_group):
+    """Whole checkpoints of a scanned model over a model group of 2
+    (ranks met as threads): ``gather_params`` is the one-process scanned
+    state dict, ``shard_params`` of it each rank's own shards, its flax
+    tree JAX's ``stack_layer_params`` tree bit for bit, and back; Adam's
+    moments
+    gathered whole (``gather_optimizer_state``) and cut back
+    (``shard_optimizer_state``) likewise."""
+    _, params, cfg = _jax_stacked()
+    one = _port_scanned(params, cfg)
+    gen = torch.Generator().manual_seed(7)
+    moments = {n: (torch.randn(p.shape, generator=gen),
+                   torch.rand(p.shape, generator=gen))
+               for n, p in one.named_parameters() if p.requires_grad}
+
+    def rank_of(rank):
+        layout = _tp_layout(rank)
+        model = tp.shard_model(_port_scanned(params, cfg), layout)
+        local = {n: p.detach().clone() for n, p in model.state_dict().items()}
+        opt = dp.wav2vec2_optimizer(model.parameters())
+        mine = {n: tp.shard_params({n: m}, layout)[n]
+                for n, (m, _) in moments.items()}
+        mine_v = {n: tp.shard_params({n: v}, layout)[n]
+                  for n, (_, v) in moments.items()}
+        for n, p in model.named_parameters():
+            if n in moments:
+                opt.state[p] = {"step": 1, "m": mine[n], "v": mine_v[n]}
+        whole_opt = tp.gather_optimizer_state(opt, model, layout)
+        return (local, tp.gather_params(model, layout), whole_opt,
+                tp.shard_optimizer_state(whole_opt, opt, model, layout),
+                opt.state_dict())
+
+    names = [n for n, _ in one.named_parameters()]   # the state's indices
+    stacked_seen = 0
+    for rank, (local, whole, whole_opt, cut, own) in enumerate(
+            thread_group.run(rank_of)):
+        assert list(whole) == list(one.state_dict())
+        for name, value in one.state_dict().items():
+            assert torch.equal(whole[name], value), name
+        again = tp.shard_params(whole, _tp_layout(rank))
+        for name, value in local.items():
+            assert torch.equal(again[name], value), name
+            if convert.stacked(name.split(".")) and tp.shard_dim(
+                    name, value.dim()) is not None:
+                stacked_seen += 1
+                assert value.shape[0] == cfg.num_hidden_layers
+        tree = convert.flax_from_state_dict(whole)
+        jax.tree_util.tree_map(np.testing.assert_array_equal, tree,
+                               jax.tree_util.tree_map(np.asarray, params))
+        back = convert.params_from_flax(tree)
+        assert list(back) == list(whole)
+        for name, value in whole.items():
+            assert torch.equal(back[name], value), name
+        for idx, state in whole_opt["state"].items():
+            name = names[int(idx)]
+            assert torch.equal(state["m"], moments[name][0]), name
+            assert torch.equal(state["v"], moments[name][1]), name
+            for key in ("m", "v"):
+                assert torch.equal(cut["state"][idx][key],
+                                   own["state"][idx][key]), name
+    assert stacked_seen == 2 * 10
 
 
 def test_hardened_step_scanned_matches_unrolled():

@@ -63,6 +63,12 @@ the heads run whole.  Each head declares the encoder as its
 columns or heads of the unsharded tensor (ops/dropout.Window,
 ops/attention.ProbsWindow), so a sharded step drops what the unsharded one
 drops.
+
+Both hold on the stacked ``scan_layers`` layout: the one layer body holds
+the [L, ...] stacks of its shards (the stack dim never split) and the
+group, and runs layer i on slice i of each stacked shard; under a seq
+group the rows are split before the loop and checked after each layer
+(JAX's scan body re-pins the seq axis at every step).
 """
 
 from __future__ import annotations
@@ -351,10 +357,6 @@ class Wav2Vec2Encoder(nn.Module):
         rules = sharding.current_seq_rules()
         seq = None if rules is None else sharding.SeqShard(rules, x.shape[1])
         if seq is not None:
-            if self.config.scan_layers:
-                raise NotImplementedError(
-                    "sequence parallelism on the stacked scan_layers layout "
-                    "is not ported (ROADMAP.md, queue 1)")
             x = seq.split(x)
         outputs = []
         for layer in self._layer_bodies():

@@ -142,7 +142,10 @@ class ShardNorms:
     """The squared L2 norms of whole variables from a model group's
     gradients: a sharded gradient's squares summed over the group (one
     SUM all-reduce of a vector of them), a replicated one's counted once.
-    ``sharded``: the ids of the sharded gradients' tensors."""
+    ``sharded``: the ids of the sharded gradients' tensors.  A stacked
+    ``scan_layers`` leaf's gradient is one [L, ...] tensor (the stack of
+    its layer slices'), so its norm is the whole stacked variable's, as
+    JAX's per-variable clipnorm takes the stacked leaf."""
 
     def __init__(self, shard: sharding.Shard, sharded):
         self.shard = shard

@@ -22,10 +22,12 @@ dim 0 of the torch weight):
   pretraining heads.
 
 A rank holds exactly the shard JAX's ``param_shardings`` gives its device.
-``param_shardings`` also reads Wav2Vec2's stacked ``scan_layers`` tree as
-JAX's ``_spec_for`` does (the stack dim first, never split), but
-``shard_model`` refuses a scanned model: no JAX entry point runs one
-under tensor parallelism.
+Wav2Vec2's stacked ``scan_layers`` layout is read as JAX's ``_spec_for``
+reads it: the stack dim [L] first, never split, so a stacked leaf is one
+variable whose slices are all cut on the same dim; its one layer body's
+attention and feed-forward take the group, and every function below works
+on the stacked names (a whole checkpoint holds the canonical
+``...encoder.layers.<leaf>`` [L, ...] tensors).
 A dim the group does not divide, which JAX's NamedSharding refuses (the
 vocab of whisper-large-v3, 51866, over 4), splits in chunks of
 ceil(n / tp), the last one shorter (ops/sharding.shard_range).
@@ -238,10 +240,6 @@ def shard_model(model: torch.nn.Module, layout: Layout) -> torch.nn.Module:
     identity at tp 1."""
     if layout.inner == 1:
         return model
-    if getattr(getattr(model, "config", None), "scan_layers", False):
-        raise NotImplementedError(
-            "tensor parallelism on the stacked scan_layers layout is not "
-            "ported (ROADMAP.md, queue 1)")
     if hasattr(model, "config"):
         check_divides(model.config, layout.inner)
     params = dict(model.named_parameters())

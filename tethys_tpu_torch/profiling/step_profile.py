@@ -70,6 +70,11 @@ OP_CATEGORIES = (
 )
 
 
+# The host calls that launch a kernel (one each).
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                 "cuLaunchKernelEx")
+
+
 def categorise(kernel_name: str, op_names) -> str:
     for category, keys in KERNEL_CATEGORIES:
         if any(k in kernel_name for k in keys):
@@ -182,9 +187,7 @@ def main(argv=None) -> dict:
     kernels = kernel_times(prof)
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
-    launches = sum(1 for evt in prof.events()
-                   if evt.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                                   "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    launches = sum(1 for evt in prof.events() if evt.name in LAUNCH_EVENTS)
     by_category = collections.Counter()
     launches_by_category = collections.Counter()
     by_kernel = collections.Counter()

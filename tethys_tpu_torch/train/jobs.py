@@ -42,8 +42,9 @@ The JAX bench's options (``scripts/bench``): ``flat_opt`` (both
 families) binds the parameters as views of one flat f32 master and runs
 the step on the flat vector (parallel/flat.py; no TP, SP or PP, no
 ``remat``, ``grad_accum`` 1), and Wav2Vec2's ``scan_layers`` builds the
-stacked encoder layout (one replica a rank).  No job CLI takes either, as
-none of the JAX jobs' does.
+stacked encoder layout (under data, tensor or sequence parallelism, as
+JAX's ``_spec_for`` and scanned encoder allow it).  No job CLI takes
+either, as none of the JAX jobs' does.
 
 The single-card capacity modes of the JAX jobs: ``remat`` (the whole loss
 checkpointed, parallel/dp), ``grad_accum`` (microbatches accumulated in
@@ -388,8 +389,8 @@ def make_wav2vec2_job(
     hardened step with ``wav2vec2_optimizer``, ``remat`` and
     ``grad_accum``, the synthetic dataset; over ``parallel_layout(
     tensor_parallel, seq_parallel)``.  ``scan_layers``: the stacked
-    encoder layout (one replica a rank only); ``flat_opt``: the
-    flat-buffer optimizer (module doc).  Each step (each microbatch
+    encoder layout (also under tensor or sequence parallelism);
+    ``flat_opt``: the flat-buffer optimizer (module doc).  Each step (each microbatch
     under ``grad_accum``) draws its contrastive negatives, then its dropout
     seeds, from its CPU generator.  ``profile_values``: the step returns
     (state, loss, aux),
@@ -399,10 +400,6 @@ def make_wav2vec2_job(
     jobs take no parallel flag)."""
     layout = parallel_layout(tensor_parallel, seq_parallel)
     _check_flat_opt(flat_opt, layout)
-    if scan_layers and layout.inner > 1:
-        raise ValueError("tensor and sequence parallelism on the stacked "
-                         "scan_layers layout are not ported (ROADMAP.md, "
-                         "queue 1)")
     if profile_values and layout.inner > 1:
         raise ValueError("profile_values takes one replica a rank (the "
                          "tensorsize jobs take no parallel flag)")
