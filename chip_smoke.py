@@ -262,7 +262,19 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    in place (4 x total bytes), then the loss's 4; the first loss equal to
    the per-tensor step's, the losses within 1e-5 and the parameters
    within 1e-6; both reducers timed alone; (d) the decode-floor twin's
-   whisper-base b16 row beside phase 13's ms a decode step.
+   whisper-base b16 row beside phase 13's ms a decode step;
+25. the utilities no path calls, on the card against the CPU, launching
+   none of the kernels: SpecAugment run masks from fixed seeded starts
+   (runs longer than the axis, runs of one, no starts) bit for bit;
+   apply_time_mask and apply_feature_mask with a CUDA generator on
+   wav2vec2-base's [32, 100, 768] features, f32 and bf16: whole time steps
+   and whole channels zeroed, the rest untouched, dtype and device kept,
+   one generator state one mask, and over a [512, 2000] draw the
+   interior's masked share within 4 sigma of 1 - (1 - p)^run_length;
+   SinusoidalPositionalEncoding on
+   whisper-base's [16, 1500, 512] in f32 and bf16 and
+   RelativePositionalEncoding (768 x 5000, and its gradient) bit for bit;
+   JCTTimer times the phase's checks.
 
 The last three lines of stdout are the card's name and power limit, the
 kernel table {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -4844,6 +4856,111 @@ def run_decode_floor(gpu: str) -> None:
     require(DECODE_MS, "24(d): phase 13 recorded no decode step")
 
 
+# Phase 25's shapes: wav2vec2-base's features at 2 s clips, whisper-base's
+# encoder positions.
+MASK_SHAPE = (W2V_BATCH, 100, 768)
+POSENC_SHAPE = (BENCH_BATCH, 1500, 512)
+# (B, L, prob, run_length) of the fixed-starts masks.
+MASK_CASES = ((32, 100, 0.05, 10), (32, 768, 0.2, 1), (4, 6, 0.5, 10),
+              (8, 50, 0.0, 10), (2, 1500, 0.3, 64))
+
+
+def check_masks_posenc() -> None:
+    """Phase 25's checks (see run_masks_posenc)."""
+    from tethys_tpu_torch.ops import masks, posenc
+
+    rng = np.random.default_rng(SEED)
+    for b, length, prob, run in MASK_CASES:
+        starts = torch.from_numpy(rng.random((b, length)) < prob)
+        want = masks.run_mask_from_starts(starts, run)
+        got = masks.run_mask_from_starts(starts.cuda(), run)
+        require(torch.equal(got.cpu(), want),
+                f"25: run mask ({b}, {length}, {prob}, {run}) differs from "
+                "the CPU's")
+    log(f"  25: run masks from fixed starts equal the CPU's, {MASK_CASES}")
+
+    base = rng.standard_normal(MASK_SHAPE).astype(np.float32)
+    base = torch.from_numpy(np.where(base >= 0, base + 0.5, base - 0.5))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = base.to("cuda", dtype)
+        for name, fn, prob, whole in (
+                ("apply_time_mask", masks.apply_time_mask, 0.05, 2),
+                ("apply_feature_mask", masks.apply_feature_mask, 0.1, 1)):
+            gen = torch.Generator(device="cuda")
+            out = fn(gen.manual_seed(SEED), x, mask_prob=prob)
+            again = fn(gen.manual_seed(SEED), x, mask_prob=prob)
+            require(out.dtype == dtype and out.is_cuda,
+                    f"25: {name} gave {out.dtype} on {out.device}")
+            require(torch.equal(out, again),
+                    f"25: {name}: one generator state gave two masks")
+            zero = out == 0
+            lines = zero.all(dim=whole, keepdim=True)
+            require(torch.equal(zero, lines.expand_as(zero)),
+                    f"25: {name} zeroed a part of a line")
+            require(torch.equal(out[~zero], x[~zero]),
+                    f"25: {name} changed an unmasked value")
+            log(f"  25: {name} {str(dtype)[6:]} masked share "
+                f"{lines.float().mean().item():.4f}")
+        require(torch.equal(masks.apply_feature_mask(
+            torch.Generator(device="cuda"), x), x),
+            "25: apply_feature_mask at its default 0.0 changed its input")
+
+    # The CUDA generator's starts over a large draw: the interior's masked
+    # share within 4 sigma of 1 - (1 - p)^run (neighbours closer than run
+    # share starts: covariance a (1 - p)^d - a^2 at distance d, a = 1 - want).
+    rows, length, prob, run = 512, 2000, 0.05, 10
+    mask = masks._run_mask(torch.Generator(device="cuda").manual_seed(SEED),
+                           rows, length, prob, run, "cuda")
+    share = mask[:, run - 1:].double().mean().item()
+    a, n = (1 - prob) ** run, length - run + 1
+    var = n * a * (1 - a) + sum(2 * (n - d) * (a * (1 - prob) ** d - a * a)
+                                for d in range(1, run))
+    sigma = (rows * var) ** 0.5 / (rows * n)
+    log(f"  25: CUDA generator, [{rows}, {length}] p {prob} run {run}: "
+        f"interior masked share {share:.5f}, want {1 - a:.5f} +- {sigma:.5f}")
+    require(abs(share - (1 - a)) < 4 * sigma,
+            f"25: masked share {share} off {1 - a} by more than 4 sigma")
+
+    x = torch.from_numpy(rng.standard_normal(POSENC_SHAPE).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        enc = posenc.SinusoidalPositionalEncoding(POSENC_SHAPE[2], dtype=dtype)
+        want = enc(x.to(dtype))
+        got = enc.cuda()(x.to("cuda", dtype))
+        require(got.dtype == dtype and torch.equal(got.cpu(), want),
+                f"25: SinusoidalPositionalEncoding {dtype} differs from the "
+                f"CPU's by {max_err(got.cpu(), want):.3e}")
+    rel = posenc.RelativePositionalEncoding(MASK_SHAPE[2])
+    length = MASK_SHAPE[1]
+    want = rel(length).detach()
+    rel.cuda()
+    got = rel(length)
+    got.sum().backward()
+    grad = torch.zeros_like(rel.pos_embedding)
+    grad[:length] = 1
+    require(torch.equal(got.detach().cpu(), want)
+            and torch.equal(rel.pos_embedding.grad, grad),
+            "25: RelativePositionalEncoding or its gradient differs")
+    log("  25: SinusoidalPositionalEncoding f32 and bf16 at "
+        f"{list(POSENC_SHAPE)} and RelativePositionalEncoding "
+        f"[{length}, {MASK_SHAPE[2]}] equal the CPU's")
+
+
+def run_masks_posenc() -> None:
+    """Phase 25: the masks, the positional encodings and JCTTimer on the
+    card; no kernel launches."""
+    from tethys_tpu_torch.utils import kernel_lib
+    from tethys_tpu_torch.utils.artifacts import JCTTimer
+
+    kernel_lib.reset_launch_counts()
+    with JCTTimer() as timer:
+        check_masks_posenc()
+        torch.cuda.synchronize()
+    launched = {k: n for k, n in kernel_lib.launch_counts().items() if n}
+    require(not launched, f"25: kernels launched: {launched}")
+    require(timer.jct > 0, f"25: JCTTimer read {timer.jct}")
+    log(f"  25: JCTTimer {timer.jct:.3f} s over the checks")
+
+
 # Seconds each phase took, by its tag ("3", "18a", "22c, e").
 PHASE_SECONDS: dict = {}
 
@@ -5035,6 +5152,9 @@ def main() -> int:
         ("[24c] the flat step in an nccl world of one: one all-reduce",
          run_flat_nccl),
         ("[24d] the decode floor beside phase 13", run_decode_floor, gpu)))
+    log("[25] the SpecAugment masks, the positional encodings and JCTTimer "
+        "on the card against the CPU")
+    timed_phase("[25]", run_masks_posenc)
     log(f"  21-23: the collectives of their processes (rank 0 of each TP "
         f"and SP world, both ranks of the PP world, every rank of each CLI) "
         f"by backend, device and op: {PAR_TRANSPORTS}")

@@ -105,13 +105,19 @@ def _float64_attention(q, k, v, kv_len):
 
 def _flash_state(o, lse, want_o, want_lse, q, k, v, kv_len) -> str:
     """What a failure of test_plain_flash_matches_pallas should name: each
-    side's largest error against float64, and the settings a test file
-    run before it in the same process could have left behind."""
+    side's largest error against float64 (o only where lse is None: the
+    whole entries return no lse), and the settings a test file run before
+    it in the same process could have left behind."""
     o64, lse64 = _float64_attention(q, k, v, kv_len)
-    return (f"largest error against float64: port o {np.abs(o - o64).max():.3e}"
-            f" lse {np.abs(lse - lse64).max():.3e}, pallas o "
-            f"{np.abs(want_o - o64).max():.3e} lse "
-            f"{np.abs(want_lse - lse64).max():.3e}; torch threads "
+
+    def errors(out, lse_out):
+        text = f"o {np.abs(np.reshape(out, o64.shape) - o64).max():.3e}"
+        if lse_out is not None:
+            text += f" lse {np.abs(lse_out - lse64).max():.3e}"
+        return text
+
+    return (f"largest error against float64: port {errors(o, lse)}, pallas "
+            f"{errors(want_o, want_lse)}; torch threads "
             f"{torch.get_num_threads()}, float32 matmul precision "
             f"{torch.get_float32_matmul_precision()!r}; jax_enable_x64 "
             f"{jax.config.jax_enable_x64}, jax_default_matmul_precision "
@@ -138,34 +144,48 @@ def test_plain_flash_matches_pallas(monkeypatch, t, kv_len):
                                err_msg=state)
     np.testing.assert_allclose(lse.numpy(), want_lse, rtol=2e-5, atol=2e-5,
                                err_msg=state)
-    full = flash_attention.flash_attention(_t(q), _t(k), _t(v), kv_len=kv_len)
+    full = flash_attention.flash_attention(_t(q), _t(k), _t(v),
+                                           kv_len=kv_len).numpy()
+    want_full = np.asarray(pa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                              jnp.asarray(v), kv_len=kv_len))
     np.testing.assert_allclose(
-        full.numpy(),
-        np.asarray(pa.flash_attention(jnp.asarray(q), jnp.asarray(k),
-                                      jnp.asarray(v), kv_len=kv_len)),
-        rtol=2e-5, atol=2e-5)
+        full, want_full, rtol=2e-5, atol=2e-5,
+        err_msg="whole entries: " + _flash_state(full, None, want_full, None,
+                                                 q, k, v, kv_len))
 
 
-@pytest.mark.parametrize("side", ["port", "pallas"])
+@pytest.mark.parametrize("side", ["port", "pallas", "port_entry",
+                                  "pallas_entry"])
 @pytest.mark.parametrize("t,kv_len", [(128, 128), (200, 200), (200, 150)])
 def test_flash_sides_match_float64(monkeypatch, side, t, kv_len):
     """Each side of test_plain_flash_matches_pallas alone against a float64
     softmax(q k^T) v on test_plain_flash_matches_pallas's inputs: o and lse
-    within 2e-6 (each reads about 3e-7 from it), so a drift past that
-    test's 2e-5 names the side it came from."""
+    of the forwards (flash_attention_fwd, _fwd4), and o of the whole
+    entries (the port's flash_attention, JAX's pa.flash_attention through
+    _flash and custom_partitioning), within 2e-6 (each reads about 3e-7
+    from it), so a drift past that test's 2e-5 in any of its three
+    assertions names the side it came from."""
     monkeypatch.setattr(pa, "_INTERPRET", True)
     q, k, v = _qkv(np.random.default_rng(1), 2, t, 64)
+    lse = None
     if side == "port":
         o, lse = (x.numpy() for x in flash_attention.flash_attention_fwd(
             _t(q[0]), _t(k[0]), _t(v[0]), kv_len))
-    else:
+    elif side == "pallas":
         o, lse = pa._fwd4(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                           jnp.zeros((1,), jnp.int32), dropout_rate=0.0,
                           kv_len=kv_len)
         o, lse = np.asarray(o)[0], np.asarray(lse)[0, :, 0]
+    elif side == "port_entry":
+        o = flash_attention.flash_attention(_t(q), _t(k), _t(v),
+                                            kv_len=kv_len).numpy()[0]
+    else:
+        o = np.asarray(pa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), kv_len=kv_len))[0]
     o64, lse64 = _float64_attention(q, k, v, kv_len)
     np.testing.assert_allclose(o, o64, rtol=0, atol=2e-6)
-    np.testing.assert_allclose(lse, lse64, rtol=0, atol=2e-6)
+    if lse is not None:
+        np.testing.assert_allclose(lse, lse64, rtol=0, atol=2e-6)
 
 
 def test_flash_dropout_not_ported():

@@ -10,8 +10,9 @@ Flax paths become module paths: ``model/encoder/layers_0/self_attn/q_proj``
 * Embed ``embedding`` [vocab, E] -> ``weight`` (same layout);
 * ``lm_head/kernel`` [E, vocab] -> ``lm_head.weight`` [vocab, E];
 * the leaves the port keeps under their flax names, as they are: GroupNorm
-  ``gamma`` and ``beta``, the quantizer's ``codevectors`` [G, V, d] and the
-  encoder's ``layer_weights`` [L].
+  ``gamma`` and ``beta``, the quantizer's ``codevectors`` [G, V, d], the
+  encoder's ``layer_weights`` [L] and RelativePositionalEncoding's
+  ``pos_embedding`` [max_length, dim].
 
 Values stay f32; ``load_state_dict`` casts them to the dtype the model
 holds (config.dtype).
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"^layers_(\d+)$")
-_NAMED = ("gamma", "beta", "codevectors", "layer_weights")
+_NAMED = ("gamma", "beta", "codevectors", "layer_weights", "pos_embedding")
 _INDEX = re.compile(r"^\d+$")
 # The port's nn.Embedding modules: their 2-D ``weight`` is flax's
 # ``embedding`` [vocab, E], kept as it is.

@@ -1,4 +1,5 @@
-"""Result-directory / JCT / model.txt contracts (tethys_tpu/utils/artifacts.py).
+"""Result-directory / JCT / model.txt contracts (tethys_tpu/utils/artifacts.py)
+and JCTTimer, which measures the JCT.
 
 The scheduler's TFJob shell writes the run name into
 ``<workspace>/model.txt`` and creates ``<result>/<name>/``; a job writes
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import os
 import subprocess
+import time
 from typing import Optional
 
 
@@ -70,3 +72,16 @@ def start_side_captures() -> None:
 network profile started!
 ========================"""
     )
+
+
+class JCTTimer:
+    """Context manager measuring job-completion time: ``.jct`` is the wall
+    seconds of the block; exceptions pass through."""
+
+    def __enter__(self):
+        self.start = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        self.jct = time.time() - self.start
+        return False
