@@ -35,7 +35,16 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    plain version, the forward and the backward beside F.group_norm and
    its autograd backward, the gn_stats launch against the occupancy it
    reports (at most one wave), two launches bitwise equal, and the
-   moments' time by cluster size;
+   moments' time by cluster size; each route of the flash kernels (FFMA
+   in f32, mma.sync and TMA + wgmma in bf16, the route forced) forward
+   and backward against the plain versions at 1500 x 1500, 100 x 1500,
+   keys padded to 1536 (kv_len 1500), 2560 x 2560, 77 x 1499 and
+   large-v3's B*H 20, rates 0 and 0.1, each call raising its route's
+   count by one, the relative limit failing the wgmma route's gradients
+   without 1/(1-r) and under another mask; and the two bf16 routes timed
+   side by side with SDPA at the forward's and the backward's rows of
+   PERF.md, the dropout rows beside the keep bits' Philox issue (SASS
+   instructions a call from scripts/flash_probe.py);
 4. serving: whisper-base in f32 (random weights from seed 0) serves 2
    requests of 30 s seeded audio on the card; the same model and inputs
    run on the CPU, where every kernel's plain version runs; greedy tokens
@@ -73,8 +82,10 @@ Phases, each of which raises on failure (the exit code is then nonzero):
    parallel: phase 22 (a, b, c, e), pipeline: phase 23, scan and flat:
    phase 24, with the launches of the processes they start)
    and read after it; every kernel of a path must have launched during it,
-   and on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
-   as often as gn_grad_sums;
+   on the wav2vec2 path gn_apply as often as gn_stats and gn_apply_bwd
+   as often as gn_grad_sums, and on the serving, training, flash bench,
+   capacity, parallel and pipeline paths the flash kernels' wgmma route
+   (launches by route in the kernels line);
 11. int8 long-audio serving: whisper-base in f32 with kv_quant="int8" and
    TETHYS_FUSED_QKV=1 (this phase only) transcribes 70 s of seeded audio
    (3 windows in a batch of 4) on the card and on the CPU; features,
@@ -362,6 +373,23 @@ PATH_KERNELS = {
                   "flash_bwd", "dropout", "gn_stats", "gn_grad_sums",
                   "gn_apply", "gn_apply_bwd"),
 }
+# The paths that must have launched the flash kernels' wgmma route (bf16,
+# every shape of the main path), and the three flash kernels.
+WGMMA_PATHS = ("serving", "training", "flash_bench", "capacity", "parallel",
+               "pipeline")
+FLASH_KERNELS = ("flash_fwd", "flash_fwd_dropout", "flash_bwd")
+# Phase 3's shapes for each flash route, (label, B*H, Tq, Tk, kv_len), D 64:
+# Whisper's 1500 frames, its cross-attention, keys padded to 1536, 2560
+# past the TPU's one-block backward, tiles that neither T fills, and
+# large-v3's 20 heads a batch row.
+FLASH_ROUTE_SHAPES = (
+    ("1500x1500", 16, 1500, 1500, 1500),
+    ("100x1500", 16, 100, 1500, 1500),
+    ("1536x1536 kv_len 1500", 16, 1536, 1536, 1500),
+    ("2560x2560", 4, 2560, 2560, 2560),
+    ("77x1499", 16, 77, 1499, 1499),
+    ("large-v3 B*H 20, 1500x1500", 20, 1500, 1500, 1500),
+)
 LONG_F32_SECONDS = 70       # 3 windows, padded to a batch of 4
 LONG_F32_STEPS = 32
 LONG_V3_SECONDS = 100       # 4 windows
@@ -1055,6 +1083,8 @@ def check_int8_kernels(record, randn) -> None:
                                                  .reshape(16, 1, 512), w, b)))
     check_fused_grads(randn)
     check_flash_bwd_long(randn)
+    check_flash_routes(randn)
+    flash_route_times(randn)
 
 
 def log_row(name: str, shape: str, ms: float, bound_ms, plain_ms=None,
@@ -1210,6 +1240,140 @@ def check_flash_bwd_long(randn) -> None:
         f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (SDPA backward); "
         f"bound of the TPU's dq kernel {dq_bound[0]:.4f} ms ({dq_bound[1]}), "
         f"of its dk/dv kernel {dkv_bound[0]:.4f} ms ({dkv_bound[1]})")
+
+
+def check_flash_routes(randn) -> None:
+    """Phase 3: each route of the flash kernels (FFMA in f32; mma.sync and
+    TMA + wgmma in bf16) forward and backward against the plain versions
+    at FLASH_ROUTE_SHAPES, rates 0 and 0.1, with the tolerances of the
+    checks above (f32 1e-4; bf16 o 2e-2, grads 3e-2, and BF16_REL_LIMIT;
+    lse 1e-4); each call raises its route's count by one.  On the wgmma
+    route the relative limit must still fail the gradients without their
+    1/(1-r) and those of another mask."""
+    from tethys_tpu_torch.ops import flash_attention as fa
+    from tethys_tpu_torch.utils import kernel_lib
+
+    seed, bf16 = 2468, torch.bfloat16
+    for label, bh, tq, tk, kv_len in FLASH_ROUTE_SHAPES:
+        for route, dtype, tol_o, tol in (("ffma", torch.float32, 1e-4, 1e-4),
+                                         ("mma", bf16, 2e-2, 3e-2),
+                                         ("wgmma", bf16, 2e-2, 3e-2)):
+            for rate in (0.0, DROPOUT_RATE):
+                q = randn(bh, tq, 64, dtype=dtype, scale=64 ** -0.5)
+                k, v = (randn(bh, tk, 64, dtype=dtype) for _ in range(2))
+                do = randn(bh, tq, 64, dtype=dtype)
+                fwd = (kernel_lib.FLASH_FWD_DROPOUT if rate
+                       else kernel_lib.FLASH_FWD)
+                before = (fwd.routes[route], kernel_lib.FLASH_BWD.routes[route])
+                o, lse = fa.flash_fwd_cuda(q, k, v, kv_len, rate, seed,
+                                           route=route)
+                o_ref, lse_ref = fa.plain_flash_fwd(q, k, v, kv_len, rate,
+                                                    seed)
+                got = fa.flash_bwd_cuda(q, k, v, o_ref, lse_ref, do, kv_len,
+                                        rate, seed, route=route)
+                want = fa.plain_flash_bwd(q, k, v, o_ref, lse_ref, do, kv_len,
+                                          rate, seed)
+                errs = {"o": max_err(o, o_ref), "lse": max_err(lse, lse_ref)}
+                errs.update((n, max_err(a, b)) for n, a, b in
+                            zip(("dq", "dk", "dv"), got, want))
+                rels = ({n: rel_err(a, b) for n, a, b in
+                         zip(("o", "dq", "dk", "dv"), (o, *got),
+                             (o_ref, *want))} if dtype == bf16 else {})
+                name = f"flash {route} {label} rate {rate}"
+                log(f"  {name}: max_abs_err " + ", ".join(
+                    f"{n} {e:.2e}" for n, e in errs.items())
+                    + ("; / max|ref| " + ", ".join(
+                        f"{n} {r:.2e}" for n, r in rels.items())
+                       if rels else ""))
+                require(errs["o"] <= tol_o and errs["lse"] <= 1e-4
+                        and max(errs[n] for n in ("dq", "dk", "dv")) <= tol
+                        and all(r <= BF16_REL_LIMIT for r in rels.values()),
+                        f"{name}: beyond tolerance {errs} {rels}")
+                require((fwd.routes[route], kernel_lib.FLASH_BWD.routes[route])
+                        == (before[0] + 1, before[1] + 1),
+                        f"{name}: the route's counts did not rise by one")
+                if route == "wgmma" and rate and label == "1500x1500":
+                    other = fa.flash_bwd_cuda(q, k, v, o_ref, lse_ref, do,
+                                              kv_len, rate, seed + 1,
+                                              route=route)
+                    for n, a, b, w in zip(("dq", "dk", "dv"), got, other,
+                                          want):
+                        for fault, wrong in (("without 1/(1-r)",
+                                              a.float() * (1 - rate)),
+                                             ("with another mask", b)):
+                            r = rel_err(wrong, w)
+                            log(f"  flash_bwd wgmma {n} {fault}: max_abs_err "
+                                f"/ max|ref| {r:.3e} (must exceed "
+                                f"{BF16_REL_LIMIT:g})")
+                            require(r > BF16_REL_LIMIT, "the relative limit "
+                                    f"does not see wgmma's {n} {fault}")
+
+
+def flash_route_times(randn) -> None:
+    """Phase 3: the flash kernels' two bf16 routes side by side, with SDPA
+    (forward, and backward through autograd) beside them, at the rows of
+    PERF.md: whisper-base b16's encoder self-attention (B*H 32 at rate 0
+    for the forward, B*H 128 at the training rate), its cross-attention
+    (B*H 128, 100 x 1500) and B*H 16 at 2560 x 2560.  Bounds: bytes and
+    operations, and for the dropout rows the keep bits' Philox
+    instructions over the card's issue rate (instructions per call from
+    the built kernels' SASS, scripts/flash_probe.py)."""
+    from tethys_tpu_torch.ops import flash_attention as fa
+    from tethys_tpu_torch.scripts import flash_probe
+    from tethys_tpu_torch.utils import kernel_lib
+
+    card = flash_probe.card()
+    per_call = {}
+    for row in flash_probe.sass_rows(str(kernel_lib.build())):
+        for kind in ("fwd", "bwd"):
+            if f"flash_{kind}_wgmma_kernelILi64ELb1E" in row["function"]:
+                per_call[kind] = row.get("per_philox_call")
+    log(f"  Philox4x32-10 calls of the wgmma kernels' keep bits: "
+        f"{per_call} SASS instructions a call; {card['sms']} SMs, top clock "
+        f"{card['max_sm_clock_mhz']:.0f} MHz")
+    issue_rate = 4 * card["sms"] * card["max_sm_clock_mhz"] * 1e3  # /ms
+    seed = 1357
+    for kind, bh, tq, tk, rate in (("fwd", 32, 1500, 1500, 0.0),
+                                   ("fwd", 128, 1500, 1500, DROPOUT_RATE),
+                                   ("bwd", 128, 1500, 1500, DROPOUT_RATE),
+                                   ("fwd", 16, 2560, 2560, 0.0),
+                                   ("bwd", 16, 2560, 2560, 0.0),
+                                   ("fwd", 128, 100, 1500, DROPOUT_RATE),
+                                   ("bwd", 128, 100, 1500, DROPOUT_RATE)):
+        q = randn(bh, tq, 64, dtype=torch.bfloat16, scale=64 ** -0.5)
+        k, v = (randn(bh, tk, 64, dtype=torch.bfloat16) for _ in range(2))
+        do = randn(bh, tq, 64, dtype=torch.bfloat16)
+        o, lse = fa.flash_fwd_cuda(q, k, v, tk, rate, seed)
+        io = 2 * bh * tq * 64
+        if kind == "fwd":
+            ms = {r: event_ms(lambda: fa.flash_fwd_cuda(q, k, v, tk, rate,
+                                                        seed, route=r))
+                  for r in ("wgmma", "mma")}
+            lib = event_ms(lambda: sdpa(q, k, v, rate))
+            work = (2 * io + 4 * bh * tk * 64 + bh * tq * 4,
+                    4 * bh * tq * tk * 64)
+        else:
+            ms = {r: event_ms(lambda: fa.flash_bwd_cuda(
+                q, k, v, o, lse, do, tk, rate, seed, route=r))
+                  for r in ("wgmma", "mma")}
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            o_lib = sdpa(*leaves, rate)
+            lib = event_ms(lambda: torch.autograd.grad(o_lib, leaves, do,
+                                                       retain_graph=True))
+            del leaves, o_lib
+            work = (4 * io + 4 * bh * tk * 64 + bh * tq * 4,
+                    10 * bh * tq * tk * 64)
+        bound_ms = bound(*work, "bf16")
+        extra = ""
+        if rate and per_call.get(kind):
+            calls = bh * tq * tk / 4
+            issue_ms = calls * per_call[kind] / 32 / issue_rate
+            extra = (f"; keep bits' issue {issue_ms:.4f} ms ({calls:.0f} "
+                     f"Philox calls)")
+        log(f"  flash_{kind} B*H {bh}, {tq}x{tk}, rate {rate}: wgmma "
+            f"{ms['wgmma']:.4f} ms, mma {ms['mma']:.4f} ms, SDPA {lib:.4f} "
+            f"ms; bound {bound_ms[0]:.4f} ms ({bound_ms[1]}){extra}")
+        del q, k, v, do, o, lse
 
 
 def sdpa(q, k, v, rate: float = 0.0):
@@ -1584,8 +1748,7 @@ def counts_around(fn) -> dict:
     fn()
     torch.cuda.synchronize()
     counts = kernel_lib.launch_counts()
-    for k in kernel_lib.KERNELS:
-        k.launches = saved[k.name] + counts[k.name]
+    kernel_lib.set_launch_counts({k: saved[k] + n for k, n in counts.items()})
     return counts
 
 
@@ -4995,6 +5158,12 @@ def drive_path(name: str, phases, child_counts: dict = None) -> dict:
     log(f"  launches during the {name} path: {counts}")
     missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
     require(not missing, f"{name}: kernels never launched: {missing}")
+    if name in WGMMA_PATHS:
+        routes = {k: {r: counts[f"{k}.{r}"] for r in kernel_lib.FLASH_ROUTES}
+                  for k in FLASH_KERNELS}
+        log(f"  flash launches by route during the {name} path: {routes}")
+        require(sum(r["wgmma"] for r in routes.values()) > 0,
+                f"{name}: the flash kernels never took the wgmma route")
     return counts
 
 
@@ -5166,7 +5335,7 @@ def main() -> int:
               + data_parallel[k] + tensorsize[k] + capacity[k] + parallel[k]
               + w2v_parallel[k] + pipeline[k] + scan_flat[k] for k in serving}
     log(f"[10] launches on the paths: {counts}")
-    missing = [name for name, n in counts.items() if n == 0]
+    missing = [k.name for k in kernel_lib.KERNELS if counts[k.name] == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")
 
     slowest = sorted(PHASE_SECONDS.items(), key=lambda kv: -kv[1])[:5]
@@ -5177,7 +5346,9 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": counts[k.name],
-         **results[k.name]} for k in kernel_lib.KERNELS]}))
+         **results[k.name],
+         **({"routes": {r: counts[f"{k.name}.{r}"] for r in k.routes}}
+            if k.routes else {})} for k in kernel_lib.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -595,6 +595,9 @@ def test_flash_kernels_misaligned_base(cuda, rate, dtype, tol_o, atol, rtol,
     q = view((3, tq, d), 1, d ** -0.5)
     k, v = view((3, tk, d), 2), view((3, tk, d), 3)
     do = view((3, tq, d), 4)
+    route = "mma" if dtype == torch.bfloat16 else "ffma"
+    fwd = kernel_lib.FLASH_FWD_DROPOUT if rate else kernel_lib.FLASH_FWD
+    before = (fwd.routes[route], kernel_lib.FLASH_BWD.routes[route])
     o, lse = flash_attention.flash_attention_fwd(q, k, v, kv_len, rate, 5)
     o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, kv_len, rate, 5)
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol_o)
@@ -608,6 +611,75 @@ def test_flash_kernels_misaligned_base(cuda, rate, dtype, tol_o, atol, rtol,
         torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
                                    atol=atol, msg=name)
         _assert_rel(a, b, name)
+    # Misaligned bases take mma.sync in bf16 (FFMA in f32), not wgmma.
+    assert (fwd.routes[route], kernel_lib.FLASH_BWD.routes[route]) == (
+        before[0] + 1, before[1] + 1)
+
+
+# The wgmma route (bf16, D % 16 == 0, aligned) at the main path's shapes and
+# its ragged edges: Whisper's 1500 frames, its cross-attention (100 x 1500),
+# keys padded to 1536, 2560 past the TPU's one-block backward, tiles that
+# neither T fills (77 x 1499), Tq 16, kv_len under one 128-key tile, and
+# large-v3's 20 heads a batch row.  Tolerances as the tests above.
+WGMMA_SHAPES = [(3, 1500, 1500, 1500), (3, 100, 1500, 1500),
+                (2, 1536, 1536, 1500), (2, 2560, 2560, 2560),
+                (3, 77, 1499, 1499), (3, 16, 300, 300), (3, 200, 300, 100),
+                (20, 130, 257, 250)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bh,tq,tk,kv_len", WGMMA_SHAPES)
+def test_flash_wgmma_route_matches_plain(cuda, rate, d, bh, tq, tk, kv_len):
+    """Forward and backward on the wgmma route against the plain versions;
+    each call raises its kernel's wgmma count by one and nothing else."""
+    assert flash_attention.flash_route(torch.bfloat16, d, True) == "wgmma"
+    q = _randn(cuda, bh, tq, d, dtype=torch.bfloat16, scale=d ** -0.5, seed=1)
+    k = _randn(cuda, bh, tk, d, dtype=torch.bfloat16, seed=2)
+    v = _randn(cuda, bh, tk, d, dtype=torch.bfloat16, seed=3)
+    do = _randn(cuda, bh, tq, d, dtype=torch.bfloat16, seed=4)
+    fwd = kernel_lib.FLASH_FWD_DROPOUT if rate else kernel_lib.FLASH_FWD
+    counts = kernel_lib.launch_counts()
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, kv_len, rate, 11)
+    o_ref, lse_ref = flash_attention.plain_flash_fwd(q, k, v, kv_len, rate, 11)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    _assert_rel(o, o_ref, "o")
+    got = flash_attention.flash_attention_bwd(q, k, v, o_ref, lse_ref, do,
+                                              kv_len, rate, 11)
+    want = flash_attention.plain_flash_bwd(q, k, v, o_ref, lse_ref, do,
+                                           kv_len, rate, 11)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                   atol=3e-2, msg=name)
+        _assert_rel(a, b, name)
+    assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+    raised = {k: n - counts[k] for k, n in kernel_lib.launch_counts().items()
+              if n != counts[k]}
+    assert raised == {fwd.name: 1, f"{fwd.name}.wgmma": 1, "flash_bwd": 1,
+                      "flash_bwd.wgmma": 1}
+
+
+@pytest.mark.parametrize("bh,tq,tk", [(5, 64, 64), (3, 200, 64)])
+def test_flash_wgmma_forward_and_backward_draw_one_mask(cuda, bh, tq, tk):
+    """q = 0 makes every probability 1 / Tk; with v = I (D = Tk = 64) the
+    forward's o is the keep mask over Tk (1 - r), and with do = I on each
+    64-row block the backward's dv is its transpose: both kernels drop
+    exactly the elements of ops/dropout.keep_mask at the same seed."""
+    rate, seed = 0.5, 17
+    eye = torch.eye(64, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(bh, tq, 64, device=cuda, dtype=torch.bfloat16)
+    k = _randn(cuda, bh, tk, 64, dtype=torch.bfloat16, seed=2)
+    v = eye.expand(bh, tk, 64).contiguous()
+    keep = dropout.keep_mask(seed, (bh, tq, tk), rate, cuda)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, tk, rate, seed)
+    assert torch.equal(o != 0, keep)
+    for r0 in range(0, tq - 63, 64):
+        do = torch.zeros_like(q)
+        do[:, r0:r0 + 64] = eye
+        _, _, dv = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, tk,
+                                                       rate, seed)
+        assert torch.equal(dv.transpose(1, 2) != 0, keep[:, r0:r0 + 64])
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

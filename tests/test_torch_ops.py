@@ -22,6 +22,7 @@ from tethys_tpu.ops import pallas_decode as pd
 from tethys_tpu.ops import pallas_gn
 from tethys_tpu.ops import pallas_transpose as ptr
 from tethys_tpu.ops.activations import gelu as jax_gelu
+from tethys_tpu.ops.activations import tanh as jax_tanh
 from tethys_tpu.ops.attention import decode_attention as jax_decode_attention
 from tethys_tpu.ops.masks import causal_additive_mask as jax_causal
 from tethys_tpu.ops.posenc import sinusoidal_table as jax_sinusoidal
@@ -33,7 +34,7 @@ from tethys_tpu_torch.ops import (
     group_norm,
     transpose,
 )
-from tethys_tpu_torch.ops.activations import gelu
+from tethys_tpu_torch.ops.activations import gelu, tanh
 from tethys_tpu_torch.ops.masks import causal_additive_mask
 from tethys_tpu_torch.ops.posenc import sinusoidal_table
 from tethys_tpu_torch.utils import device, kernel_lib
@@ -451,6 +452,20 @@ def test_decode_cross_attention_matches_jax():
                                          kv_len=kv_len)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,jnp_dtype,rtol", [
+    (torch.float32, jnp.float32, 1e-6), (torch.bfloat16, jnp.bfloat16, 2 ** -7)])
+def test_tanh_matches_jax(dtype, jnp_dtype, rtol):
+    """f32: two libraries' tanh, to 1e-6; bf16: both round an f32 tanh to
+    bf16, so at most one bf16 step (2^-7 relative) apart; the dtype stays."""
+    x = np.random.default_rng(5).standard_normal((4, 33)).astype(np.float32) * 3
+    got = tanh(_t(x).to(dtype))
+    want = jax_tanh(jnp.asarray(x, dtype=jnp_dtype))
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=rtol, atol=1e-6)
 
 
 def test_small_ops_match_jax():

@@ -158,4 +158,8 @@ def test_cpu_slice_launches_no_kernel(tiny, monkeypatch):
         "log_mel": 0, "split_heads": 0, "merge_heads": 0, "flash_fwd": 0,
         "flash_fwd_dropout": 0, "flash_bwd": 0, "dropout": 0,
         "dropout_window": 0, "decode_self": 0, "gn_stats": 0, "gn_grad_sums": 0, "gn_apply": 0,
-        "gn_apply_bwd": 0, "q8_cross": 0, "proj_split": 0, "merge_proj": 0}
+        "gn_apply_bwd": 0, "q8_cross": 0, "proj_split": 0, "merge_proj": 0,
+        "flash_fwd.ffma": 0, "flash_fwd.mma": 0, "flash_fwd.wgmma": 0,
+        "flash_fwd_dropout.ffma": 0, "flash_fwd_dropout.mma": 0,
+        "flash_fwd_dropout.wgmma": 0, "flash_bwd.ffma": 0, "flash_bwd.mma": 0,
+        "flash_bwd.wgmma": 0}

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks: mbarriers, TMA tiled loads and stores,
-// the wgmma shared-memory descriptor with 128-byte swizzle, the wgmma
-// fences, and setmaxnreg.  Raw PTX (PTX ISA 8.x: "mbarrier",
+// Hopper (sm_90a) building blocks: mbarriers, TMA tiled loads, stores and
+// reduce-adds, the wgmma shared-memory descriptors with 128-byte swizzle
+// (K-major and MN-major), the wgmma fences, the products with both
+// operands in shared memory (SS) or A in registers (RS), and setmaxnreg.  Raw PTX (PTX ISA 8.x: "mbarrier",
 // "cp.async.bulk.tensor", "Asynchronous Warpgroup Level Matrix Multiply"),
 // so that a source including it builds in seconds.  Host side: tensor maps
 // through cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint so
@@ -124,6 +125,18 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       : "memory");
 }
 
+// Adds the box in shared memory into the tensor (its element type's add,
+// f32 here), clipped at its edges: a reduction in L2, no read by the SM.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -160,6 +173,19 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
          (1ull << 62);
 }
 
+// Descriptor of an MN-major bf16 tile with 128-byte swizzle: each 128-byte
+// row holds 64 consecutive M (or N) values at one k, 8-row groups (8 k) are
+// 1024 bytes apart (stride byte offset), and the next 64 M or N values
+// start `mn_stride` bytes further (leading byte offset; a TMA box of 64
+// columns per panel puts them a panel apart).  The tile is 1024-byte
+// aligned; the 16-deep k-step t starts 2048 t bytes further.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* tile,
+                                                  uint32_t mn_stride) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((mn_stride >> 4) & 0x3FFF) << 16) |
+         ((1024ull >> 4) << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -181,6 +207,122 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for the A registers of an RS product: they are read
+// asynchronously until the wait, so they stay live (and unmoved) up to it.
+template <int N>
+__device__ __forceinline__ void fence_operands_u32(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 in, f32 sums, both operands
+// in shared memory: kTA / kTB = 0 for a K-major operand (desc_sw128), 1 for
+// an MN-major one (desc_sw128_mn).  accumulate = 0 overwrites D.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTA), "n"(kTB));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the layout of
+// mma.sync's A fragment, warp w holding rows 16 w .. 16 w + 15), B in shared
+// memory, K-major (kTB = 0) or MN-major (kTB = 1).
+template <int kTB>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTB));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 in, f32 sums, both operands
+// in shared memory: kTA / kTB = 0 for a K-major operand (desc_sw128), 1 for
+// an MN-major one (desc_sw128_mn).  accumulate = 0 overwrites D.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float* d, uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTA), "n"(kTB));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the layout of
+// mma.sync's A fragment, warp w holding rows 16 w .. 16 w + 15), B in shared
+// memory, K-major (kTB = 0) or MN-major (kTB = 1).
+template <int kTB>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTB));
 }
 
 // D[64 x 256] += A[64 x 16] B[16 x 256]^T, bf16 in, f32 sums; A and B
@@ -263,6 +405,11 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrives at barrier `id` without waiting for it to complete.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- host: tensor maps ----------------------------------------------------
 
 using EncodeTiledFn = CUresult (*)(
@@ -289,23 +436,32 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims (innermost first, dims[0] contiguous),
-// strides in bytes of dims 1 .. rank - 1, read and written in boxes of
-// `box` elements with 128-byte swizzle (box[0] * 2 must be 128), zeros past
-// its edges.  0 or a cudaError_t.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box) {
+// A tensor of `type` with `rank` dims (innermost first, dims[0]
+// contiguous), strides in bytes of dims 1 .. rank - 1 (multiples of 16),
+// read and written in boxes of `box` elements with `swizzle` (128-byte
+// swizzle: box[0] times the element size must be 128), zeros past its
+// edges.  0 or a cudaError_t.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims,
+                        strides, box, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A bf16 tensor in boxes with 128-byte swizzle (box[0] must be 64).
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

@@ -8,8 +8,13 @@ On the [B*H, T, D] layout:
 * ``flash_attention_bwd`` launches csrc/flash_bwd.cu or takes
   ``plain_flash_bwd``: dq, dk, dv from q, k, v, o, lse and do, with P
   recomputed from lse and the dropout mask regenerated from the seed.
-* bf16 CUDA tensors take the kernels' tensor-core (mma.sync) versions,
-  f32 CUDA tensors their FFMA versions (exact f32 products, as the CPU).
+* On the card ``flash_route`` picks each kernel's route by shape: ``"wgmma"``
+  (bf16, D % 16 == 0, 16-byte aligned bases: TMA and wgmma, every shape
+  of the main path), ``"mma"`` (the other bf16 shapes: mma.sync) and
+  ``"ffma"`` (f32: exact f32 products, as the CPU).  A route that fails
+  raises; nothing falls back to another route or to the plain version.
+  The kernels count their launches per route (``route_launches``), and
+  ``TETHYS_FLASH_ROUTE`` (read at each call) forces one route for an A/B.
 * ``flash_fwd`` is the dispatcher op ``tethys::flash_fwd`` over both, with
   flash_attention_bwd as its autograd formula (the JAX ``_flash``
   custom_vjp); it saves q, k, v, o, lse and the seed.
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import os
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -44,6 +50,40 @@ from tethys_tpu_torch.utils.device import check_kernel_inputs, cpu_or_raise
 
 MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
+# Route codes of csrc/flash_fwd.cu and csrc/flash_bwd.cu (enum Route).
+ROUTES = kernel_lib.FLASH_ROUTES
+_KERNELS = (kernel_lib.FLASH_FWD, kernel_lib.FLASH_FWD_DROPOUT,
+            kernel_lib.FLASH_BWD)
+
+
+def flash_route(dtype, d: int, aligned: bool) -> str:
+    """The route of the flash kernels for head dim ``d``: f32 takes FFMA;
+    bf16 takes TMA + wgmma where d is a multiple of 16 (wgmma's depth) and
+    every base the kernel reads by TMA is 16-byte aligned (``aligned``),
+    else mma.sync.  Raises on what no route takes: another dtype, or d
+    outside 1 .. 128."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_route: no route takes D={d}")
+    if dtype == torch.float32:
+        return "ffma"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"flash_route: no route takes {dtype}")
+    return "wgmma" if aligned and d % 16 == 0 else "mma"
+
+
+def route_launches() -> dict:
+    """{kernel: {route: launches}} of the three flash kernels."""
+    return {k.name: dict(k.routes) for k in _KERNELS}
+
+
+def _route(dtype, d: int, *tensors) -> str:
+    forced = os.environ.get("TETHYS_FLASH_ROUTE")
+    if forced:
+        if forced not in ROUTES:
+            raise ValueError(f"TETHYS_FLASH_ROUTE={forced!r}: not one of "
+                             f"{ROUTES}")
+        return forced
+    return flash_route(dtype, d, all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def supported(query, key, value, bias) -> bool:
@@ -128,11 +168,15 @@ def _check_dropout(name, dropout_rate, seed):
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   kv_len: int, dropout_rate: float = 0.0, seed: int = 0
+                   kv_len: int, dropout_rate: float = 0.0, seed: int = 0,
+                   route: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA tensors; ``route`` (default: by
+    ``flash_route``) names the route."""
     check_kernel_inputs("flash_fwd", q, k, v)
     bh, tq, tk, d = _check("flash_fwd", q, k, v, kv_len)
     _check_dropout("flash_fwd", dropout_rate, seed)
+    route = route or _route(q.dtype, d, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -142,40 +186,49 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if dropout_rate > 0.0:
             kernel_lib.FLASH_FWD_DROPOUT(
                 *args, int(seed), dropout_threshold(dropout_rate),
-                dropout_scale(dropout_rate), kernel_lib.stream_handle(q))
+                dropout_scale(dropout_rate), ROUTES.index(route),
+                kernel_lib.stream_handle(q), route=route)
         else:
-            kernel_lib.FLASH_FWD(*args, kernel_lib.stream_handle(q))
+            kernel_lib.FLASH_FWD(*args, ROUTES.index(route),
+                                 kernel_lib.stream_handle(q), route=route)
     return o, lse
 
 
 def flash_bwd_cuda(q, k, v, o, lse, do, kv_len: int,
-                   dropout_rate: float = 0.0, seed: int = 0):
+                   dropout_rate: float = 0.0, seed: int = 0,
+                   route: Optional[str] = None):
+    """The backward on CUDA tensors: one call of csrc/flash_bwd.cu, which
+    launches a pass that forms delta = rowsum(do . o) and zeroes the f32 dq
+    buffer, the route's kernel, and for bf16 the pass that rounds dq."""
     check_kernel_inputs("flash_bwd", q, k, v, o, lse, do)
     bh, tq, tk, d = _check("flash_bwd", q, k, v, kv_len)
     _check_dropout("flash_bwd", dropout_rate, seed)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, tq):
         raise ValueError(f"flash_bwd: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}, lse {tuple(lse.shape)}")
-    if do.dtype != q.dtype or lse.dtype != torch.float32:
-        raise ValueError(f"flash_bwd: do {do.dtype}, lse {lse.dtype}")
-    # delta = rowsum(do . o) stays a plain reduction, as the JAX package
-    # computes it in XLA outside the kernel.
-    delta = (do.float() * o.float()).sum(dim=-1)
-    dq_acc = torch.zeros((bh, tq, d), dtype=torch.float32, device=q.device)
+    if do.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(f"flash_bwd: do {do.dtype}, o {o.dtype}, lse "
+                         f"{lse.dtype}")
+    route = route or _route(q.dtype, d, q, k, v, do)
+    delta = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dq_acc = (dq if q.dtype == torch.float32 else
+              torch.empty((bh, tq, d), dtype=torch.float32, device=q.device))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dropout = dropout_rate > 0.0
     with torch.cuda.device(q.device):
         kernel_lib.FLASH_BWD(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dq_acc.data_ptr(), bh, tq, tk, d, int(kv_len),
-            int(q.dtype == torch.bfloat16), int(dropout), int(seed),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, tq, tk, d, int(kv_len), int(q.dtype == torch.bfloat16),
+            int(dropout), int(seed),
             dropout_threshold(dropout_rate) if dropout else 0,
             _keep_prob(dropout_rate) if dropout else 1.0,
             dropout_scale(dropout_rate) if dropout else 1.0,
-            kernel_lib.stream_handle(q))
-    return dq_acc.to(q.dtype), dk, dv
+            ROUTES.index(route), kernel_lib.stream_handle(q), route=route)
+    return dq, dk, dv
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,7 +10,10 @@ rebuilds.  A failed build, a missing ``nvcc`` or a refused launch raises.
 
 Each kernel is a :class:`Kernel`: its C symbol, the file it lives in, the
 TPU kernel it replaces and a plain integer count of its launches, which
-goes up by one each time the kernel is launched and nowhere else.
+goes up by one each time the kernel is launched and nowhere else.  A kernel
+whose source holds several routes (the flash kernels: ``FLASH_ROUTES``)
+also counts its launches per route; ``launch_counts`` reports them as
+``"<name>.<route>"`` beside the totals.
 """
 
 from __future__ import annotations
@@ -47,25 +50,40 @@ build_seconds = None
 build_log = ""
 
 
+# The flash kernels' routes, in the order of their C Route codes
+# (csrc/flash_fwd.cu, csrc/flash_bwd.cu): FFMA for f32, mma.sync and
+# TMA + wgmma for bf16 (ops/flash_attention.flash_route).
+FLASH_ROUTES = ("ffma", "mma", "wgmma")
+
+
 class Kernel:
-    """One exported C function of the library and its launch count."""
+    """One exported C function of the library and its launch count (and,
+    for a kernel with ``routes``, its launches per route)."""
 
     def __init__(self, name: str, symbol: str, argtypes, source: str,
-                 replaces: str):
+                 replaces: str, routes=()):
         self.name = name
         self.symbol = symbol
         self.argtypes = tuple(argtypes)
         self.source = source        # path in the repo
         self.replaces = replaces    # file:line of the TPU kernel
         self.launches = 0
+        self.routes = dict.fromkeys(routes, 0)
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, route=None) -> None:
+        """Launches the kernel; ``route`` names the route it took, for a
+        kernel that has routes."""
+        if (route is None) != (not self.routes):
+            raise ValueError(f"{self.name}: route {route!r}, routes "
+                             f"{tuple(self.routes)}")
         fn = getattr(library(), self.symbol)
         err = fn(*args)
         if err != 0:
             msg = library().tethys_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
         self.launches += 1
+        if route is not None:
+            self.routes[route] += 1
 
 
 LOG_MEL = Kernel(
@@ -83,25 +101,25 @@ MERGE_HEADS = Kernel(
     "tethys_tpu/ops/pallas_transpose.py:85")
 FLASH_FWD = Kernel(
     "flash_fwd", "tethys_flash_fwd",
-    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "tethys_tpu_torch/csrc/flash_fwd.cu",
-    "tethys_tpu/ops/pallas_attention.py:135")
+    "tethys_tpu/ops/pallas_attention.py:135", FLASH_ROUTES)
 # The same TPU kernel at a nonzero rate (its dropout branch, lines 155-164
 # and 192-196): the template with the mask compiled in.
 FLASH_FWD_DROPOUT = Kernel(
     "flash_fwd_dropout", "tethys_flash_fwd_dropout",
-    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _F, _P),
+    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P),
     "tethys_tpu_torch/csrc/flash_fwd.cu",
-    "tethys_tpu/ops/pallas_attention.py:135")
+    "tethys_tpu/ops/pallas_attention.py:135", FLASH_ROUTES)
 FLASH_BWD = Kernel(
     "flash_bwd", "tethys_flash_bwd",
-    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U,
-     _F, _F, _P),
+    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+     _U, _U, _F, _F, _I, _P),
     "tethys_tpu_torch/csrc/flash_bwd.cu",
     # One kernel for every Tk: the TPU's fused kernel (Tk <= 2048) and the
     # pair it takes above that.
     "tethys_tpu/ops/pallas_attention.py:380 _bwd_dkv_dq_kernel, "
-    ":259 _bwd_dq_kernel, :308 _bwd_dkv_kernel")
+    ":259 _bwd_dq_kernel, :308 _bwd_dkv_kernel", FLASH_ROUTES)
 DROPOUT = Kernel(
     "dropout", "tethys_dropout",
     (_P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _U, _U, _F, _I, _P),
@@ -176,12 +194,26 @@ KERNELS = (LOG_MEL, SPLIT_HEADS, MERGE_HEADS, FLASH_FWD, FLASH_FWD_DROPOUT,
 
 
 def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
+    """{name: launches} of every kernel, then {"<name>.<route>": launches}
+    of every kernel with routes."""
+    counts = {k.name: k.launches for k in KERNELS}
+    counts.update((f"{k.name}.{r}", n) for k in KERNELS
+                  for r, n in k.routes.items())
+    return counts
+
+
+def set_launch_counts(counts: dict) -> None:
+    """The counts of ``launch_counts``'s form back into the kernels."""
+    for k in KERNELS:
+        k.launches = counts[k.name]
+        for r in k.routes:
+            k.routes[r] = counts[f"{k.name}.{r}"]
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.routes = dict.fromkeys(k.routes, 0)
 
 
 def _nvcc() -> str:
