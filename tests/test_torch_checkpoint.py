@@ -227,7 +227,8 @@ def test_job_name_equals_the_jax_script(monkeypatch, tf_config, want):
 
 def test_jax_profile_writes_a_trace(monkeypatch, tmp_path, capsys):
     """--jax_profile DIR on a CPU job: the job runs as without it, and a
-    Chrome trace of the run is in DIR."""
+    Chrome trace of the run, with the program's spans on its timeline, and
+    the spans' own file are in DIR."""
     real = w2v.create_full_model
 
     def tiny_model(model_type, model_size, **kw):
@@ -244,12 +245,21 @@ def test_jax_profile_writes_a_trace(monkeypatch, tmp_path, capsys):
                         "--jax_profile", str(trace_dir)])
     out = capsys.readouterr().out
     assert "Training completed." in out
-    traces = os.listdir(trace_dir)
-    assert traces == [f"trace_{os.getpid()}.json"]
-    assert f"torch.profiler trace written to {trace_dir / traces[0]}" in out
-    with open(trace_dir / traces[0]) as fh:
+    traces = sorted(os.listdir(trace_dir))
+    assert traces == [f"spans_{os.getpid()}.json", f"trace_{os.getpid()}.json"]
+    assert f"torch.profiler trace written to {trace_dir / traces[1]}" in out
+    assert f"spans written to {trace_dir / traces[0]}" in out
+    with open(trace_dir / traces[1]) as fh:
         events = json.load(fh)["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    names = {str(e.get("name", "")) for e in events}
+    assert {"tethys.setup.build_job", "tethys.loop.dispatch",
+            "tethys.step.forward", "tethys.w2v2.negatives"} <= names
+    with open(trace_dir / traces[0]) as fh:
+        spans = json.load(fh)
+    assert spans["summary"]["spans"]["tethys.step.backward"]["count"] == 1
+    assert [s["step"] for s in spans["spans"]
+            if s["name"] == "tethys.loop.fetch"] == [0]
 
 
 def test_a_failing_profiler_does_not_stop_the_job(monkeypatch, capsys):

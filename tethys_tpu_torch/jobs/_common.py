@@ -2,7 +2,8 @@
 
 The reference's ``--num_batches`` and ``--batch_size``, the JAX jobs'
 ``--dtype``, ``--resume`` (restore the job's newest checkpoint) and
-``--jax_profile DIR`` (a profiler trace of the run, utils/tracing.py), and
+``--jax_profile DIR`` (a profiler trace of the run with the program's
+spans on its timeline, and the spans' own file; utils/tracing.py), and
 ``--device`` (cuda: the kernels on the process's GPU; cpu: the plain
 versions, for small runs); the CLIs with parallel flags also take
 ``--backend`` (the process group's: nccl on the card and gloo on the CPU
@@ -84,7 +85,10 @@ def add_common_flags(parser: argparse.ArgumentParser,
                         help="resume from the latest checkpoint (extension)")
     parser.add_argument(
         "--jax_profile", type=str, default=None, metavar="DIR",
-        help="write a torch.profiler trace of the training run to DIR")
+        help="write a torch.profiler trace of the training run, with the "
+             "program's spans (utils/tracing.py) on its timeline, to DIR as "
+             "trace_<pid>.json, and the spans with their summary as "
+             "spans_<pid>.json")
     for flag in refused:
         parser.add_argument(f"--{flag}", **PARALLEL[flag])
     for flag in capacity:

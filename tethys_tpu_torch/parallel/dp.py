@@ -82,6 +82,7 @@ import torch
 from tethys_tpu_torch.ops import remat as remat_lib
 from tethys_tpu_torch.ops import sharding
 from tethys_tpu_torch.parallel import mesh
+from tethys_tpu_torch.utils import tracing
 
 
 class TrainState(NamedTuple):
@@ -432,6 +433,14 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
     the last step handed to each kind of collective (the gradient reduces
     and, under a layout, the model's own).
 
+    Spans (``utils/tracing``): ``tethys.step.zero_grad``;
+    ``tethys.step.forward`` (loss_fn and the NaN scrub) and
+    ``tethys.step.backward``, each microbatch's, timed on the device too;
+    ``tethys.step.reduce`` around each reducer that runs,
+    ``tethys.step.clip`` around the hardened global clip, and
+    ``tethys.step.optimizer`` (the optimizer's step and the flat scatter,
+    on the device too).
+
     ``flat_spec`` (a ``parallel/flat.FlatSpec`` bound to the model, with
     its ``flat.*_optimizer``; JAX's ``flat_spec=``): the gradients exist
     only in the spec's flat buffer, which the step zeroes in place; the
@@ -475,18 +484,21 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                                         policy="dots_saveable")
 
     def value_and_grad(model, batch, generator):
-        loss, aux = loss_fn(model, batch, generator)
-        if hardened:
-            loss = torch.where(torch.isnan(loss), torch.zeros_like(loss),
-                               loss) / n_replicas
-        loss.backward()
+        with tracing.span("tethys.step.forward", device=True):
+            loss, aux = loss_fn(model, batch, generator)
+            if hardened:
+                loss = torch.where(torch.isnan(loss), torch.zeros_like(loss),
+                                   loss) / n_replicas
+        with tracing.span("tethys.step.backward", device=True):
+            loss.backward()
         return loss.detach(), aux
 
     def step(state: TrainState, batch, generator: torch.Generator):
-        if flat_spec is None:
-            optimizer.zero_grad(set_to_none=True)
-        else:
-            flat_spec.zero_grad()
+        with tracing.span("tethys.step.zero_grad"):
+            if flat_spec is None:
+                optimizer.zero_grad(set_to_none=True)
+            else:
+                flat_spec.zero_grad()
         before = dict(sharding.BYTES)
         with sharding.seq_axis_rules(seq):
             if grad_accum > 1:
@@ -502,7 +514,8 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
             # The row-sharded submodules' partial sums.
             prefixes = seq_sharded_prefixes(state.model)
             own = [g for n, g in named if n.startswith(prefixes)]
-            seq_reducer(own, None)
+            with tracing.span("tethys.step.reduce"):
+                seq_reducer(own, None)
         elif model_group is not None:
             # Each rank's own shards.
             sizes = getattr(state.model, "_tp_full_sizes", {})
@@ -515,11 +528,14 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                       else [g for _, g in named if id(g) not in mine])
         grads = replicated + own
         if broadcast is not None:
-            broadcast(replicated, None)
+            with tracing.span("tethys.step.reduce"):
+                broadcast(replicated, None)
         if hardened:   # per replica, before the sum
-            clip_by_global_norm(grads, 1.0, norms)
+            with tracing.span("tethys.step.clip"):
+                clip_by_global_norm(grads, 1.0, norms)
         if reducer is not None:
-            loss = reducer(grads, loss, split=len(replicated))
+            with tracing.span("tethys.step.reduce"):
+                loss = reducer(grads, loss, split=len(replicated))
         if isinstance(optimizer, KerasAdam):
             optimizer.squared_norms = norms
         moved = {kind: n - before.get(kind, 0)
@@ -538,9 +554,10 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                         name: torch.zeros_like(p) if p.grad is None
                         else p.grad
                         for name, p in state.model.named_parameters()})
-        optimizer.step()
-        if flat_spec is not None:
-            flat_spec.scatter()
+        with tracing.span("tethys.step.optimizer", device=True):
+            optimizer.step()
+            if flat_spec is not None:
+                flat_spec.scatter()
         if return_aux:
             return state, loss, aux
         return state, loss

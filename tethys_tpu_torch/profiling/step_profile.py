@@ -16,12 +16,19 @@ config's dropout; the capacity modes of the jobs' CLIs: --remat,
 --grad_accum and --master_dtype, and Whisper's --remat_layers with
 --remat_policy; the bench's --flat_opt, the flat-buffer optimizer of
 parallel/flat.py (scripts/profile_step.py's flag), and Wav2Vec2's
---scan_layers), runs warm-up steps, then:
-- times ``--steps`` steps pipelined as the loop runs them (the host fetches
-  step i-1's loss while the device runs step i), host clock, no profiler:
-  wall ms per step, and the host's ms per step spent taking and uploading
-  the batch, queueing the step, and waiting for the previous loss (near 0
-  when the host, not the device, sets the pace);
+--scan_layers), runs warm-up steps through the training loop
+(train/loop.run_training, which prints its step lines), then:
+- times ``--steps`` more steps of the loop, pipelined as it runs them (the
+  host fetches step i-1's loss while the device runs step i), host clock,
+  no profiler, with the program's recording on (utils/tracing): wall ms
+  per step; the host's ms per step inside the loop's spans
+  ``tethys.loop.input`` (taking and uploading the batch), ``.dispatch``
+  (queueing the step) and ``.fetch`` (waiting for the previous loss, near 0
+  when the host, not the device, sets the pace; the last step's fetch,
+  which waits for its whole step, left out); each span's host, self and
+  device ms per step; the device's turn from one step to the next (the
+  end of a step's ``tethys.step.optimizer`` to the start of the next
+  one's ``tethys.step.forward``, on CUDA events); the counters;
 - traces the same number of steps with ``torch.profiler`` (CPU and CUDA)
   and adds up the device time of every kernel, by the category of the
   operation that launched it: the kernel's own name for the port's kernels,
@@ -30,9 +37,10 @@ parallel/flat.py (scripts/profile_step.py's flag), and Wav2Vec2's
   counts the kernel launches a step makes, in all and by category.
 
 Prints the top kernels and one JSON line: wall and device ms per step, the
-device's idle share (1 - device / wall), ms and launches per category and
-the loss of every step in order (the same seeds for every flag, so two
-runs' losses compare).  ``--out`` also writes the JSON there.  Needs a
+host ms and spans above, the device's idle share (1 - device / wall), ms
+and launches per category and the loss of every step in order (each call
+of the loop draws from the same seeds, for every flag, so two runs' losses
+compare).  ``--out`` also writes the JSON there.  Needs a
 CUDA device (no CPU fallback).
 """
 
@@ -41,6 +49,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import statistics
 import time
 
 import torch
@@ -100,6 +109,30 @@ def kernel_times(prof) -> list:
     return out
 
 
+# The host stages of step_profile's output, by the loop's spans.
+HOST_STAGES = (("batch", "tethys.loop.input"),
+               ("queue_step", "tethys.loop.dispatch"),
+               ("wait_previous_loss", "tethys.loop.fetch"))
+
+
+def loop_host_ms(rec, steps: int):
+    """({stage: host ms a step} of HOST_STAGES, the last step's fetch left
+    out; {span: {"host", "self", "device"} ms a step}) of a recording of
+    ``steps`` steps of the loop."""
+    last = max((r.step for r in rec.records if r.step is not None),
+               default=None)
+    host = collections.Counter()
+    for r in rec.records:
+        if r.name == "tethys.loop.fetch" and r.step == last:
+            continue
+        host[r.name] += r.host_ms
+    spans = {name: {"host": s["host_ms"] / steps, "self": s["self_ms"] / steps,
+                    "device": (None if s["device_ms"] is None
+                               else s["device_ms"] / steps)}
+             for name, s in rec.summary()["spans"].items()}
+    return {stage: host[name] / steps for stage, name in HOST_STAGES}, spans
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", default="wav2vec2",
@@ -130,8 +163,9 @@ def main(argv=None) -> dict:
     capacity = dict(remat=args.remat, grad_accum=args.grad_accum,
                     master_dtype=args.master_dtype, flat_opt=args.flat_opt)
 
-    from tethys_tpu_torch.parallel.dp import step_generator
     from tethys_tpu_torch.train.jobs import make_wav2vec2_job, make_whisper_job
+    from tethys_tpu_torch.train.loop import run_training
+    from tethys_tpu_torch.utils import tracing
     from tethys_tpu_torch.utils.device import require_cuda
 
     device = require_cuda()
@@ -148,36 +182,23 @@ def main(argv=None) -> dict:
             "pretraining", args.model_size, batch_size,
             compute_dtype=args.dtype, audio_length=args.audio_length,
             device=device, seed=0, scan_layers=args.scan_layers, **capacity)
-    batches = iter(job.dataset)
-    state, count, losses = job.state, 0, []
-    host = collections.Counter()  # seconds of host time by stage
+    losses = []
 
     def run(n):
-        nonlocal state, count
-        pending = None
-        for _ in range(n):
-            t0 = time.perf_counter()
-            batch = job.prepare_batch(next(batches))
-            t1 = time.perf_counter()
-            state, loss = job.step_fn(state, batch, step_generator(0, count))
-            t2 = time.perf_counter()
-            count += 1
-            if pending is not None:
-                losses.append(pending.item())
-            host["batch"] += t1 - t0
-            host["queue_step"] += t2 - t1
-            host["wait_previous_loss"] += time.perf_counter() - t2
-            pending = loss
-        losses.append(pending.item())
+        result = run_training(job.step_fn, job.dataset, job.state, 0,
+                              max_iterations=n,
+                              prepare_batch=job.prepare_batch)
+        losses.extend(result.losses)
 
     run(args.warmup)
     torch.cuda.synchronize()
-    host.clear()
-    t0 = time.perf_counter()
-    run(args.steps)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    host_ms = {k: v * 1e3 / args.steps for k, v in host.items()}
+    with tracing.recording() as rec:
+        t0 = time.perf_counter()
+        run(args.steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    host_ms, spans = loop_host_ms(rec, args.steps)
+    turns = rec.turns("tethys.step.optimizer", "tethys.step.forward")
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -210,6 +231,10 @@ def main(argv=None) -> dict:
         "device_ms_per_step": device_ms,
         "launches_per_step": launches / args.steps,
         "host_ms_per_step": host_ms,
+        "spans_ms_per_step": spans,
+        "step_turn_ms": statistics.median(turns) if turns else None,
+        "counters_per_step": {k: v / args.steps
+                              for k, v in rec.counters.items()},
         "idle_share": 1.0 - device_ms / wall_ms,
         "ms_per_step_by_category": dict(by_category.most_common()),
         "launches_per_step_by_category": dict(

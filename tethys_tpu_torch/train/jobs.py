@@ -4,8 +4,12 @@
 weights, its optimizer, the synthetic dataset, the train step and the
 loop, on one device (a CUDA device unless the caller names another);
 ``make_whisper_job`` and ``make_wav2vec2_job`` build the step alone (the
-profiler drives them too).  ``finalize_job``: the JCT print, the JCT file,
-the final weights save and the end of the process group.  With
+profiler drives them too), each call inside the span
+``tethys.setup.build_job`` (utils/tracing); Whisper's ``prepare_batch``
+counts its bytes under ``input.bytes.pageable``, and Wav2Vec2's
+pretraining loss draws its negatives inside ``tethys.w2v2.negatives``.
+``finalize_job``: the JCT print, the JCT file, the final weights save and
+the end of the process group.  With
 ``resume=True`` each restores its own newest checkpoint (``whisper_<size>_*``
 or ``model_*``) into the fresh state and prints ``Resumed from checkpoint
 <tag>``; the loop then starts at step 0 with the same seeds, as the JAX
@@ -93,6 +97,7 @@ from tethys_tpu_torch.profiling import tensorsize
 from tethys_tpu_torch.profiling.comm import write_collective_report
 from tethys_tpu_torch.train.loop import TrainLoopResult, run_training
 from tethys_tpu_torch.utils.artifacts import write_jct
+from tethys_tpu_torch.utils import tracing
 from tethys_tpu_torch.utils.device import host_to_device, require_cuda
 
 
@@ -125,6 +130,7 @@ def parallel_layout(tensor_parallel: int = 1, seq_parallel: int = 1,
     return mesh.make_data_mesh()
 
 
+@tracing.spanned("tethys.setup.build_job")
 def make_whisper_job(
     model_type: str = "small",
     batch_size_per_replica: int = 1,
@@ -177,6 +183,7 @@ def make_whisper_job(
 
     def prepare_batch(batch):
         features, labels = batch
+        tracing.count("input.bytes.pageable", features.nbytes + labels.nbytes)
         return (torch.from_numpy(features).to(device),
                 torch.from_numpy(labels).to(device))
 
@@ -365,6 +372,7 @@ def _whole_model(state: dp.TrainState):
     return model.train(state.model.training)
 
 
+@tracing.spanned("tethys.setup.build_job")
 def make_wav2vec2_job(
     model_type: str = "pretraining",
     model_size: str = "small",
@@ -424,8 +432,9 @@ def make_wav2vec2_job(
     def loss_fn(model, batch, generator):
         audio, labels = batch
         if model_type == "pretraining":
-            negatives = losses.sample_negative_indices(
-                generator, audio.shape[0], frames, config.num_negatives)
+            with tracing.span("tethys.w2v2.negatives"):
+                negatives = losses.sample_negative_indices(
+                    generator, audio.shape[0], frames, config.num_negatives)
             outputs = model(audio, generator=generator)
             return wav2vec2_lib.pretraining_loss(
                 config, outputs, negative_indices=negatives)

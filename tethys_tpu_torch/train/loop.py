@@ -33,6 +33,15 @@ dispatched and fetched with it in one transfer, so they reach the hooks as
 Python floats (their dicts' keys sorted, as a JAX step's output pytree
 has them); larger tensors reach the hooks as they are.  Without aux the
 hooks get None.  A step that fails calls no hook.
+
+Spans (``utils/tracing``; nothing is recorded unless recording is on):
+``tethys.loop.input`` (the next batch and ``prepare_batch``, timed on the
+device too), ``tethys.loop.dispatch`` (the step function's call),
+``tethys.loop.fetch`` (the host blocked on a step's loss),
+``tethys.loop.hooks`` and ``tethys.loop.checkpoint``; the counter
+``loop.steps_failed`` counts the steps whose error a resilient loop
+swallowed.  The loop sets the step id: a step's input and dispatch carry
+it, and so do its fetch and hooks, one iteration later.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import torch
 from tethys_tpu_torch.checkpoint import CheckpointManager
 from tethys_tpu_torch.parallel import mesh
 from tethys_tpu_torch.parallel.dp import aux_leaves, aux_tree, step_generator
+from tethys_tpu_torch.utils import tracing
 
 
 class TrainLoopResult(NamedTuple):
@@ -115,9 +125,11 @@ def run_training(
         if entry is None:
             return
         idx, fetch, stacked, leaves, p_start = entry
+        tracing.set_step(idx)
         try:
             # The loss, or the loss and the aux's scalars: one transfer.
-            fetched = fetch.tolist() if stacked else [float(fetch.item())]
+            with tracing.span("tethys.loop.fetch"):
+                fetched = fetch.tolist() if stacked else [float(fetch.item())]
         except Exception as e:  # noqa: BLE001 - a poisoned device result
             raise _PendingFetchError(idx, e) from e
         loss_value = fetched[0]
@@ -136,8 +148,15 @@ def run_training(
         )
         losses.append(loss_value)
         step_times.append(step_duration)
-        for hook in step_hooks:
-            hook(idx, loss_value, step_duration, aux)
+        if step_hooks:
+            with tracing.span("tethys.loop.hooks"):
+                for hook in step_hooks:
+                    hook(idx, loss_value, step_duration, aux)
+
+    def failed(idx, cause):
+        """A step whose error the resilient loop swallows."""
+        tracing.count("loop.steps_failed")
+        print(f"Error at step {idx}: {cause}", flush=True)
 
     def flush_pending():
         nonlocal pending
@@ -151,23 +170,30 @@ def run_training(
         except _PendingFetchError as e:
             if not resilient:
                 raise e.cause
-            print(f"Error at step {e.idx}: {e.cause}", flush=True)
+            failed(e.idx, e.cause)
+
+    def save(tag):
+        with tracing.span("tethys.loop.checkpoint"):
+            checkpoint_manager.save(tag, state)
 
     for epoch in range(num_epochs):
         print(f"Epoch {epoch+1}/{num_epochs}", flush=True)
         it = 0
         while it < max_iterations:
             try:
-                try:
-                    batch = next(iterator)
-                except StopIteration:
-                    iterator = iter(dataset)
-                    batch = next(iterator)
-                step_start = time.time()
-                if prepare_batch is not None:
-                    batch = prepare_batch(batch)
-                outputs = step_fn(state, batch,
-                                  step_generator(seed, step, replica))
+                tracing.set_step(step)
+                with tracing.span("tethys.loop.input", device=True):
+                    try:
+                        batch = next(iterator)
+                    except StopIteration:
+                        iterator = iter(dataset)
+                        batch = next(iterator)
+                    step_start = time.time()
+                    if prepare_batch is not None:
+                        batch = prepare_batch(batch)
+                with tracing.span("tethys.loop.dispatch"):
+                    outputs = step_fn(state, batch,
+                                      step_generator(seed, step, replica))
                 state, loss = outputs[:2]
                 packed = _pack(loss, outputs[2] if len(outputs) == 3 else None)
                 # Register step i, then wait for step i-1: if that fetch
@@ -179,30 +205,28 @@ def run_training(
                 if (checkpoint_manager is not None and checkpoint_every_steps
                         and step % checkpoint_every_steps == 0):
                     flush_pending()      # stdout order before the save
-                    checkpoint_manager.save(f"{checkpoint_tag}_step_{step}",
-                                            state)
+                    save(f"{checkpoint_tag}_step_{step}")
             except _PendingFetchError as e:
                 if not resilient:
                     raise e.cause
-                print(f"Error at step {e.idx}: {e.cause}", flush=True)
+                failed(e.idx, e.cause)
                 iterator = iter(dataset)
             except Exception as e:  # noqa: BLE001
                 if not resilient:
                     raise
-                failed = step
+                failed_step = step
                 try:
                     # The step before a dispatch-time error is still good:
                     # its line comes before the error line.
                     flush_pending()
                 except _PendingFetchError as pe:
-                    print(f"Error at step {pe.idx}: {pe.cause}", flush=True)
-                print(f"Error at step {failed}: {e}", flush=True)
+                    failed(pe.idx, pe.cause)
+                failed(failed_step, e)
                 iterator = iter(dataset)
                 it += 1
         final_flush()
         if checkpoint_manager is not None:
-            checkpoint_manager.save(f"{checkpoint_tag}_epoch_{epoch+1}",
-                                    state)
+            save(f"{checkpoint_tag}_epoch_{epoch+1}")
 
     return TrainLoopResult(state, losses, step_times, step)
 

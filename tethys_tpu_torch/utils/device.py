@@ -13,6 +13,7 @@ import subprocess
 import torch
 
 from tethys_tpu_torch.parallel.mesh import local_rank
+from tethys_tpu_torch.utils import tracing
 
 
 def require_cuda() -> torch.device:
@@ -62,10 +63,12 @@ def cpu_or_raise(name: str, tensor: torch.Tensor) -> None:
 def host_to_device(tensor: torch.Tensor, device) -> torch.Tensor:
     """A host tensor on ``device``.  To the card it goes through pinned
     memory as a non-blocking copy, so the host does not wait for the work
-    already queued on the device (a copy from pageable memory would)."""
+    already queued on the device (a copy from pageable memory would); its
+    bytes count under ``input.bytes.pinned`` (utils/tracing)."""
     device = torch.device(device)
     if tensor.device == device:
         return tensor
     if device.type == "cuda" and tensor.device.type == "cpu":
+        tracing.count("input.bytes.pinned", tensor.nbytes)
         return tensor.pin_memory().to(device, non_blocking=True)
     return tensor.to(device)

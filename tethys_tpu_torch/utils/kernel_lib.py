@@ -24,8 +24,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
+
+from tethys_tpu_torch.utils import tracing
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -44,9 +45,7 @@ _F = ctypes.c_float
 
 _lock = threading.Lock()
 _lib = None
-# Seconds the last build in this process took (None: loaded from the
-# cache or not built yet), and the compiler's report (-Xptxas=-v).
-build_seconds = None
+# The compiler's report (-Xptxas=-v) of the last build in this process.
 build_log = ""
 
 
@@ -236,15 +235,20 @@ def _source_hash() -> str:
 
 
 def build() -> Path:
-    """Compile the library unless this source hash was built already."""
-    global build_seconds, build_log
+    """Compile the library unless this source hash was built already
+    (nvcc and the link inside the span ``tethys.kernels.build``)."""
     out_dir = BUILD_DIR / _source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
+    with tracing.span("tethys.kernels.build"):
+        return _compile(out_dir, lib_path)
+
+
+def _compile(out_dir: Path, lib_path: Path) -> Path:
+    global build_log
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
     objects, procs = [], []
     for src in sorted(CSRC_DIR.glob("*.cu")):
         obj = out_dir / f"{src.stem}.{os.getpid()}.o"
@@ -269,25 +273,26 @@ def build() -> Path:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-6000:])
     os.replace(tmp, lib_path)  # atomic: a reader never sees half a library
-    build_seconds = time.perf_counter() - t0
     return lib_path
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if need be."""
+    """The loaded kernel library, built first if need be (its first load
+    inside the span ``tethys.kernels.load``, a build inside it)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for k in KERNELS:
-                fn = getattr(lib, k.symbol)
-                fn.argtypes = k.argtypes
-                fn.restype = ctypes.c_int
-            lib.tethys_error_string.argtypes = (ctypes.c_int,)
-            lib.tethys_error_string.restype = ctypes.c_char_p
-            for symbol, argtypes in _QUERIES.items():
-                getattr(lib, symbol).argtypes = argtypes
-                getattr(lib, symbol).restype = ctypes.c_int
+            with tracing.span("tethys.kernels.load"):
+                lib = ctypes.CDLL(str(build()))
+                for k in KERNELS:
+                    fn = getattr(lib, k.symbol)
+                    fn.argtypes = k.argtypes
+                    fn.restype = ctypes.c_int
+                lib.tethys_error_string.argtypes = (ctypes.c_int,)
+                lib.tethys_error_string.restype = ctypes.c_char_p
+                for symbol, argtypes in _QUERIES.items():
+                    getattr(lib, symbol).argtypes = argtypes
+                    getattr(lib, symbol).restype = ctypes.c_int
             _lib = lib
         return _lib
 
